@@ -1,0 +1,246 @@
+"""Fused whole-solver kernel: the CUDA kernel `csrc/fused_solve.cu` and its
+plain PyTorch version.
+
+Replaces `spsvo_tpu.ops.solver_pallas.fused_solve`: RANSAC scoring of S
+precomputed hypotheses plus the prior lane -> winner (first max, sampled
+lanes win ties) -> 2x weighted-Horn refit -> degree-1 GN polish -> PnP and
+acceleration gates -> unrolled LM -> optional GLS LM, one launch per frame.
+
+Division of labour, as in the JAX package: hypothesis generation
+(`precompute_hypotheses`, Gumbel 3-point sampling + Horn) and point packing
+(`pack_points`) stay torch ops; everything that depends on the motion prior
+runs in the kernel. The kernel takes a frame dimension F (one CTA per
+frame); the per-frame path launches F=1.
+
+`fused_solve_packed` launches the kernel for CUDA tensors and uses the plain
+version (`fused_solve_plain`, op by op: `pnp._score_mask`,
+`pnp.refit_polish`, `lm.refine_pose` and the gates, i.e. `solve_prepared`'s
+single-batch route) only for CPU tensors; it never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from spsvo_tpu_torch import _build
+from spsvo_tpu_torch.config import VOConfig
+from spsvo_tpu_torch.geometry import se3
+from spsvo_tpu_torch.ops import lm, pnp
+from spsvo_tpu_torch.ops.solver import PreparedSolve, SolveResult
+
+N_OUT = 20
+
+
+class SolveParams(NamedTuple):
+    """The kernel's scalar arguments (compile-time constants of the TPU
+    kernel)."""
+
+    thr2: float
+    reproj_threshold: float
+    huber_delta: float
+    min_inliers: float
+    time_interval: float
+    max_acceleration: float
+    ignore_frame_count: float
+    degree: int
+    lm_iters: int
+    polish_iters: int
+    weighted_lm: bool
+
+
+def solve_params(cfg: VOConfig, weighted_lm: bool = False) -> SolveParams:
+    if cfg.lm_unroll <= 0:
+        raise ValueError("fused_solve requires cfg.lm_unroll > 0")
+    return SolveParams(
+        thr2=float(cfg.ransac_reproj_threshold) ** 2,
+        reproj_threshold=float(cfg.ransac_reproj_threshold),
+        huber_delta=float(cfg.huber_delta),
+        min_inliers=float(cfg.ransac_min_inliers),
+        time_interval=float(cfg.time_interval),
+        max_acceleration=float(cfg.max_acceleration),
+        ignore_frame_count=float(cfg.ignore_frame_count),
+        degree=int(cfg.refinement_degree), lm_iters=int(cfg.lm_unroll),
+        polish_iters=int(min(cfg.lm_unroll, 4)), weighted_lm=bool(weighted_lm))
+
+
+def precompute_hypotheses(prep: PreparedSolve, cfg: VOConfig, *,
+                          gumbel: Optional[torch.Tensor] = None,
+                          generator: Optional[torch.Generator] = None
+                          ) -> torch.Tensor:
+    """Gumbel 3-point sampling + Horn solves (`pnp.ransac_pose`'s hypothesis
+    stage): (S, 12) rows of [R row-major | t]."""
+    idx = pnp._sample_indices(prep.chain, cfg.ransac_iterations, 3, gumbel,
+                              generator)
+    q_h, t_h = pnp._horn(prep.pts3d_curr[idx], prep.pts3d_prev[idx],
+                         torch.ones(idx.shape, dtype=torch.float32,
+                                    device=idx.device))
+    R_h = se3.quat_to_matrix(q_h)
+    return torch.cat([R_h.reshape(-1, 9), t_h], dim=-1).to(
+        torch.float32).contiguous()
+
+
+def pack_points(prep: PreparedSolve,
+                lane_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """PreparedSolve -> the kernel's (16, Lp) row layout, Lp = L rounded up
+    to a multiple of 128. Row 15 holds the GLS lane weights (zeros when
+    None)."""
+    L = prep.chain.shape[0]
+    Lp = max(128, -(-L // 128) * 128)
+    dev = prep.chain.device
+    rows = torch.cat([
+        prep.pts3d_curr.T, prep.pts3d_prev.T, prep.uv_prev_l.T,
+        prep.uv_prev_r.T, prep.uv_curr_l.T, prep.uv_curr_r.T,
+        prep.chain.to(torch.float32)[None],
+        (torch.zeros((1, L), device=dev) if lane_weights is None
+         else lane_weights.to(torch.float32)[None]),
+    ]).to(torch.float32)
+    return torch.nn.functional.pad(rows, (0, Lp - L)).contiguous()
+
+
+def pack_scalars(q_pred, t_pred, frame_count, P_l, P_r) -> torch.Tensor:
+    """[q_pred(4) t_pred(3) frame_count(1) P_l(12) P_r(12)] -> (32,)."""
+    dev = q_pred.device
+    return torch.cat([
+        q_pred.to(torch.float32).reshape(4), t_pred.to(torch.float32).reshape(3),
+        torch.as_tensor(frame_count, device=dev).to(torch.float32).reshape(1),
+        P_l.to(torch.float32).reshape(12), P_r.to(torch.float32).reshape(12)])
+
+
+def _plain_one(pts: torch.Tensor, hyp: torch.Tensor, scal: torch.Tensor,
+               p: SolveParams) -> Tuple[torch.Tensor, torch.Tensor]:
+    Xc, Xp = pts[0:3].T, pts[3:6].T
+    uv_pl, uv_pr = pts[6:8].T, pts[8:10].T
+    uv_cl, uv_cr = pts[10:12].T, pts[12:14].T
+    chain = pts[14] > 0
+    q_pred, t_pred, fc = scal[0:4], scal[4:7], scal[7]
+    P_l, P_r = scal[8:20].reshape(3, 4), scal[20:32].reshape(3, 4)
+
+    R, t, inl, sampled = pnp.best_hypothesis(
+        hyp[:, :9].reshape(-1, 3, 3), hyp[:, 9:12], q_pred, t_pred, Xc,
+        uv_pl, chain, P_l, p.thr2)
+    q_raw, t_raw, inl = pnp.refit_polish(
+        R, t, inl, Xc, Xp, uv_pl, chain, P_l,
+        reproj_threshold=p.reproj_threshold, polish_unroll=p.polish_iters)
+    num = inl.sum()
+    success = num >= p.min_inliers
+    accel = torch.linalg.vector_norm(t_raw - t_pred) / p.time_interval
+    anomaly = (fc > p.ignore_frame_count) & (accel > p.max_acceleration)
+    use_pred = (~success) | anomaly
+    do_opt = ~use_pred
+    q = torch.where(use_pred, q_pred, q_raw)
+    t = torch.where(use_pred, t_pred, t_raw)
+    q_pn = torch.where(do_opt, q_raw, q_pred)
+    t_pn = torch.where(do_opt, t_raw, t_pred)
+
+    lm_improved = torch.zeros((), dtype=torch.bool, device=pts.device)
+    passes = []
+    if p.degree > 0 and p.lm_iters > 0:
+        passes.append(None)
+        if p.weighted_lm and p.degree >= 3:
+            passes.append(pts[15])
+    for weights in passes:
+        refined = lm.refine_pose(
+            q, t, Xc, Xp, uv_pl, uv_pr, uv_cl, uv_cr, inl & do_opt, P_l, P_r,
+            refinement_degree=p.degree, huber_delta=p.huber_delta,
+            unroll=p.lm_iters, inv_factor_weights=weights)
+        q = torch.where(do_opt, refined.q, q)
+        t = torch.where(do_opt, refined.t, t)
+        if weights is None:
+            lm_improved = refined.improved & do_opt
+
+    f32 = lambda x: x.to(torch.float32).reshape(-1)  # noqa: E731
+    out = torch.cat([f32(q), f32(t), f32(q_pn), f32(t_pn), f32(num),
+                     f32(success), f32(anomaly), f32(lm_improved),
+                     f32(~sampled), f32(chain.sum())])
+    return out, inl.to(torch.float32)
+
+
+def fused_solve_plain(pts: torch.Tensor, hyp: torch.Tensor,
+                      scal: torch.Tensor, p: SolveParams
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel on any device. pts (F, 16, Lp), hyp
+    (F, S, 12), scal (F, 32) -> (out (F, 20), inl (F, Lp)) float32."""
+    outs = [_plain_one(pts[f], hyp[f], scal[f], p) for f in range(pts.shape[0])]
+    return (torch.stack([o for o, _ in outs]),
+            torch.stack([i for _, i in outs]))
+
+
+def _lib():
+    fn = _build.load("fused_solve").fused_solve_launch
+    if fn.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P, P, P, P, P, I, I, I, Fl, Fl, Fl, Fl, Fl, Fl, Fl,
+                       I, I, I, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_solve_packed(pts: torch.Tensor, hyp: torch.Tensor,
+                       scal: torch.Tensor, p: SolveParams
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel on packed inputs: pts (F, 16, Lp) with Lp % 128 == 0 and
+    Lp <= 512, hyp (F, S, 12), scal (F, 32), all float32 and contiguous.
+    Returns (out (F, 20), inl (F, Lp))."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return fused_solve_plain(pts, hyp, scal, p)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_solve: unsupported device {dev}")
+    F_, rows, Lp = pts.shape
+    if rows != 16 or Lp % 128 or not 0 < Lp <= 512:
+        raise ValueError(f"pts must be (F, 16, Lp) with Lp a multiple of 128 "
+                         f"up to 512, got {tuple(pts.shape)}")
+    if hyp.dim() != 3 or hyp.shape[0] != F_ or hyp.shape[2] != 12:
+        raise ValueError(f"hyp must be (F, S, 12), got {tuple(hyp.shape)}")
+    if tuple(scal.shape) != (F_, 32):
+        raise ValueError(f"scal must be (F, 32), got {tuple(scal.shape)}")
+    for name, x in (("pts", pts), ("hyp", hyp), ("scal", scal)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    out = torch.empty((F_, N_OUT), dtype=torch.float32, device=dev)
+    inl = torch.empty((F_, Lp), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = _lib()(pts.data_ptr(), hyp.data_ptr(), scal.data_ptr(),
+                     out.data_ptr(), inl.data_ptr(), F_, hyp.shape[1], Lp,
+                     p.thr2, p.reproj_threshold, p.huber_delta, p.min_inliers,
+                     p.time_interval, p.max_acceleration,
+                     p.ignore_frame_count, p.degree, p.lm_iters,
+                     p.polish_iters, int(p.weighted_lm), stream)
+    _build.check_status(err, "fused_solve")
+    _build.launches["fused_solve"] += 1
+    return out, inl
+
+
+def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
+                P_r: torch.Tensor, q_pred: torch.Tensor, t_pred: torch.Tensor,
+                frame_count, cfg: VOConfig,
+                lane_weights: Optional[torch.Tensor] = None,
+                use_kernel: bool = True) -> SolveResult:
+    """`solver.solve_prepared`'s prior-dependent core (single-batch RANSAC +
+    unrolled LM) on hypotheses `hyp` (S, 12): the kernel wrapper, or with
+    `use_kernel=False` the plain version on any device. `lane_weights` (L,)
+    runs the GLS weighted LM as a second pass. Masks stay at lane level."""
+    L = prep.chain.shape[0]
+    p = solve_params(cfg, weighted_lm=lane_weights is not None)
+    pts = pack_points(prep, lane_weights)
+    scal = pack_scalars(q_pred, t_pred, frame_count, P_l, P_r)
+    run = fused_solve_packed if use_kernel else fused_solve_plain
+    out, inl = run(pts[None], hyp[None].contiguous(), scal[None], p)
+    out = out[0]
+    q, t = out[0:4], out[4:7]
+    chain = prep.chain
+    return SolveResult(
+        q=q, t=t, T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
+        q_pred=out[7:11], t_pred=out[11:14],
+        chain_valid=chain, inliers=(inl[0, :L] > 0) & chain,
+        num_chain=out[19].to(torch.int32),
+        num_inliers=out[14].to(torch.int32),
+        pnp_success=out[15] > 0, accel_anomaly=out[16] > 0,
+        lm_improved=out[17] > 0,
+        n_ransac_hypotheses=cfg.ransac_iterations,
+        chain_truncated=prep.num_chain_total > L,
+        prior_winner=out[18] > 0)
