@@ -52,12 +52,13 @@ def nvcc_path() -> str:
     return path
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Compile (if needed) and load `csrc/<name>.cu`."""
+def load(name: str, src: str = "") -> ctypes.CDLL:
+    """Compile (if needed) and load `csrc/<name>.cu`, or the source file
+    `src` under the name `name` (an instrumented copy, for example)."""
     with _lock:
         if name in _libs:
             return _libs[name]
-        src = os.path.join(CSRC, f"{name}.cu")
+        src = src or os.path.join(CSRC, f"{name}.cu")
         with open(src, "rb") as f:
             digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
                                     ).hexdigest()[:16]

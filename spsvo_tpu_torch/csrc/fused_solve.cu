@@ -1,9 +1,9 @@
 // Fused whole-solver kernel for Hopper (sm_90a): RANSAC scoring -> winner
 // -> refit -> polish -> gates -> LM (-> optional GLS LM) in ONE launch per
-// frame.
+// call, one thread-block cluster per frame.
 //
 // Replaces the TPU kernel spsvo_tpu/ops/solver_pallas.py::_solve_kernel
-// (wrapper fused_solve). Inputs per frame f (one CTA each):
+// (wrapper fused_solve). Inputs per frame f:
 //   pts  (F, 16, Lp) fp32 rows: Xc(3) Xp(3) uv_pl(2) uv_pr(2) uv_cl(2)
 //        uv_cr(2) chain(1) lane_weight(1)       (solver_cuda.pack_points)
 //   hyp  (F, S, 12) fp32 [R row-major | t]     (precompute_hypotheses)
@@ -12,27 +12,54 @@
 // pnp_success accel_anomaly lm_improved prior_winner num_chain, and the
 // final inlier row inl (F, Lp) fp32.
 //
-// What bounds it on this card: nothing in bytes or FLOPs. At S=256, L=128
-// the whole solve is ~10^6 flops on 8 KB of points; its cost is the chain of
-// dependent block-wide reductions (the LM normal equations, Horn sums,
-// inlier counts, Huber costs) and the scalar tail between them. Op by op
-// it is hundreds of tiny launches per frame; here it is one. Design: 256
-// threads; every point row lives in shared memory. Scoring: thread s scores
-// hypothesis s against all lanes and keeps its own count (no reduction).
-// The first-max argmax over S and every lane sum use a fixed-order tree
-// (warp butterfly, then the per-warp partials summed in warp order), so
-// results are identical from run to run. The scalar tail (power iteration,
-// Shepperd, 6x6 Cholesky, boxplus, lambda schedule, gates) runs redundantly
-// and identically in every thread on broadcast sums, in fp32 with sqrtf /
-// sinf / cosf (no fast math).
+// What bounds it on this card: neither bytes nor FLOPs. At S=256, L=128
+// the work is ~1 MFLOP of scoring and ~3-4 MFLOP of LM (polish, LM, GLS:
+// 18 iterations over 128 lanes and up to 4 factors), ~0.07 us at the fp32
+// peak, on ~21 KB of inputs. Its time is the latency of a long chain of
+// dependent steps: the scoring pass, then ~60 lane reductions with a scalar
+// tail (power iteration, Shepperd, 6x6 Cholesky, boxplus, gates) between
+// them. The design cuts that chain:
+//  - Scoring, the one wide step, is spread over a cluster of CL=8 CTAs on
+//    8 SMs: CTA r scores hypotheses [S*r/8, S*(r+1)/8); each warp takes a
+//    hypothesis at a time with the lanes split across its 32 threads and
+//    counts inliers with __ballot_sync/__popc. Counts are integers, so the
+//    first-max argmax (count desc, index asc: warps, then CTAs in rank
+//    order through distributed shared memory) does not depend on order.
+//  - Everything after the winner runs on warpgroup 0 of the cluster's
+//    first CTA (128 threads, lane l on thread l % 128; the other warps and
+//    CTAs have exited). A lane sum is a warp butterfly, then the 4 warps'
+//    partials through a double-buffered shared slot and ONE named barrier
+//    (bar.sync 1, 128), added in warp order: no __syncthreads and no second
+//    barrier in the chain. Lane masks are owned by their thread, so
+//    updating them needs no barrier at all.
+//  - One lane pass per LM iteration: the pass that evaluates the Huber
+//    cost at a candidate pose also accumulates the normal equations there,
+//    and both go through one 28-wide sum. If the step is accepted they are
+//    the next iteration's normal equations; if it is rejected the previous
+//    ones still hold (only lambda changes). Same values, half the passes.
+//  - Every small loop (factors, 6x6 Cholesky, 28 sums) is unrolled with
+//    compile-time indices, so the scalar tail and the per-lane Jacobians
+//    stay in registers; the factors are branch-free so they interleave,
+//    and a Jacobian takes one reciprocal of the depth, not six divides.
+//    Wide sums use a transposing warp butterfly (31 shuffles for 28 values).
+//  - The scalar tail runs redundantly and identically in all 128 threads
+//    on the broadcast sums, in IEEE fp32 (sqrtf/sinf/cosf, no fast math);
+//    the Cholesky divides once per pivot and multiplies by the reciprocal.
+// Every sum has a fixed order, so results are bitwise identical from run
+// to run. F frames are F independent clusters (grid F*8).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NT = 256;
+constexpr int CL = 8;            // CTAs per frame (one cluster)
+constexpr int NT = 256;          // threads per CTA (scoring)
 constexpr int NWARP = NT / 32;
+constexpr int WG = 128;          // the solve chain: one warpgroup
 constexpr int MAX_L = 512;
 constexpr int MAX_RED = 32;
 constexpr unsigned FULL = 0xffffffffu;
@@ -45,52 +72,95 @@ struct Params {
 
 struct Smem {
   float pts[16][MAX_L];
-  float inl[MAX_L];       // current inlier row
+  float inl[MAX_L];       // current inlier row (lane l owned by thread l%WG)
   float cand[MAX_L];      // candidate inlier row
-  float red[MAX_RED][NWARP];
-  float res[MAX_RED];
-  int argc[NWARP], argi[NWARP];
+  float4 red[2][MAX_RED]; // per-warp partials of a warpgroup sum
+  int wc[NWARP], ws[NWARP];   // per-warp scoring winners
+  int cc[CL], cs[CL];         // per-CTA winners (written into rank 0)
 };
 
-// ---- block-wide fixed-order sums ------------------------------------------
+// ---- warpgroup-wide fixed-order sums ---------------------------------------
 
-template <int N>
-__device__ void block_sum(float (&v)[N], Smem& sh) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    for (int off = 16; off > 0; off >>= 1)
-      v[i] += __shfl_xor_sync(FULL, v[i], off);
-  if (lane == 0)
-#pragma unroll
-    for (int i = 0; i < N; ++i) sh.red[i][warp] = v[i];
-  __syncthreads();
-  if (threadIdx.x < N) {
-    float s = 0.f;
-    for (int w = 0; w < NWARP; ++w) s += sh.red[threadIdx.x][w];
-    sh.res[threadIdx.x] = s;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < N; ++i) v[i] = sh.res[i];
-  __syncthreads();
+struct Chain {
+  Smem& sh;
+  const Params& p;
+  int ph;                 // which half of sh.red the next sum uses
+};
+
+__device__ __forceinline__ void wg_bar() {
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
 }
 
-__device__ float block_sum1(float v, Smem& sh) {
+// Every thread of the warpgroup gets the same sums. Within a warp, fewer
+// than 16 values take a butterfly each; more take a transposing butterfly (at
+// offset h a lane keeps one half of its values and trades the other, so 32
+// values cost 31 shuffles, not 160, and lane i ends with value i). Double
+// buffering makes one barrier enough: a thread writes a half of sh.red
+// again only after the next sum's barrier, which every reader of that half
+// has passed. Every value is summed in a fixed order.
+// One level of the transposing butterfly: values [0, 2H) -> [0, H).
+template <int H>
+__device__ __forceinline__ void trade_half(float (&w)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? w[i] : w[i + H];
+    const float keep = up ? w[i + H] : w[i];
+    w[i] = keep + __shfl_xor_sync(FULL, send, H);
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void wg_sum(float (&v)[N], Chain& ch) {
+  static_assert(N <= MAX_RED, "wg_sum: too many values");
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float4* red = ch.sh.red[ch.ph];
+  ch.ph ^= 1;
+  if (N < 16) {
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v[i] += __shfl_xor_sync(FULL, v[i], off);
+    if (lane == 0)
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        reinterpret_cast<float*>(&red[i])[warp] = v[i];
+  } else {
+    float w[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) w[i] = i < N ? v[i] : 0.f;
+    trade_half<16>(w, lane);
+    trade_half<8>(w, lane);
+    trade_half<4>(w, lane);
+    trade_half<2>(w, lane);
+    trade_half<1>(w, lane);
+    if (lane < N) reinterpret_cast<float*>(&red[lane])[warp] = w[0];
+  }
+  wg_bar();
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float4 r = red[i];
+    v[i] = ((r.x + r.y) + r.z) + r.w;
+  }
+}
+
+__device__ __forceinline__ float wg_sum1(float v, Chain& ch) {
   float a[1] = {v};
-  block_sum<1>(a, sh);
+  wg_sum<1>(a, ch);
   return a[0];
 }
 
 // ---- scalar helpers (every thread computes the same values) ---------------
 
-__device__ void quat_normalize(float q[4]) {
+__device__ __forceinline__ void quat_normalize(float q[4]) {
   const float n = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   const float inv = 1.f / fmaxf(n, 1e-12f);
+#pragma unroll
   for (int i = 0; i < 4; ++i) q[i] *= inv;
 }
 
-__device__ void quat_to_R(const float qin[4], float R[9]) {
+__device__ __forceinline__ void quat_to_R(const float qin[4], float R[9]) {
   float q[4] = {qin[0], qin[1], qin[2], qin[3]};
   quat_normalize(q);
   const float x = q[0], y = q[1], z = q[2], w = q[3];
@@ -103,7 +173,7 @@ __device__ void quat_to_R(const float qin[4], float R[9]) {
 }
 
 // Branch-free Shepperd: candidate with the largest norm, first max wins.
-__device__ void matrix_to_quat(const float R[9], float q[4]) {
+__device__ __forceinline__ void matrix_to_quat(const float R[9], float q[4]) {
   const float r00 = R[0], r01 = R[1], r02 = R[2], r10 = R[3], r11 = R[4],
               r12 = R[5], r20 = R[6], r21 = R[7], r22 = R[8];
   const float tr = r00 + r11 + r22;
@@ -114,14 +184,19 @@ __device__ void matrix_to_quat(const float R[9], float q[4]) {
                          {r21 - r12, norms[1], r01 + r10, r02 + r20},
                          {r02 - r20, r01 + r10, norms[2], r12 + r21},
                          {r10 - r01, r02 + r20, r12 + r21, norms[3]}};
-  int best = 0;
+  float bn = norms[0];
+  q[0] = c[0][1]; q[1] = c[0][2]; q[2] = c[0][3]; q[3] = c[0][0];
+#pragma unroll
   for (int k = 1; k < 4; ++k)
-    if (norms[k] > norms[best]) best = k;
-  q[0] = c[best][1]; q[1] = c[best][2]; q[2] = c[best][3]; q[3] = c[best][0];
+    if (norms[k] > bn) {
+      bn = norms[k];
+      q[0] = c[k][1]; q[1] = c[k][2]; q[2] = c[k][3]; q[3] = c[k][0];
+    }
   quat_normalize(q);
 }
 
-__device__ void quat_boxplus(const float q[4], const float d[3], float out[4]) {
+__device__ __forceinline__ void quat_boxplus(const float q[4], const float d[3],
+                                             float out[4]) {
   const float n2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2];
   const bool small = n2 < 1e-12f;
   const float norm = sqrtf(small ? 1.f : n2);
@@ -137,26 +212,38 @@ __device__ void quat_boxplus(const float q[4], const float d[3], float out[4]) {
 }
 
 // Solve A x = b for the damped SPD 6x6 (lower triangle, packed row-major:
-// index i*(i+1)/2 + j for j <= i) by Cholesky.
-__device__ void chol_solve6(const float A[21], const float b[6], float x[6]) {
-  float L[6][6];
+// index i*(i+1)/2 + j for j <= i) by Cholesky; one divide per pivot.
+__device__ __forceinline__ void chol_solve6(const float A[21], const float b[6],
+                                            float x[6]) {
+  float L[6][6], inv[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i)
+#pragma unroll
     for (int j = 0; j <= i; ++j) {
       float s = A[i * (i + 1) / 2 + j];
+#pragma unroll
       for (int k = 0; k < j; ++k) s -= L[i][k] * L[j][k];
-      if (i == j) L[i][i] = sqrtf(fmaxf(s, 1e-24f));
-      else L[i][j] = s / L[j][j];
+      if (i == j) {
+        L[i][i] = sqrtf(fmaxf(s, 1e-24f));
+        inv[i] = 1.f / L[i][i];
+      } else {
+        L[i][j] = s * inv[j];
+      }
     }
   float y[6];
+#pragma unroll
   for (int i = 0; i < 6; ++i) {
     float s = b[i];
+#pragma unroll
     for (int k = 0; k < i; ++k) s -= L[i][k] * y[k];
-    y[i] = s / L[i][i];
+    y[i] = s * inv[i];
   }
+#pragma unroll
   for (int i = 5; i >= 0; --i) {
     float s = y[i];
+#pragma unroll
     for (int k = i + 1; k < 6; ++k) s -= L[k][i] * x[k];
-    x[i] = s / L[i][i];
+    x[i] = s * inv[i];
   }
 }
 
@@ -187,43 +274,62 @@ __device__ __forceinline__ bool score_lane(const Smem& sh, int l,
   return (du * du + dv * dv < thr2) && (sh.pts[14][l] > 0.f) && (Xz > 0.f);
 }
 
-// Writes the inlier row of (R, t) into `row`; returns its count.
-__device__ float score_row(Smem& sh, float* row, const float* R,
-                           const float* t, const float* Pl, const Params& p) {
-  float c = 0.f;
-  for (int l = threadIdx.x; l < p.Lp; l += NT) {
-    const float m = score_lane(sh, l, R, t, Pl, p.thr2) ? 1.f : 0.f;
+// Writes the inlier row of (R, t) into `row`; returns its count and, in
+// `n_other`, the count of row `other` (one sum for both).
+__device__ __forceinline__ float score_row(Chain& ch, float* row,
+                                           const float* R, const float* t,
+                                           const float* Pl,
+                                           const float* other = nullptr,
+                                           float* n_other = nullptr) {
+  float c[2] = {0.f, 0.f};
+  for (int l = threadIdx.x; l < ch.p.Lp; l += WG) {
+    const float m = score_lane(ch.sh, l, R, t, Pl, ch.p.thr2) ? 1.f : 0.f;
     row[l] = m;
-    c += m;
+    c[0] += m;
+    if (other) c[1] += other[l];
   }
-  return block_sum1(c, sh);
+  if (!other) return wg_sum1(c[0], ch);
+  wg_sum<2>(c, ch);
+  *n_other = c[1];
+  return c[0];
+}
+
+__device__ __forceinline__ void copy_row(Chain& ch, float* dst,
+                                         const float* src) {
+  for (int l = threadIdx.x; l < ch.p.Lp; l += WG) dst[l] = src[l];
 }
 
 // Weighted rigid alignment Xp ≈ R Xc + t with weights `w` (Horn, 16-step
 // shifted power iteration).
-__device__ void horn(Smem& sh, const float* w, const Params& p, float q[4],
-                     float R[9], float t[3]) {
+__device__ __forceinline__ void horn(Chain& ch, const float* w, float q[4],
+                                     float R[9], float t[3]) {
+  const Smem& sh = ch.sh;
+  const int Lp = ch.p.Lp;
   float ws = 0.f;
-  for (int l = threadIdx.x; l < p.Lp; l += NT) ws += w[l];
-  const float wsum = fmaxf(block_sum1(ws, sh), 1e-9f);
+  for (int l = threadIdx.x; l < Lp; l += WG) ws += w[l];
+  const float wsum = fmaxf(wg_sum1(ws, ch), 1e-9f);
   float c[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int l = threadIdx.x; l < p.Lp; l += NT) {
+  for (int l = threadIdx.x; l < Lp; l += WG) {
     const float wn = w[l] / wsum;
+#pragma unroll
     for (int i = 0; i < 6; ++i) c[i] += sh.pts[i][l] * wn;
   }
-  block_sum<6>(c, sh);
+  wg_sum<6>(c, ch);
   float H[9] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-  for (int l = threadIdx.x; l < p.Lp; l += NT) {
+  for (int l = threadIdx.x; l < Lp; l += WG) {
     const float wn = w[l] / wsum;
     float s0[3], d0[3];
+#pragma unroll
     for (int i = 0; i < 3; ++i) {
       s0[i] = sh.pts[i][l] - c[i];
       d0[i] = sh.pts[3 + i][l] - c[3 + i];
     }
+#pragma unroll
     for (int i = 0; i < 3; ++i)
+#pragma unroll
       for (int j = 0; j < 3; ++j) H[3 * i + j] += s0[i] * d0[j] * wn;
   }
-  block_sum<9>(H, sh);
+  wg_sum<9>(H, ch);
   const float sxx = H[0], sxy = H[1], sxz = H[2], syx = H[3], syy = H[4],
               syz = H[5], szx = H[6], szy = H[7], szz = H[8];
   float N[4][4] = {{sxx + syy + szz, syz - szy, szx - sxz, sxy - syx},
@@ -251,152 +357,153 @@ __device__ void horn(Smem& sh, const float* w, const Params& p, float q[4],
                        R[3 * i + 2] * c[2]);
 }
 
-// Per-factor inputs: factor f in [prev_l, prev_r, inv curr_l, inv curr_r].
-__device__ __forceinline__ int uv_row(int f) { return 6 + 2 * f; }
-
-// Lane weight of factor f: mask * (GLS weight for the backward factors).
-__device__ __forceinline__ float factor_mask(const Smem& sh, int l, int f,
-                                             float mask_scale, bool use_lw) {
-  float m = sh.inl[l] * mask_scale;
-  if (use_lw && f >= 2) m *= sh.pts[15][l];
-  return m;
-}
-
-// 0.5 * sum of Huber rho over active factors at pose (q, t).
-__device__ float huber_cost(Smem& sh, const float q[4], const float t[3],
-                            const float* Pl, const float* Pr, int degree,
-                            float delta, float mask_scale, bool use_lw,
-                            const Params& p) {
+// One lane pass at pose (q, t), summed over the warpgroup: acc[0..20] the
+// packed lower triangle of J^T W J, acc[21..26] J^T W r, acc[27] the sum of
+// Huber rho over the active factors. Factor f's inputs: f in [prev_l,
+// prev_r, inv curr_l, inv curr_r]; the factor loop is unrolled, so f is a
+// compile-time constant in each copy.
+__device__ __forceinline__ void lm_pass(Chain& ch, const float q[4],
+                                        const float t[3], const float* Pl,
+                                        const float* Pr, int degree,
+                                        float delta, float mask_scale,
+                                        bool use_lw, float (&acc)[28]) {
+  const Smem& sh = ch.sh;
   float R[9];
   quat_to_R(q, R);
   const float d2 = delta * delta;
-  float acc = 0.f;
-  for (int l = threadIdx.x; l < p.Lp; l += NT) {
-    for (int f = 0; f < degree; ++f) {
-      const float m = factor_mask(sh, l, f, mask_scale, use_lw);
-      if (m == 0.f) continue;
-      float X0, X1, X2;
-      if (f < 2) {
-        const float x0 = sh.pts[0][l], x1 = sh.pts[1][l], x2 = sh.pts[2][l];
-        X0 = R[0] * x0 + R[1] * x1 + R[2] * x2 + t[0];
-        X1 = R[3] * x0 + R[4] * x1 + R[5] * x2 + t[1];
-        X2 = R[6] * x0 + R[7] * x1 + R[8] * x2 + t[2];
-      } else {
-        const float z0 = sh.pts[3][l] - t[0], z1 = sh.pts[4][l] - t[1],
-                    z2 = sh.pts[5][l] - t[2];
-        X0 = R[0] * z0 + R[3] * z1 + R[6] * z2;
-        X1 = R[1] * z0 + R[4] * z1 + R[7] * z2;
-        X2 = R[2] * z0 + R[5] * z1 + R[8] * z2;
-      }
+#pragma unroll
+  for (int i = 0; i < 28; ++i) acc[i] = 0.f;
+  for (int l = threadIdx.x; l < ch.p.Lp; l += WG) {
+    const float x0 = sh.pts[0][l], x1 = sh.pts[1][l], x2 = sh.pts[2][l];
+    const float Y[3] = {R[0] * x0 + R[1] * x1 + R[2] * x2 + t[0],
+                        R[3] * x0 + R[4] * x1 + R[5] * x2 + t[1],
+                        R[6] * x0 + R[7] * x1 + R[8] * x2 + t[2]};
+    // dY/dδ = -2 [Y - t]_x
+    const float vx = Y[0] - t[0], vy = Y[1] - t[1], vz = Y[2] - t[2];
+    const float dY[3][3] = {{0.f, 2.f * vz, -2.f * vy},
+                            {-2.f * vz, 0.f, 2.f * vx},
+                            {2.f * vy, -2.f * vx, 0.f}};
+    float Z[3] = {0.f, 0.f, 0.f}, dZ[3][3] = {{0.f}};
+    if (degree >= 3) {
+      const float Zv[3] = {sh.pts[3][l] - t[0], sh.pts[4][l] - t[1],
+                           sh.pts[5][l] - t[2]};
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+        Z[i] = R[i] * Zv[0] + R[3 + i] * Zv[1] + R[6 + i] * Zv[2];
+      // dZ/dδ = 2 R^T [Xp - t]_x
+      const float cZ[3][3] = {{0.f, -Zv[2], Zv[1]},
+                              {Zv[2], 0.f, -Zv[0]},
+                              {-Zv[1], Zv[0], 0.f}};
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          dZ[i][m] = 2.f * (R[i] * cZ[0][m] + R[3 + i] * cZ[1][m] +
+                            R[6 + i] * cZ[2][m]);
+    }
+#pragma unroll
+    for (int f = 0; f < 4; ++f) {
+      if (f >= degree) break;
+      float mf = sh.inl[l] * mask_scale;  // GLS weight on backward factors
+      if (use_lw && f >= 2) mf *= sh.pts[15][l];
+      // Branch-free, so the four factors interleave; an inactive factor adds
+      // exact zeros (a select, not a product: J may be inf at depth ~0).
+      const bool on = mf != 0.f;
+      const bool fwd = f < 2;
       const float* P = (f == 0 || f == 2) ? Pl : Pr;
+      float X[3], dX[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        X[i] = fwd ? Y[i] : Z[i];
+#pragma unroll
+        for (int m = 0; m < 3; ++m) dX[i][m] = fwd ? dY[i][m] : dZ[i][m];
+      }
       float u, v, w;
-      project(P, X0, X1, X2, u, v, w);
-      const float r0 = u / w - sh.pts[uv_row(f)][l];
-      const float r1 = v / w - sh.pts[uv_row(f) + 1][l];
+      project(P, X[0], X[1], X[2], u, v, w);
+      const float pi0 = u / w, pi1 = v / w;
+      const float r0 = pi0 - sh.pts[6 + 2 * f][l];
+      const float r1 = pi1 - sh.pts[7 + 2 * f][l];
       const float s = r0 * r0 + r1 * r1;
       const float rho =
           s <= d2 ? s : 2.f * delta * sqrtf(fmaxf(s, 1e-20f)) - d2;
-      acc += rho * m;
+      acc[27] += on ? rho * mf : 0.f;
+      const float iw = __frcp_rn(w);
+      float JA[2][3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        JA[0][c] = (P[c] - pi0 * P[8 + c]) * iw;
+        JA[1][c] = (P[4 + c] - pi1 * P[8 + c]) * iw;
+      }
+      float J[2][6];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          J[r][m] = JA[r][0] * dX[0][m] + JA[r][1] * dX[1][m] +
+                    JA[r][2] * dX[2][m];
+#pragma unroll
+        for (int m = 0; m < 3; ++m)
+          J[r][3 + m] = fwd ? JA[r][m]
+                            : -(JA[r][0] * R[3 * m] + JA[r][1] * R[3 * m + 1] +
+                                JA[r][2] * R[3 * m + 2]);
+      }
+      const float nrm = sqrtf(r0 * r0 + r1 * r1);
+      const float wh = fminf(1.f, delta / fmaxf(nrm, 1e-12f)) * mf;
+#pragma unroll
+      for (int a = 0; a < 6; ++a)
+#pragma unroll
+        for (int b = 0; b <= a; ++b) {
+          const float h = wh * (J[0][a] * J[0][b] + J[1][a] * J[1][b]);
+          acc[a * (a + 1) / 2 + b] += on ? h : 0.f;
+        }
+#pragma unroll
+      for (int a = 0; a < 6; ++a) {
+        const float g = wh * (J[0][a] * r0 + J[1][a] * r1);
+        acc[21 + a] += on ? g : 0.f;
+      }
     }
   }
-  return 0.5f * block_sum1(acc, sh);
+  wg_sum<28>(acc, ch);
 }
 
 // Trace-unrolled LM (lm.refine_pose semantics, without the final revert:
-// the caller applies it). Updates q, t; returns `improved`.
-__device__ bool lm_iterations(Smem& sh, float q[4], float t[3],
-                              const float* Pl, const float* Pr, int degree,
-                              float delta, int iters, float mask_scale,
-                              bool use_lw, const Params& p) {
-  const float c0 =
-      huber_cost(sh, q, t, Pl, Pr, degree, delta, mask_scale, use_lw, p);
+// the caller applies it). Updates q, t; returns `improved`. The cost of a
+// candidate and the normal equations there come from one lm_pass.
+__device__ __forceinline__ bool lm_iterations(Chain& ch, float q[4],
+                                              float t[3], const float* Pl,
+                                              const float* Pr, int degree,
+                                              float delta, int iters,
+                                              float mask_scale, bool use_lw) {
+  float S[28];
+  lm_pass(ch, q, t, Pl, Pr, degree, delta, mask_scale, use_lw, S);
+  const float c0 = 0.5f * S[27];
   float cost = c0, lam = 1e-4f;
   for (int it = 0; it < iters; ++it) {
-    float R[9];
-    quat_to_R(q, R);
-    float acc[27];   // 21 packed lower-triangle H entries, then 6 of g
-    for (int i = 0; i < 27; ++i) acc[i] = 0.f;
-    for (int l = threadIdx.x; l < p.Lp; l += NT) {
-      const float x0 = sh.pts[0][l], x1 = sh.pts[1][l], x2 = sh.pts[2][l];
-      const float Y[3] = {R[0] * x0 + R[1] * x1 + R[2] * x2 + t[0],
-                          R[3] * x0 + R[4] * x1 + R[5] * x2 + t[1],
-                          R[6] * x0 + R[7] * x1 + R[8] * x2 + t[2]};
-      // dY/dδ = -2 [Y - t]_x
-      const float vx = Y[0] - t[0], vy = Y[1] - t[1], vz = Y[2] - t[2];
-      const float dY[3][3] = {{0.f, 2.f * vz, -2.f * vy},
-                              {-2.f * vz, 0.f, 2.f * vx},
-                              {2.f * vy, -2.f * vx, 0.f}};
-      float Z[3] = {0.f, 0.f, 0.f}, dZ[3][3] = {{0.f}};
-      if (degree >= 3) {
-        const float Zv[3] = {sh.pts[3][l] - t[0], sh.pts[4][l] - t[1],
-                             sh.pts[5][l] - t[2]};
-        for (int i = 0; i < 3; ++i)
-          Z[i] = R[i] * Zv[0] + R[3 + i] * Zv[1] + R[6 + i] * Zv[2];
-        // dZ/dδ = 2 R^T [Xp - t]_x
-        const float cZ[3][3] = {{0.f, -Zv[2], Zv[1]},
-                                {Zv[2], 0.f, -Zv[0]},
-                                {-Zv[1], Zv[0], 0.f}};
-        for (int i = 0; i < 3; ++i)
-          for (int m = 0; m < 3; ++m)
-            dZ[i][m] = 2.f * (R[i] * cZ[0][m] + R[3 + i] * cZ[1][m] +
-                              R[6 + i] * cZ[2][m]);
-      }
-      for (int f = 0; f < degree; ++f) {
-        const float mf = factor_mask(sh, l, f, mask_scale, use_lw);
-        if (mf == 0.f) continue;
-        const bool fwd = f < 2;
-        const float* X = fwd ? Y : Z;
-        const float(*dX)[3] = fwd ? dY : dZ;
-        const float* P = (f == 0 || f == 2) ? Pl : Pr;
-        float u, v, w;
-        project(P, X[0], X[1], X[2], u, v, w);
-        const float pi0 = u / w, pi1 = v / w;
-        const float r0 = pi0 - sh.pts[uv_row(f)][l];
-        const float r1 = pi1 - sh.pts[uv_row(f) + 1][l];
-        float JA[2][3];
-        for (int c = 0; c < 3; ++c) {
-          JA[0][c] = (P[c] - pi0 * P[8 + c]) / w;
-          JA[1][c] = (P[4 + c] - pi1 * P[8 + c]) / w;
-        }
-        float J[2][6];
-        for (int r = 0; r < 2; ++r) {
-          for (int m = 0; m < 3; ++m)
-            J[r][m] = JA[r][0] * dX[0][m] + JA[r][1] * dX[1][m] +
-                      JA[r][2] * dX[2][m];
-          for (int m = 0; m < 3; ++m)
-            J[r][3 + m] = fwd ? JA[r][m]
-                              : -(JA[r][0] * R[3 * m] + JA[r][1] * R[3 * m + 1] +
-                                  JA[r][2] * R[3 * m + 2]);
-        }
-        const float nrm = sqrtf(r0 * r0 + r1 * r1);
-        const float wh = fminf(1.f, delta / fmaxf(nrm, 1e-12f)) * mf;
-        int k = 0;
-        for (int a = 0; a < 6; ++a)
-          for (int b = 0; b <= a; ++b, ++k)
-            acc[k] += wh * (J[0][a] * J[0][b] + J[1][a] * J[1][b]);
-        for (int a = 0; a < 6; ++a)
-          acc[21 + a] += wh * (J[0][a] * r0 + J[1][a] * r1);
-      }
-    }
-    block_sum<27>(acc, sh);
-    float A[21];
-    for (int i = 0; i < 21; ++i) A[i] = acc[i];
+    float A[21], g[6];
+#pragma unroll
+    for (int i = 0; i < 21; ++i) A[i] = S[i];
+#pragma unroll
     for (int i = 0; i < 6; ++i) {
       const int d = i * (i + 1) / 2 + i;
-      A[d] = acc[d] + lam * acc[d] + 1e-9f;
+      A[d] = S[d] + lam * S[d] + 1e-9f;
+      g[i] = S[21 + i];
     }
     float step[6];
-    chol_solve6(A, acc + 21, step);
+    chol_solve6(A, g, step);
     const float dr[3] = {-step[0], -step[1], -step[2]};
     float q_new[4];
     quat_boxplus(q, dr, q_new);
     const float t_new[3] = {t[0] - step[3], t[1] - step[4], t[2] - step[5]};
-    const float cost_new = huber_cost(sh, q_new, t_new, Pl, Pr, degree, delta,
-                                      mask_scale, use_lw, p);
-    const bool accept = cost_new < cost;
-    if (accept) {
+    float Sn[28];
+    lm_pass(ch, q_new, t_new, Pl, Pr, degree, delta, mask_scale, use_lw, Sn);
+    const float cost_new = 0.5f * Sn[27];
+    if (cost_new < cost) {
+#pragma unroll
       for (int i = 0; i < 4; ++i) q[i] = q_new[i];
+#pragma unroll
       for (int i = 0; i < 3; ++i) t[i] = t_new[i];
+#pragma unroll
+      for (int i = 0; i < 28; ++i) S[i] = Sn[i];
       lam = fmaxf(lam * 0.5f, 1e-9f);
       cost = cost_new;
     } else {
@@ -406,81 +513,46 @@ __device__ bool lm_iterations(Smem& sh, float q[4], float t[3],
   return cost < c0;
 }
 
-__global__ void __launch_bounds__(NT)
-fused_solve_kernel(const float* __restrict__ pts_g,
-                   const float* __restrict__ hyp_g,
-                   const float* __restrict__ scal_g, float* __restrict__ out_g,
-                   float* __restrict__ inl_g, Params p) {
-  __shared__ Smem sh;
-  const int f = blockIdx.x;
+// The solve after the winner, on warpgroup 0 of the frame's first CTA.
+__device__ __forceinline__ void solve_chain(Chain& ch, const float* hyp,
+                                            int maxc, int j,
+                                            const float* scal, float* out,
+                                            float* inl_g) {
+  Smem& sh = ch.sh;
+  const Params& p = ch.p;
   const int tid = threadIdx.x;
-  const float* pts = pts_g + (long long)f * 16 * p.Lp;
-  const float* hyp = hyp_g + (long long)f * p.S * 12;
-  const float* scal = scal_g + (long long)f * 32;
-
-  for (int i = tid; i < 16 * p.Lp; i += NT) sh.pts[i / p.Lp][i % p.Lp] = pts[i];
-  __syncthreads();
-
   float q_pred[4], t_pred[3], Pl[12], Pr[12];
   for (int i = 0; i < 4; ++i) q_pred[i] = scal[i];
   for (int i = 0; i < 3; ++i) t_pred[i] = scal[4 + i];
   const float fc = scal[7];
+#pragma unroll
   for (int i = 0; i < 12; ++i) { Pl[i] = scal[8 + i]; Pr[i] = scal[20 + i]; }
-
-  // ---- score the S sampled hypotheses: thread s owns hypothesis s --------
-  int best_c = -1, best_s = 0x7fffffff;
-  for (int s = tid; s < p.S; s += NT) {
-    const float* h = hyp + 12 * s;
-    int c = 0;
-    for (int l = 0; l < p.Lp; ++l)
-      c += score_lane(sh, l, h, h + 9, Pl, p.thr2) ? 1 : 0;
-    if (c > best_c) { best_c = c; best_s = s; }   // s increasing: first max
-  }
-  // first-max argmax: lexicographic (count desc, index asc)
-  for (int off = 16; off > 0; off >>= 1) {
-    const int oc = __shfl_xor_sync(FULL, best_c, off);
-    const int os = __shfl_xor_sync(FULL, best_s, off);
-    if (oc > best_c || (oc == best_c && os < best_s)) { best_c = oc; best_s = os; }
-  }
-  if ((tid & 31) == 0) { sh.argc[tid >> 5] = best_c; sh.argi[tid >> 5] = best_s; }
-  __syncthreads();
-  int maxc = sh.argc[0], j = sh.argi[0];
-  for (int w = 1; w < NWARP; ++w)
-    if (sh.argc[w] > maxc || (sh.argc[w] == maxc && sh.argi[w] < j)) {
-      maxc = sh.argc[w];
-      j = sh.argi[w];
-    }
-  __syncthreads();
 
   // ---- prior lane vs winner (sampled lanes win ties) ---------------------
   float R[9], t[3];
   quat_to_R(q_pred, R);
-  const float count_prior = score_row(sh, sh.cand, R, t_pred, Pl, p);
+  const float count_prior = score_row(ch, sh.cand, R, t_pred, Pl);
   const bool sampled = (float)maxc >= count_prior;
   if (sampled) {
     const float* h = hyp + 12 * j;
     for (int i = 0; i < 9; ++i) R[i] = h[i];
     for (int i = 0; i < 3; ++i) t[i] = h[9 + i];
-    score_row(sh, sh.inl, R, t, Pl, p);
+    score_row(ch, sh.inl, R, t, Pl);
   } else {
     for (int i = 0; i < 3; ++i) t[i] = t_pred[i];
-    for (int l = tid; l < p.Lp; l += NT) sh.inl[l] = sh.cand[l];
-    __syncthreads();
+    copy_row(ch, sh.inl, sh.cand);
   }
 
   // ---- refit (2x weighted Horn) + polish ----------------------------------
   for (int rep = 0; rep < 2; ++rep) {
     float q2[4], R2[9], t2[3];
-    horn(sh, sh.inl, p, q2, R2, t2);
-    const float n2 = score_row(sh, sh.cand, R2, t2, Pl, p);
-    float ni = 0.f;
-    for (int l = tid; l < p.Lp; l += NT) ni += sh.inl[l];
-    const float n1 = block_sum1(ni, sh);
+    horn(ch, sh.inl, q2, R2, t2);
+    float n1;
+    const float n2 = score_row(ch, sh.cand, R2, t2, Pl, sh.inl, &n1);
     if (n2 >= n1 && n1 > 0.f) {   // zero-inlier guard
       for (int i = 0; i < 9; ++i) R[i] = R2[i];
       for (int i = 0; i < 3; ++i) t[i] = t2[i];
-      for (int l = tid; l < p.Lp; l += NT) sh.inl[l] = sh.cand[l];
-      __syncthreads();
+      copy_row(ch, sh.inl, sh.cand);
     }
   }
   float q_raw[4], t_raw[3];
@@ -490,29 +562,28 @@ fused_solve_kernel(const float* __restrict__ pts_g,
     // polish: degree-1 LM on the prev-left factor, delta = reproj threshold
     float q_p[4] = {q_raw[0], q_raw[1], q_raw[2], q_raw[3]};
     float t_p[3] = {t_raw[0], t_raw[1], t_raw[2]};
-    const bool improved = lm_iterations(sh, q_p, t_p, Pl, Pl, 1, p.reproj,
-                                        p.polish_iters, 1.f, false, p);
+    const bool improved = lm_iterations(ch, q_p, t_p, Pl, Pl, 1, p.reproj,
+                                        p.polish_iters, 1.f, false);
     if (!improved) {
       for (int i = 0; i < 4; ++i) q_p[i] = q_raw[i];
       for (int i = 0; i < 3; ++i) t_p[i] = t_raw[i];
     }
     float R_p[9];
     quat_to_R(q_p, R_p);
-    const float np_ = score_row(sh, sh.cand, R_p, t_p, Pl, p);
-    float ni = 0.f;
-    for (int l = tid; l < p.Lp; l += NT) ni += sh.inl[l];
-    const float n1 = block_sum1(ni, sh);
+    float n1;
+    const float np_ = score_row(ch, sh.cand, R_p, t_p, Pl, sh.inl, &n1);
     if (np_ >= n1 && n1 > 0.f) {
       for (int i = 0; i < 4; ++i) q_raw[i] = q_p[i];
       for (int i = 0; i < 3; ++i) t_raw[i] = t_p[i];
-      for (int l = tid; l < p.Lp; l += NT) sh.inl[l] = sh.cand[l];
-      __syncthreads();
+      copy_row(ch, sh.inl, sh.cand);
     }
   }
-  float ni = 0.f, nc = 0.f;
-  for (int l = tid; l < p.Lp; l += NT) { ni += sh.inl[l]; nc += sh.pts[14][l]; }
-  float sums[2] = {ni, nc};
-  block_sum<2>(sums, sh);
+  float sums[2] = {0.f, 0.f};
+  for (int l = tid; l < p.Lp; l += WG) {
+    sums[0] += sh.inl[l];
+    sums[1] += sh.pts[14][l];
+  }
+  wg_sum<2>(sums, ch);
   const float num = sums[0], num_chain = sums[1];
   const bool success = num >= p.min_inliers;
 
@@ -542,8 +613,8 @@ fused_solve_kernel(const float* __restrict__ pts_g,
     if (weighted && !(p.weighted && p.degree >= 3)) break;
     float q_l[4] = {q[0], q[1], q[2], q[3]};
     float t_l[3] = {tt[0], tt[1], tt[2]};
-    const bool improved = lm_iterations(sh, q_l, t_l, Pl, Pr, p.degree,
-                                        p.delta, p.lm_iters, opt, weighted, p);
+    const bool improved = lm_iterations(ch, q_l, t_l, Pl, Pr, p.degree,
+                                        p.delta, p.lm_iters, opt, weighted);
     if (improved && do_opt) {
       for (int i = 0; i < 4; ++i) q[i] = q_l[i];
       for (int i = 0; i < 3; ++i) tt[i] = t_l[i];
@@ -552,23 +623,87 @@ fused_solve_kernel(const float* __restrict__ pts_g,
   }
 
   if (tid == 0) {
-    float* o = out_g + (long long)f * 20;
-    for (int i = 0; i < 4; ++i) { o[i] = q[i]; o[7 + i] = q_pn[i]; }
-    for (int i = 0; i < 3; ++i) { o[4 + i] = tt[i]; o[11 + i] = t_pn[i]; }
-    o[14] = num;
-    o[15] = success ? 1.f : 0.f;
-    o[16] = anomaly ? 1.f : 0.f;
-    o[17] = lm_improved ? 1.f : 0.f;
-    o[18] = sampled ? 0.f : 1.f;
-    o[19] = num_chain;
+    for (int i = 0; i < 4; ++i) { out[i] = q[i]; out[7 + i] = q_pn[i]; }
+    for (int i = 0; i < 3; ++i) { out[4 + i] = tt[i]; out[11 + i] = t_pn[i]; }
+    out[14] = num;
+    out[15] = success ? 1.f : 0.f;
+    out[16] = anomaly ? 1.f : 0.f;
+    out[17] = lm_improved ? 1.f : 0.f;
+    out[18] = sampled ? 0.f : 1.f;
+    out[19] = num_chain;
   }
-  for (int l = tid; l < p.Lp; l += NT) inl_g[(long long)f * p.Lp + l] = sh.inl[l];
+  for (int l = tid; l < p.Lp; l += WG) inl_g[l] = sh.inl[l];
+}
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
+fused_solve_kernel(const float* __restrict__ pts_g,
+                   const float* __restrict__ hyp_g,
+                   const float* __restrict__ scal_g, float* __restrict__ out_g,
+                   float* __restrict__ inl_g, Params p) {
+  __shared__ Smem sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int f = blockIdx.x / CL;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* pts = pts_g + (long long)f * 16 * p.Lp;
+  const float* hyp = hyp_g + (long long)f * p.S * 12;
+  const float* scal = scal_g + (long long)f * 32;
+
+  for (int i = tid; i < 16 * p.Lp; i += NT) sh.pts[i / p.Lp][i % p.Lp] = pts[i];
+  float Pl[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) Pl[i] = scal[8 + i];
+  cluster.sync();   // points visible; every CTA of the cluster is running
+
+  // ---- this CTA's share of the S hypotheses: a warp per hypothesis -------
+  const int s_lo = p.S * rank / CL, s_hi = p.S * (rank + 1) / CL;
+  int best_c = -1, best_s = 0x7fffffff;
+  for (int s = s_lo + warp; s < s_hi; s += NWARP) {   // s increasing
+    float h[12];
+#pragma unroll
+    for (int i = 0; i < 12; ++i) h[i] = __ldg(hyp + 12 * s + i);
+    int c = 0;
+    for (int l = lane; l < p.Lp; l += 128) {   // Lp % 128 == 0
+      bool m[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        m[u] = score_lane(sh, l + 32 * u, h, h + 9, Pl, p.thr2);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) c += __popc(__ballot_sync(FULL, m[u]));
+    }
+    if (c > best_c) { best_c = c; best_s = s; }   // first max
+  }
+  if (lane == 0) { sh.wc[warp] = best_c; sh.ws[warp] = best_s; }
+  __syncthreads();
+  if (tid == 0) {
+    int c = sh.wc[0], s = sh.ws[0];
+    for (int w = 1; w < NWARP; ++w)
+      if (sh.wc[w] > c || (sh.wc[w] == c && sh.ws[w] < s)) {
+        c = sh.wc[w];
+        s = sh.ws[w];
+      }
+    cluster.map_shared_rank(sh.cc, 0)[rank] = c;
+    cluster.map_shared_rank(sh.cs, 0)[rank] = s;
+  }
+  cluster.sync();
+  if (rank != 0 || tid >= WG) return;
+
+  // first-max argmax over the CTAs' winners, in rank (= index) order
+  int maxc = sh.cc[0], j = sh.cs[0];
+  for (int r = 1; r < CL; ++r)
+    if (sh.cc[r] > maxc || (sh.cc[r] == maxc && sh.cs[r] < j)) {
+      maxc = sh.cc[r];
+      j = sh.cs[r];
+    }
+  Chain ch{sh, p, 0};
+  solve_chain(ch, hyp, maxc, j, scal, out_g + (long long)f * 20,
+              inl_g + (long long)f * p.Lp);
 }
 
 }  // namespace
 
 // Returns the cudaError_t of the launch (0 = success). Device pointers are
-// allocated by the caller; one CTA per frame.
+// allocated by the caller; one cluster of CL CTAs per frame.
 extern "C" int fused_solve_launch(const void* pts, const void* hyp,
                                   const void* scal, void* out, void* inl,
                                   int F, int S, int Lp, float thr2,
@@ -576,11 +711,11 @@ extern "C" int fused_solve_launch(const void* pts, const void* hyp,
                                   float dt, float max_acc, float ignore_fc,
                                   int degree, int lm_iters, int polish_iters,
                                   int weighted, void* stream) {
-  if (F <= 0 || S <= 0 || Lp <= 0 || Lp > MAX_L)
+  if (F <= 0 || S <= 0 || Lp <= 0 || Lp > MAX_L || Lp % WG)
     return (int)cudaErrorInvalidValue;
   Params p{S, Lp, thr2, reproj, delta, min_inliers, dt, max_acc, ignore_fc,
            degree, lm_iters, polish_iters, weighted};
-  fused_solve_kernel<<<F, NT, 0, (cudaStream_t)stream>>>(
+  fused_solve_kernel<<<F * CL, NT, 0, (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)hyp, (const float*)scal, (float*)out,
       (float*)inl, p);
   return (int)cudaGetLastError();

@@ -231,7 +231,7 @@ def solver_frame(rng: np.random.Generator, n: int = 300,
     return data, R, t
 
 
-def prepared_from_frame(data: Dict[str, np.ndarray], device="cpu"):
+def prepared_from_frame(data: Dict[str, np.ndarray], device="cuda"):
     """A `solver_frame` dict -> `ops.solver.PreparedSolve` (uncompacted:
     lane i is slot i) on `device`."""
     import torch

@@ -211,7 +211,7 @@ def params_from_jax(np_params: Dict[str, np.ndarray]
 
 
 def load_model(prefix: str, dtype: torch.dtype = torch.float32,
-               device="cpu", seed: int = 0) -> GraphModule:
+               device="cuda", seed: int = 0) -> GraphModule:
     """Load a model family by prefix. `dtype` bfloat16 selects the bf16
     trunk semantics. Families without a weights file are initialised from a
     `torch.Generator` seeded with `seed`."""

@@ -7,6 +7,12 @@ per-frame path matches the current-left descriptors against the current
 right AND the previous left in one launch (B=2, the query broadcast with a
 zero batch stride), and a frame-batched caller can reuse it unchanged.
 
+bf16 descriptors (the main path) run the tensor-core kernel in one device
+operation per call: its row/column key scratch and per-batch tickets are
+kept per (device, stream) here, filled once when first allocated or grown,
+and left reset by the kernel itself. fp32 descriptors run the SIMT kernel
+(memset, rows kernel, mutual kernel).
+
 `match_nn_batched` launches the kernel for CUDA tensors and uses the plain
 version (`match_nn_plain`) only for CPU tensors; it never falls back.
 """
@@ -14,7 +20,7 @@ version (`match_nn_plain`) only for CPU tensors; it never falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -39,14 +45,34 @@ def match_nn_plain(desc0: torch.Tensor, valid0: torch.Tensor,
             torch.stack([o.dist2 for o in outs]))
 
 
-def _lib():
-    lib = _build.load("match_nn")
-    fn = lib.match_nn_launch
+def _lib(entry: str):
+    fn = getattr(_build.load("match_nn"), entry)
     if fn.argtypes is None:
-        fn.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I, _I,
+        fn.argtypes = [_P, _LL, _P, _LL, _P, _LL, _P, _LL, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
+
+
+# (device index, stream) -> (keys int64 all -1, tickets int32 all 0)
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _bf16_scratch(dev: torch.device, stream: int, n_keys: int, n_tickets: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The bf16 kernel's key scratch and tickets. The kernel leaves them as
+    it found them (keys all ones, tickets zero), so they are filled only
+    here, when first allocated or grown."""
+    key = (dev.index, stream)
+    keys, tickets = _scratch.get(key, (None, None))
+    if keys is None or keys.numel() < n_keys:
+        keys = torch.full((max(n_keys, 1 << 16),), -1, dtype=torch.int64,
+                          device=dev)
+    if tickets is None or tickets.numel() < n_tickets:
+        tickets = torch.zeros((max(n_tickets, 256),), dtype=torch.int32,
+                              device=dev)
+    _scratch[key] = (keys, tickets)
+    return keys, tickets
 
 
 def _check_desc(name: str, d: torch.Tensor) -> None:
@@ -86,6 +112,12 @@ def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
         raise TypeError("desc0 and desc1 must share a dtype")
     if D > 256:
         raise ValueError(f"descriptor width {D} > 256 is not supported")
+    if desc0.dtype == torch.bfloat16 and (
+            D % 64 or desc0.stride(0) % 8 or desc1.stride(0) % 8
+            or (desc0.data_ptr() | desc1.data_ptr()) % 16):
+        raise ValueError("the bf16 kernel needs D % 64 == 0, 16-byte aligned "
+                         "descriptors and batch strides that are multiples "
+                         "of 8")
     K1 = desc1.shape[1]
     _check_valid("valid0", valid0, B, K0)
     _check_valid("valid1", valid1, B, K1)
@@ -93,19 +125,25 @@ def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
         if t.device != dev:
             raise ValueError("all inputs must be on one device")
 
-    rowmin = torch.empty((B, K0), dtype=torch.float32, device=dev)
-    rowarg = torch.empty((B, K0), dtype=torch.int32, device=dev)
-    colkey = torch.empty((B, K1), dtype=torch.int64, device=dev)
     idx = torch.empty((B, K0), dtype=torch.int32, device=dev)
     dist2 = torch.empty((B, K0), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    common = (desc0.data_ptr(), desc0.stride(0), valid0.data_ptr(),
+              valid0.stride(0), desc1.data_ptr(), desc1.stride(0),
+              valid1.data_ptr(), valid1.stride(0), B, K0, K1, D)
     with torch.cuda.device(dev):
-        err = _lib()(desc0.data_ptr(), desc0.stride(0), valid0.data_ptr(),
-                     valid0.stride(0), desc1.data_ptr(), desc1.stride(0),
-                     valid1.data_ptr(), valid1.stride(0), B, K0, K1, D,
-                     int(desc0.dtype == torch.bfloat16), rowmin.data_ptr(),
-                     rowarg.data_ptr(), colkey.data_ptr(), idx.data_ptr(),
-                     dist2.data_ptr(), stream)
+        if desc0.dtype == torch.bfloat16:
+            keys, tickets = _bf16_scratch(dev, stream, B * (K0 + K1), B)
+            err = _lib("match_nn_bf16_launch")(
+                *common, keys.data_ptr(), keys[B * K0:].data_ptr(),
+                tickets.data_ptr(), idx.data_ptr(), dist2.data_ptr(), stream)
+        else:
+            rowmin = torch.empty((B, K0), dtype=torch.float32, device=dev)
+            rowarg = torch.empty((B, K0), dtype=torch.int32, device=dev)
+            colkey = torch.empty((B, K1), dtype=torch.int64, device=dev)
+            err = _lib("match_nn_f32_launch")(
+                *common, rowmin.data_ptr(), rowarg.data_ptr(),
+                colkey.data_ptr(), idx.data_ptr(), dist2.data_ptr(), stream)
     _build.check_status(err, "match_nn")
     _build.launches["match_nn"] += 1
     return idx, dist2

@@ -9,8 +9,8 @@ acceleration gates -> unrolled LM -> optional GLS LM, one launch per frame.
 Division of labour, as in the JAX package: hypothesis generation
 (`precompute_hypotheses`, Gumbel 3-point sampling + Horn) and point packing
 (`pack_points`) stay torch ops; everything that depends on the motion prior
-runs in the kernel. The kernel takes a frame dimension F (one CTA per
-frame); the per-frame path launches F=1.
+runs in the kernel. The kernel takes a frame dimension F (one
+thread-block cluster per frame); the per-frame path launches F=1.
 
 `fused_solve_packed` launches the kernel for CUDA tensors and uses the plain
 version (`fused_solve_plain`, op by op: `pnp._score_mask`,

@@ -67,7 +67,7 @@ def _empty_keypoints(k: int, device, d: int = 256) -> Keypoints:
         desc=torch.zeros((k, d), device=device))
 
 
-def init_state(cfg: VOConfig, device="cpu") -> VOState:
+def init_state(cfg: VOConfig, device="cuda") -> VOState:
     k = cfg.max_keypoints
     return VOState(
         prev_left=_empty_keypoints(k, device),
@@ -270,7 +270,7 @@ class VisualOdometry:
     integration and the velocity gate run on the host in float64.
     """
 
-    def __init__(self, cfg: VOConfig, device="cpu", seed: int = 0,
+    def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0,
                  model=None):
         check_supported(cfg)
         self.cfg = cfg

@@ -94,24 +94,50 @@ def test_batched_wrapper_on_cpu_is_the_plain_version(rng):
     assert (idx_all_invalid == -1).all()
 
 
+def _cuda_args(rng, dev, dtype, shape):
+    """(desc0, valid0, desc1, valid1) on the card. "B2": the per-frame
+    layout (one query broadcast against two targets); "B63": the online
+    hybrid's 2N-1 pairs for N=32, each with its own query; "ragged":
+    K0=500 against K1=300. All with invalid slots and exact ties."""
+    if shape == "B2":
+        d0, v0, d1, v1 = _case(rng)
+        desc0 = torch.as_tensor(d0, device=dev).to(dtype)
+        valid0 = torch.as_tensor(v0, device=dev)
+        desc1 = torch.as_tensor(d1, device=dev).to(dtype)
+        return (desc0[None].expand(2, *desc0.shape),
+                valid0[None].expand(2, 512),
+                torch.stack([desc1, desc0.flip(0)]),
+                torch.stack([torch.as_tensor(v1, device=dev), valid0.flip(0)]))
+    B, K0, K1 = (63, 512, 512) if shape == "B63" else (2, 500, 300)
+    d0 = np.stack([_descs(rng, K0) for _ in range(B)])
+    d1 = np.stack([_descs(rng, K1) for _ in range(B)])
+    d1[:, 200:240] = d0[:, 100:140] + 0.05 * rng.normal(size=(B, 40, 256))
+    d1[:, 250:260] = d1[:, 200:210]      # duplicated targets: exact row ties
+    d0[:, 400:405] = d0[:, 100:105]      # duplicated queries: column ties
+    return (torch.as_tensor(d0, device=dev).to(dtype),
+            torch.as_tensor(rng.random((B, K0)) > 0.2, device=dev),
+            torch.as_tensor(d1, device=dev).to(dtype),
+            torch.as_tensor(rng.random((B, K1)) > 0.2, device=dev))
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["B2", "B63", "ragged"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_kernel_matches_plain(rng, dtype):
+def test_cuda_kernel_matches_plain(rng, dtype, shape):
+    """bf16 runs the tensor-core kernel, fp32 the SIMT kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     dev = torch.device("cuda")
-    d0, v0, d1, v1 = _case(rng)
-    desc0 = torch.as_tensor(d0, device=dev).to(dtype)
-    desc1 = torch.as_tensor(d1, device=dev).to(dtype)
-    valid0 = torch.as_tensor(v0, device=dev)
-    valid1 = torch.as_tensor(v1, device=dev)
-    args = (desc0[None].expand(2, *desc0.shape), valid0[None].expand(2, 512),
-            torch.stack([desc1, desc0.flip(0)]),
-            torch.stack([valid1, valid0.flip(0)]))
+    args = _cuda_args(rng, dev, dtype, shape)
     idx_k, dist_k = match_nn_batched(*args)
     idx_p, dist_p = match_nn_plain(*args)
     torch.cuda.synchronize()
     # exact ties resolve to the lowest index in both; distances are fp32
     # sums in another order
+    assert (idx_p >= 0).sum().item() > 50 * args[0].shape[0]
     assert (idx_k != idx_p).sum().item() <= 2
     torch.testing.assert_close(dist_k, dist_p, atol=1e-4, rtol=0)
+    # the bf16 kernel leaves its scratch as it found it: a second call on
+    # the same inputs gives the same answer
+    idx_2, dist_2 = match_nn_batched(*args)
+    assert torch.equal(idx_2, idx_k) and torch.equal(dist_2, dist_k)

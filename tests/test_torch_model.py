@@ -14,7 +14,8 @@ from spsvo_tpu_torch.models import graph as tgraph, zoo as tzoo  # noqa: E402
 def _run_both(prefix, bf16, rng):
     apply_fn, params = jzoo.load_model(
         prefix, jnp.bfloat16 if bf16 else jnp.float32)
-    model = tzoo.load_model(prefix, torch.bfloat16 if bf16 else torch.float32)
+    model = tzoo.load_model(prefix, torch.bfloat16 if bf16 else torch.float32,
+                            device="cpu")
     x = rng.random((2, 64, 128, 1)).astype(np.float32)
     ref = apply_fn(params, jnp.asarray(x))
     with torch.no_grad():
@@ -44,7 +45,7 @@ def test_trunk_bf16_convs_match_jax_layer_by_layer(rng, prefix):
                "sp_resnet18": jzoo.build_sp_resnet18}[prefix]()
     graph = builder.build()
     _, params = jzoo.load_model(prefix, jnp.bfloat16)
-    sd = tzoo.load_model(prefix, torch.bfloat16).state_dict()
+    sd = tzoo.load_model(prefix, torch.bfloat16, device="cpu").state_dict()
     x = jnp.asarray(rng.random((1, 32, 64, 1)).astype(np.float32))
     n_convs = 0
     for i, node in enumerate(graph.nodes):
@@ -130,7 +131,7 @@ def test_params_from_jax_layout_and_names():
                                                 w.shape[0], w.shape[1])
     np.testing.assert_array_equal(sd["conv1b.weight"][5, 7].numpy(),
                                   w[:, :, 7, 5])
-    model = tzoo.load_model("superpoint_pretrained")
+    model = tzoo.load_model("superpoint_pretrained", device="cpu")
     assert set(model.state_dict()) == set(jax_params)
 
 

@@ -88,7 +88,7 @@ def test_slice_matches_jax_trajectory(rng):
 def test_first_frame_identity_and_reset(rng):
     cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL,
                               precision=TPrecision.FP32)
-    vo = TVO(cfg)
+    vo = TVO(cfg, device="cpu")
     img = (rng.random((188, 620)) * 255).astype(np.uint8)
     T, info = vo.process(img, img, jsyn.DEFAULT_P_L, jsyn.DEFAULT_P_L,
                          want_diagnostics=True)

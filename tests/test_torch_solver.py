@@ -269,7 +269,7 @@ def test_solve_with_landmarks_matches_jax(rng):
         jnp.asarray(P_L), jnp.asarray(P_R), jnp.asarray(q0), jnp.asarray(t0),
         jnp.int32(fc), jcfg, k_capacity=256)
     tres, tlms = tsolver.solve_with_landmarks(
-        prepared_from_frame(data), tsolver.LandmarkState(_t(lm_pts), _t(lm_len)), _t(P_L),
+        prepared_from_frame(data, "cpu"), tsolver.LandmarkState(_t(lm_pts), _t(lm_len)), _t(P_L),
         _t(P_R), _t(q0), _t(t0), torch.tensor(fc, dtype=torch.int32), tcfg,
         k_capacity=256, gumbel=_t(_jax_gumbel(key, (64, 256))))
     np.testing.assert_allclose(tres.q.numpy(), np.asarray(jres.q), atol=Q_ATOL)

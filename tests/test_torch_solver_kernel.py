@@ -82,7 +82,7 @@ def test_fused_solve_plain_matches_pallas_interpret(rng, case):
         hyp.hyp, jprep, jnp.asarray(P_L), jnp.asarray(P_R), jnp.asarray(q0),
         jnp.asarray(t0), jnp.asarray(w))
     got = solver_cuda.fused_solve(
-        _t(hyp.hyp), prepared_from_frame(data),
+        _t(hyp.hyp), prepared_from_frame(data, "cpu"),
         _t(P_L), _t(P_R), _t(q0), _t(t0), 5, tcfg,
         lane_weights=None if weights is None else _t(weights))
     np.testing.assert_allclose(got.q.numpy(), np.asarray(ref.q), atol=Q_ATOL)
@@ -113,34 +113,26 @@ def test_precompute_hypotheses_injected_noise(rng):
     key = jax.random.PRNGKey(9)
     ref = solver_pallas.precompute_hypotheses(key, _jprep(data), jcfg)
     got = solver_cuda.precompute_hypotheses(
-        prepared_from_frame(data), tcfg, gumbel=_t(_jax_gumbel(key, (256, 128))))
+        prepared_from_frame(data, "cpu"), tcfg,
+        gumbel=_t(_jax_gumbel(key, (256, 128))))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref.hyp), atol=1e-4)
 
 
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("case", ALL_CASES)
-def test_cuda_fused_solve_matches_plain(rng, case):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    from spsvo_tpu_torch.presets import flagship_tpu
-    dev = torch.device("cuda")
-    cfg = flagship_tpu()
+def _cuda_packed(rng, case, dev, cfg):
     data, q0, t0, weights = _fused_case(rng, case)
     prep = prepared_from_frame(data, dev)
     hyp = solver_cuda.precompute_hypotheses(
         prep, cfg, generator=torch.Generator(dev).manual_seed(0))
-    p = solver_cuda.solve_params(cfg, weighted_lm=weights is not None)
     pts = solver_cuda.pack_points(
         prep, None if weights is None else _t(weights).to(dev))[None]
     scal = solver_cuda.pack_scalars(_t(q0).to(dev), _t(t0).to(dev), 5,
                                     _t(P_L).to(dev), _t(P_R).to(dev))[None]
-    h = hyp[None].contiguous()
-    out_k, inl_k = solver_cuda.fused_solve_packed(pts, h, scal, p)
-    out_p, inl_p = solver_cuda.fused_solve_plain(pts, h, scal, p)
-    torch.cuda.synchronize()
-    ok, op = out_k[0].cpu(), out_p[0].cpu()
+    return pts, hyp[None].contiguous(), scal, weights is not None
+
+
+def _assert_kernel_matches_plain(ok, op, inl_k, inl_p):
     torch.testing.assert_close(ok[0:4], op[0:4], atol=Q_ATOL, rtol=0)
     torch.testing.assert_close(ok[4:7], op[4:7], atol=T_ATOL, rtol=0)
     torch.testing.assert_close(ok[7:11], op[7:11], atol=Q_ATOL, rtol=0)
@@ -148,3 +140,44 @@ def test_cuda_fused_solve_matches_plain(rng, case):
     assert abs(ok[14] - op[14]) <= MAX_LANES
     assert torch.equal(ok[15:17], op[15:17]) and ok[19] == op[19]
     assert ((inl_k > 0) != (inl_p > 0)).sum().item() <= MAX_LANES
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ALL_CASES + ["deterministic", "frames3"])
+def test_cuda_fused_solve_matches_plain(rng, case):
+    """Each case against the plain version; "deterministic": two launches
+    on the same inputs are bitwise equal; "frames3": one F=3 launch of the
+    three unweighted cases equals the plain version per frame and, bitwise,
+    three F=1 launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from spsvo_tpu_torch.presets import flagship_tpu
+    dev = torch.device("cuda")
+    cfg = flagship_tpu()
+    if case in ALL_CASES:
+        pts, h, scal, weighted = _cuda_packed(rng, case, dev, cfg)
+        p = solver_cuda.solve_params(cfg, weighted_lm=weighted)
+        out_k, inl_k = solver_cuda.fused_solve_packed(pts, h, scal, p)
+        out_p, inl_p = solver_cuda.fused_solve_plain(pts, h, scal, p)
+        torch.cuda.synchronize()
+        _assert_kernel_matches_plain(out_k[0].cpu(), out_p[0].cpu(), inl_k,
+                                     inl_p)
+        return
+    p = solver_cuda.solve_params(cfg)
+    frames = [_cuda_packed(rng, c, dev, cfg)[:3] for c in _FUSED_CASES]
+    if case == "deterministic":
+        runs = [solver_cuda.fused_solve_packed(*frames[0], p)
+                for _ in range(2)]
+        torch.cuda.synchronize()
+        assert torch.equal(runs[0][0], runs[1][0])
+        assert torch.equal(runs[0][1], runs[1][1])
+        return
+    pts, h, scal = (torch.cat([fr[i] for fr in frames]) for i in range(3))
+    out3, inl3 = solver_cuda.fused_solve_packed(pts, h, scal, p)
+    for f, fr in enumerate(frames):
+        out1, inl1 = solver_cuda.fused_solve_packed(*fr, p)
+        out_p, inl_p = solver_cuda.fused_solve_plain(*fr, p)
+        torch.cuda.synchronize()
+        assert torch.equal(out3[f], out1[0]) and torch.equal(inl3[f], inl1[0])
+        _assert_kernel_matches_plain(out3[f].cpu(), out_p[0].cpu(),
+                                     inl3[f:f + 1], inl_p)
