@@ -14,10 +14,20 @@ limit, then the result line:
   4. kernel 2 (fused solver) against its plain version on the card, S=256,
      L=128, on synthetic frames with known motion and 15% outliers: both
      winner branches, the gate fallback and the GLS (weighted LM) pass;
-  5. the main path: `VisualOdometry.process` with the flagship composition
-     on superpoint_pretrained (full width, committed weights) over a
-     32-frame 375x1242 corridor drive fed as raw uint8 frames, with
-     accuracy bounds and the kernels' launch counts.
+  5. the per-frame path: `VisualOdometry.process` with the flagship
+     composition on superpoint_pretrained (full width, committed weights)
+     over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
+     accuracy bounds and the kernels' launch counts;
+  6. the online hybrid (whole-sequence mode,
+     `parallel.sharding.build_online_hybrid`) on the same corridor and
+     configuration, its frames preprocessed on the card: the eager run's
+     launches (kernel 1 once at B=63, kernel 2 31 times with the GLS pass
+     in the kernel), kernel 1 against its plain version on the run's B=63
+     descriptors, every scan step's body with kernel 2 against the body
+     with its plain version from the same carry, the CUDA-graph replay
+     against the eager run, accuracy bounds, and times: the sequence eager
+     and replayed, frames per second, a per-phase split (one CUDA graph per
+     phase) and kernel 2 at the weighted shape.
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -31,6 +41,9 @@ and the operations it does over the peak of their type (989 TFLOP/s bf16
 tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 "library_ms" is one PyTorch call computing the nearest function (kernel 1:
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
+The kernel report gives each kernel's launches per path ("per_frame",
+"hybrid"), each counted from zero over that path's run; "launches" is
+their sum.
 
 Exits non-zero at the first failed check, without a result line. Needs a
 CUDA device; imports neither jax nor the JAX package.
@@ -391,26 +404,35 @@ def phase_solver(dev, rng):
     return worst, timing
 
 
-def phase_main_path(dev):
-    """32-frame corridor drive through VisualOdometry.process."""
-    import torch
-
-    from spsvo_tpu_torch import _build
-    from spsvo_tpu_torch.eval.synthetic import (score_trajectory,
-                                                synthetic_corridor)
-    from spsvo_tpu_torch.pipeline import VisualOdometry
-    from spsvo_tpu_torch.presets import flagship_tpu
-
-    n = 32
+def render_corridor(n: int = 32):
+    """The n-frame 375x1242 corridor drive both paths run on: (frames, gt,
+    P_l, P_r, render seconds)."""
+    from spsvo_tpu_torch.eval.synthetic import synthetic_corridor
     twists = [(np.array([0.0, (0.003 if i < n // 2 else -0.003), 0.0]),
                np.array([0.0, 0.0, 0.35])) for i in range(n - 1)]
     t0 = time.perf_counter()
     frames, gt, P_l, P_r = synthetic_corridor(
         np.random.default_rng(42), n_frames=n, h=375, w=1242, twists=twists)
-    render_s = time.perf_counter() - t0
-    cfg = dataclasses.replace(flagship_tpu(),
-                              model_name_prefix="superpoint_pretrained")
-    vo = VisualOdometry(cfg, device=dev, seed=0)
+    return frames, gt, P_l, P_r, time.perf_counter() - t0
+
+
+def flagship_cfg():
+    from spsvo_tpu_torch.presets import flagship_tpu
+    return dataclasses.replace(flagship_tpu(),
+                               model_name_prefix="superpoint_pretrained")
+
+
+def phase_main_path(dev, corridor):
+    """32-frame corridor drive through VisualOdometry.process."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.pipeline import VisualOdometry
+
+    frames, gt, P_l, P_r, render_s = corridor
+    n = len(frames)
+    vo = VisualOdometry(flagship_cfg(), device=dev, seed=0)
     torch.cuda.synchronize()
     _build.reset_launches()
     infos = []
@@ -446,6 +468,225 @@ def phase_main_path(dev):
         fail(f"fused_solve launched {launches.get('fused_solve', 0)} times, "
              f"expected >= {n - 1}")
     return launches, float(np.median(lat_ms))
+
+
+def hybrid_phase_graphs(hybrid, imgs, P_l, P_r, gumbel):
+    """The hybrid's program as one CUDA graph per phase, captured in order
+    on one stream (each phase reads the outputs its predecessors' graphs
+    hold; replaying all in order is one sequence). Returns ([(name,
+    graph)], kernel 1's scratch that the match graph owns: keep it alive
+    while replaying)."""
+    import torch
+
+    from spsvo_tpu_torch.parallel.sharding import chain_poses, match_pairs
+    cfg = hybrid.cfg
+    scratch = hybrid.match_scratch(imgs.shape[0])
+    phases = [
+        ("frontend", lambda s: hybrid.frontend(imgs)),
+        ("match", lambda s: match_pairs(*s["frontend"], cfg, scratch)),
+        ("chain_prep_hyp_pack", lambda s: hybrid.prepare(
+            *s["frontend"], *s["match"], P_l, P_r, gumbel)),
+        ("scan", lambda s: hybrid.scan(s["chain_prep_hyp_pack"][0], P_l,
+                                       P_r)),
+        ("chaining", lambda s: chain_poses(*s["scan"][:2])),
+    ]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graphs = []
+    with torch.no_grad():
+        with torch.cuda.stream(stream):
+            state = {}
+            for name, fn in phases:          # warm-up on the capture stream
+                state[name] = fn(state)
+        torch.cuda.synchronize()
+        state = {}
+        for name, fn in phases:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=stream):
+                state[name] = fn(state)
+            graphs.append((name, graph))
+    for _, g in graphs:
+        g.replay()
+    torch.cuda.synchronize()
+    return graphs, scratch
+
+
+def phase_split_ms(hybrid, imgs, P_l, P_r, gumbel, reps: int = 5):
+    """Device time of each phase of the hybrid: `hybrid_phase_graphs`
+    replayed in order, each replay timed with CUDA events."""
+    import torch
+    graphs, _scratch = hybrid_phase_graphs(hybrid, imgs, P_l, P_r, gumbel)
+    ms = {name: 0.0 for name, _ in graphs}
+    for _ in range(reps):
+        for name, g in graphs:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            g.replay()
+            end.record()
+            torch.cuda.synchronize()
+            ms[name] += start.elapsed_time(end) / reps
+    return ms
+
+
+def phase_hybrid(dev, corridor):
+    """The online hybrid over the corridor: launches, kernels against their
+    plain versions on the run's own inputs, graph replay against eager,
+    accuracy, and times. Returns (launches, kernel 2's weighted timing,
+    kernel 1's and kernel 2's largest error against the plain version)."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.ops import image as image_ops
+    from spsvo_tpu_torch.ops import solver, solver_cuda
+    from spsvo_tpu_torch.parallel.sharding import (LANDMARK_KERNEL,
+                                                   build_online_hybrid,
+                                                   match_batch, match_pairs,
+                                                   scan_step)
+
+    frames, gt, P_l_np, P_r_np, _ = corridor
+    n = len(frames)
+    cfg = flagship_cfg()
+    hybrid = build_online_hybrid(cfg, device=dev)
+    if hybrid.branch != LANDMARK_KERNEL:
+        fail(f"hybrid branch {hybrid.branch}, expected {LANDMARK_KERNEL}")
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    h0, w0 = raw.shape[-2:]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    P_l, P_r = (image_ops.update_projection_matrix(
+        torch.as_tensor(P, dtype=torch.float32, device=dev), h0, w0,
+        cfg.image_height, cfg.image_width) for P in (P_l_np, P_r_np))
+    torch.cuda.synchronize()
+    preprocess_ms = (time.perf_counter() - t0) * 1e3
+    gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+
+    # eager: one warm-up, then the counted run and two more for the median
+    hybrid.eager(imgs, P_l, P_r, gumbel)
+    torch.cuda.synchronize()
+    eager_ms = []
+    for i in range(3):
+        if i == 0:
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        world_e, diag_e = hybrid.eager(imgs, P_l, P_r, gumbel)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = dict(_build.launches)
+            shapes = dict(_build.shapes)
+    say("phase6", frames=n, preprocess_ms=preprocess_ms, launches=launches,
+        shapes={k: list(v) for k, v in shapes.items()})
+    if launches.get("match_nn", 0) != 1 or shapes["match_nn"][0] != 2 * n - 1:
+        fail(f"hybrid: match_nn launched {launches.get('match_nn', 0)} times "
+             f"at {shapes.get('match_nn')}, expected once at B={2 * n - 1}")
+    if (launches.get("fused_solve", 0) != n - 1
+            or shapes["fused_solve"][3] != 1):
+        fail(f"hybrid: fused_solve launched {launches.get('fused_solve', 0)} "
+             f"times at {shapes.get('fused_solve')}, expected {n - 1} with "
+             "the GLS pass in the kernel")
+
+    # kernel 1 against its plain version on the run's own B=2N-1 entries
+    kp_l, kp_r = hybrid.frontend(imgs)
+    q, vq, t, vt = match_batch(kp_l, kp_r, cfg)
+    m_err, m_bad, m_matches = check_matcher("hybrid", q, vq, t, vt,
+                                            say_phase=False)
+    say("phase6", check="match_nn vs plain", B=q.shape[0], matches=m_matches,
+        idx_mismatch_near_ties=m_bad, max_abs_err_dist2=m_err)
+
+    # kernel 2: every scan step's body against the body with the plain
+    # version, from the same (the kernel's) carry
+    stereo, inter = match_pairs(kp_l, kp_r, cfg)
+    xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
+    carry = hybrid.init_carry()
+    worst = {"q": 0.0, "t": 0.0, "lanes": 0}
+    k2 = None
+    for p in range(n - 1):
+        x = xs.pair(p)
+        if p == n // 2:        # kernel 2's inputs at this step, for timing
+            prep2, lane_len = solver.substitute_landmarks(x.prep,
+                                                          carry.landmarks)
+            w_row = torch.clamp(lane_len, max=cfg.landmark_max_age).float()
+            k2 = (solver_cuda.splice_points(x.pts, prep2.pts3d_prev,
+                                            w_row)[None],
+                  x.hyp[None].contiguous(),
+                  solver_cuda.pack_scalars(carry.q_pred, carry.t_pred,
+                                           carry.frame_count, P_l, P_r)[None])
+        with torch.no_grad():
+            c_k, r_k, d_k = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
+                                      cfg.max_keypoints, use_kernel=True)
+            _, r_p, d_p = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
+                                    cfg.max_keypoints, use_kernel=False)
+        torch.cuda.synchronize()
+        e_q = (r_k.q - r_p.q).abs().max().item()
+        e_t = (r_k.t - r_p.t).abs().max().item()
+        lanes = int((r_k.inliers != r_p.inliers).sum().item())
+        worst = {"q": max(worst["q"], e_q), "t": max(worst["t"], e_t),
+                 "lanes": max(worst["lanes"], lanes)}
+        if not (e_q <= 1e-4 and e_t <= 1e-3 and lanes <= 3
+                and bool(d_k["pnp_success"]) == bool(d_p["pnp_success"])):
+            fail(f"hybrid scan step {p}: kernel vs plain q err {e_q}, t err "
+                 f"{e_t}, inlier lanes {lanes}, pnp_success "
+                 f"{bool(d_k['pnp_success'])}/{bool(d_p['pnp_success'])}")
+        carry = c_k
+    say("phase6", check="scan body kernel vs plain", steps=n - 1,
+        max_err_q=worst["q"], max_err_t=worst["t"],
+        max_inlier_lanes=worst["lanes"])
+
+    # the CUDA graph: first call captures, later calls replay
+    t0 = time.perf_counter()
+    world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay_ms = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    same = torch.equal(world_g, world_e) and all(
+        torch.equal(diag_g[k], v) for k, v in diag_e.items())
+    max_diff = (world_g - world_e).abs().max().item()
+    split = phase_split_ms(hybrid, imgs, P_l, P_r, gumbel)
+    seq_ms = float(np.median(replay_ms))
+    say("phase6", graph_equals_eager_bitwise=same, graph_max_abs_diff=max_diff,
+        capture_s=capture_s, eager_ms=float(np.median(eager_ms)),
+        replay_ms=seq_ms, replay_ms_min=float(np.min(replay_ms)),
+        frames_per_s=n / seq_ms * 1e3, phase_ms=split,
+        phase_ms_sum=sum(split.values()))
+    if not same:
+        fail(f"hybrid: graph replay differs from eager (max {max_diff})")
+
+    world = [T.astype(np.float64) for T in world_e.cpu().numpy()]
+    score = score_trajectory(world, gt)
+    kps = diag_e["num_keypoints_left"].cpu().numpy()
+    inl = diag_e["num_inliers"].cpu().numpy()
+    say("phase6", median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)),
+        drift_percent=score["final_drift_percent"], ate_m=score["ate_m"],
+        pnp_success=int(diag_e["pnp_success"].sum().item()))
+    if not all(np.isfinite(T).all() for T in world):
+        fail("hybrid: non-finite trajectory")
+    if not np.median(kps) > 200:
+        fail(f"hybrid: median keypoints {np.median(kps)} <= 200")
+    if not np.median(inl) > 30:
+        fail(f"hybrid: median inliers {np.median(inl)} <= 30")
+    if not score["final_drift_percent"] < 5.0:
+        fail(f"hybrid: drift {score['final_drift_percent']:.3f}% >= 5%")
+
+    # kernel 2 at the weighted (GLS in the kernel) shape of a real step
+    p = solver_cuda.solve_params(cfg, weighted_lm=True)
+    out, _ = solver_cuda.fused_solve_packed(*k2, p)
+    b_ms, b_by = solver_bound(k2[0], k2[1], out, p)
+    fn = lambda: solver_cuda.fused_solve_packed(*k2, p)  # noqa: E731
+    k2_t = {"ms_weighted": graph_ms(fn, 100), "bound_ms_weighted": b_ms,
+            "bound_by_weighted": b_by, "plain_ms_weighted": time_ms(
+                lambda: solver_cuda.fused_solve_plain(*k2, p), 20)}
+    say("phase6", result="pass", frames_per_s=n / seq_ms * 1e3,
+        sequence_ms=seq_ms, **k2_t)
+    return launches, k2_t, m_err, max(worst["q"], worst["t"])
 
 
 def main() -> None:
@@ -491,23 +732,33 @@ def main() -> None:
     s_err, s_t = phase_solver(dev, rng)
     say("phase4", result="pass", share_of_bound=s_t["bound_ms"] / s_t["ms"],
         gpu=gpu, **s_t)
-    launches, median_ms = phase_main_path(dev)
+    corridor = render_corridor()
+    launches, median_ms = phase_main_path(dev, corridor)
     say("phase5", result="pass", median_process_ms=median_ms, gpu=gpu)
+    h_launches, k2_t, h_m_err, h_s_err = phase_hybrid(dev, corridor)
+    m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
+    say("phase6", gpu=gpu)
     if "jax" in sys.modules:
         fail("jax was imported")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+
+    def counts(name):
+        by_path = {"per_frame": launches.get(name, 0),
+                   "hybrid": h_launches.get(name, 0)}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
     print(json.dumps({"kernels": [
         {"name": "match_nn", "route": "cuda",
          "source": "spsvo_tpu_torch/csrc/match_nn.cu",
          "replaces": "spsvo_tpu/ops/matching_pallas.py:31",
-         "launches": launches.get("match_nn", 0), "max_abs_err": m_err,
+         **counts("match_nn"), "max_abs_err": m_err,
          **{k: m_t[k] for k in keys}},
         {"name": "fused_solve", "route": "cuda",
          "source": "spsvo_tpu_torch/csrc/fused_solve.cu",
          "replaces": "spsvo_tpu/ops/solver_pallas.py:383",
-         "launches": launches.get("fused_solve", 0), "max_abs_err": s_err,
-         **{k: s_t[k] for k in keys}}]}), flush=True)
+         **counts("fused_solve"), "max_abs_err": s_err,
+         **{k: s_t[k] for k in keys}, **k2_t}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,9 @@ with ctypes. Nothing is built at import time: the CPU tests import every
 module, and only a CUDA tensor reaches a kernel.
 
 `launches` counts kernel launches per wrapper; a wrapper adds one where it
-launches its kernel and nowhere else.
+launches its kernel and nowhere else, and records the launch's shape in
+`shapes`. Both count Python calls: a CUDA graph replaying a launch does not
+add to them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches: collections.Counter = collections.Counter()
+shapes: Dict[str, tuple] = {}    # name -> shape of the last launch
 build_log: Dict[str, dict] = {}   # name -> {"seconds", "cached", "ptxas"}
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -37,6 +40,7 @@ _lock = threading.Lock()
 
 def reset_launches() -> None:
     launches.clear()
+    shapes.clear()
 
 
 def nvcc_path() -> str:

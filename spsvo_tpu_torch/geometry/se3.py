@@ -68,6 +68,12 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(torch.stack([x, y, z, w], dim=-1))
 
 
+def _bottom_row(like: torch.Tensor) -> torch.Tensor:
+    """[0, 0, 0, 1] made on the device (no host copy, so a CUDA graph can
+    capture it)."""
+    return torch.eye(4, dtype=like.dtype, device=like.device)[3]
+
+
 def make_transform(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """(quat xyzw, t) -> (..., 4, 4) homogeneous transform."""
     R = quat_to_matrix(q)
@@ -75,8 +81,7 @@ def make_transform(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     R = R.expand(batch + (3, 3))
     t = t.expand(batch + (3,))
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype,
-                          device=R.device).expand(batch + (4,))
+    bottom = _bottom_row(R).expand(batch + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 
@@ -87,8 +92,7 @@ def invert_transform(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     t_inv = -torch.einsum("...ij,...j->...i", Rt, t)
     top = torch.cat([Rt, t_inv[..., None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=T.dtype,
-                          device=T.device).expand(T.shape[:-2] + (4,))
+    bottom = _bottom_row(T).expand(T.shape[:-2] + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
 
 

@@ -125,8 +125,7 @@ def refine_pose(q0: torch.Tensor, t0: torch.Tensor, pts3d_curr: torch.Tensor,
         raise NotImplementedError(
             "refine_pose: only the unrolled form (unroll > 0) is ported")
     dev = pts3d_curr.device
-    factor_on = torch.tensor([refinement_degree >= i for i in (1, 2, 3, 4)],
-                             device=dev)
+    factor_on = torch.arange(1, 5, device=dev) <= refinement_degree
     mask = (inliers[:, None] & factor_on[None, :]).to(torch.float32)
     if inv_factor_weights is not None:
         w = inv_factor_weights.to(torch.float32)
@@ -143,7 +142,7 @@ def refine_pose(q0: torch.Tensor, t0: torch.Tensor, pts3d_curr: torch.Tensor,
     t = t0.to(torch.float32)
     c0 = state_cost(q, t)
     cost = c0
-    lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+    lam = torch.full((), 1e-4, dtype=torch.float32, device=dev)
     eye = torch.eye(6, dtype=torch.float32, device=dev)
     for _ in range(unroll):
         r2, J4 = _residuals_and_jac(q, t, *pts, P_l, P_r)

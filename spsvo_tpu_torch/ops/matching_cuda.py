@@ -10,7 +10,10 @@ zero batch stride), and a frame-batched caller can reuse it unchanged.
 bf16 descriptors (the main path) run the tensor-core kernel in one device
 operation per call: its row/column key scratch and per-batch tickets are
 kept per (device, stream) here, filled once when first allocated or grown,
-and left reset by the kernel itself. fp32 descriptors run the SIMT kernel
+and left reset by the kernel itself. A CUDA graph that replays the kernel
+must own its scratch instead (`match_scratch`, passed as `scratch=`): a
+per-stream scratch may be regrown, and its old memory freed, by a later
+call on the same pooled stream. fp32 descriptors run the SIMT kernel
 (memset, rows kernel, mutual kernel).
 
 `match_nn_batched` launches the kernel for CUDA tensors and uses the plain
@@ -20,7 +23,7 @@ version (`match_nn_plain`) only for CPU tensors; it never falls back.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -58,11 +61,20 @@ def _lib(entry: str):
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 
 
+def match_scratch(dev, batch: int, k0: int, k1: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A bf16 kernel scratch for B=`batch` entries of k0 queries and k1
+    targets: keys (batch * (k0 + k1),) int64 all ones, tickets (batch,)
+    int32 zero. The kernel leaves both as it found them."""
+    return (torch.full((batch * (k0 + k1),), -1, dtype=torch.int64,
+                       device=dev),
+            torch.zeros((batch,), dtype=torch.int32, device=dev))
+
+
 def _bf16_scratch(dev: torch.device, stream: int, n_keys: int, n_tickets: int
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The bf16 kernel's key scratch and tickets. The kernel leaves them as
-    it found them (keys all ones, tickets zero), so they are filled only
-    here, when first allocated or grown."""
+    """The per-(device, stream) scratch, filled only here, when first
+    allocated or grown."""
     key = (dev.index, stream)
     keys, tickets = _scratch.get(key, (None, None))
     if keys is None or keys.numel() < n_keys:
@@ -93,10 +105,13 @@ def _check_valid(name: str, v: torch.Tensor, b: int, k: int) -> None:
 
 
 def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
-                     desc1: torch.Tensor, valid1: torch.Tensor
-                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+                     desc1: torch.Tensor, valid1: torch.Tensor,
+                     scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]
+                     = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mutual-NN matching of B descriptor-set pairs. Returns (idx (B, K0)
-    int32 with -1 for no match, dist2 (B, K0) float32 row-min distance^2)."""
+    int32 with -1 for no match, dist2 (B, K0) float32 row-min distance^2).
+    `scratch` is a caller-owned bf16 scratch (`match_scratch`); None uses
+    the one kept for the current stream."""
     dev = desc0.device
     if dev.type == "cpu":
         return match_nn_plain(desc0, valid0, desc1, valid1)
@@ -133,7 +148,17 @@ def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
               valid1.data_ptr(), valid1.stride(0), B, K0, K1, D)
     with torch.cuda.device(dev):
         if desc0.dtype == torch.bfloat16:
-            keys, tickets = _bf16_scratch(dev, stream, B * (K0 + K1), B)
+            if scratch is None:
+                keys, tickets = _bf16_scratch(dev, stream, B * (K0 + K1), B)
+            else:
+                keys, tickets = scratch
+                if (keys.dtype != torch.int64 or tickets.dtype != torch.int32
+                        or keys.device != dev or tickets.device != dev
+                        or keys.numel() < B * (K0 + K1)
+                        or tickets.numel() < B):
+                    raise ValueError(
+                        f"scratch must be match_scratch(dev, >= {B}, "
+                        f"{K0}, {K1}) on {dev}")
             err = _lib("match_nn_bf16_launch")(
                 *common, keys.data_ptr(), keys[B * K0:].data_ptr(),
                 tickets.data_ptr(), idx.data_ptr(), dist2.data_ptr(), stream)
@@ -146,4 +171,5 @@ def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
                 colkey.data_ptr(), idx.data_ptr(), dist2.data_ptr(), stream)
     _build.check_status(err, "match_nn")
     _build.launches["match_nn"] += 1
+    _build.shapes["match_nn"] = (B, K0, K1, D)
     return idx, dist2

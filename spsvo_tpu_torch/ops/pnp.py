@@ -83,20 +83,29 @@ def _sample_indices(valid: torch.Tensor, num_hyp: int, sample_size: int,
                     gumbel: Optional[torch.Tensor] = None,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-    """(num_hyp, sample_size) distinct indices drawn from valid slots by
-    Gumbel-top-k over the validity mask. `gumbel` is the (num_hyp, L)
-    noise; None draws it from `generator`. Ties (the -inf logits of invalid
-    slots) keep the lowest index first, as `lax.top_k` does."""
-    k = valid.shape[0]
+    """(..., num_hyp, sample_size) distinct indices drawn from the valid
+    slots of `valid` (..., L) by Gumbel-top-k over the validity mask.
+    `gumbel` is the (..., num_hyp, L) noise; None draws it from `generator`.
+    Ties (the -inf logits of invalid slots) keep the lowest index first, as
+    `lax.top_k` does."""
+    shape = tuple(valid.shape[:-1]) + (num_hyp, valid.shape[-1])
     if gumbel is None:
-        gumbel = gumbel_noise((num_hyp, k), generator, valid.device)
-    if tuple(gumbel.shape) != (num_hyp, k):
-        raise ValueError(f"gumbel noise must be ({num_hyp}, {k}), got "
+        gumbel = gumbel_noise(shape, generator, valid.device)
+    if tuple(gumbel.shape) != shape:
+        raise ValueError(f"gumbel noise must be {shape}, got "
                          f"{tuple(gumbel.shape)}")
     logits = torch.where(valid, 0.0, float("-inf"))
-    scores = logits[None, :] + gumbel.to(valid.device, torch.float32)
+    scores = logits[..., None, :] + gumbel.to(valid.device, torch.float32)
     _, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return idx[:, :sample_size]
+    return idx[..., :sample_size]
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (..., L, C) gathered at idx (..., S, n) -> (..., S, n, C); the
+    unbatched case is `x[idx]`."""
+    flat = idx.reshape(idx.shape[:-2] + (-1, 1))
+    return torch.take_along_dim(x, flat, dim=-2).reshape(
+        idx.shape + x.shape[-1:])
 
 
 def is_single_batch(chunk: int, iterations: int) -> bool:
@@ -180,10 +189,15 @@ def best_hypothesis(R_h: torch.Tensor, t_h: torch.Tensor,
     R_prior = se3.quat_to_matrix(q_prior)
     inl_prior = _score_mask(R_prior, t_prior, pts3d_curr, pts2d_prev, valid,
                             P32, thr2)
-    sampled = counts[j] >= inl_prior.sum()
-    return (torch.where(sampled, R_h[j], R_prior),
-            torch.where(sampled, t_h[j], t_prior.to(torch.float32)),
-            torch.where(sampled, inl[j], inl_prior), sampled)
+    # index with a 1-element tensor: a 0-dim index would read it back to
+    # the host, which a CUDA graph cannot capture
+    j1 = j.reshape(1)
+    sampled = counts.index_select(0, j1)[0] >= inl_prior.sum()
+    return (torch.where(sampled, R_h.index_select(0, j1)[0], R_prior),
+            torch.where(sampled, t_h.index_select(0, j1)[0],
+                        t_prior.to(torch.float32)),
+            torch.where(sampled, inl.index_select(0, j1)[0], inl_prior),
+            sampled)
 
 
 def ransac_pose(pts3d_curr: torch.Tensor, pts3d_prev: torch.Tensor,

@@ -13,6 +13,10 @@ When `pallas_solver_eligible` holds (single-batch RANSAC, lm_unroll > 0,
 use_pallas_solver, CUDA device) `solve_prepared` runs the fused CUDA kernel
 (ops/solver_cuda.py); otherwise it runs the kernel's plain version, the
 same math op by op.
+
+`build_chain` and `prepare_solve` take any leading dimensions: the
+per-frame path calls them on one frame pair (K,), the online hybrid
+(parallel/sharding.py) on all pairs of a sequence at once (P, K).
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ from spsvo_tpu_torch.ops.triangulation import project, triangulate
 
 
 class SolveInputs(NamedTuple):
-    """Aligned per-current-left-keypoint arrays, capacity K."""
+    """Aligned per-current-left-keypoint arrays, capacity K (leading pair
+    dimensions allowed)."""
 
     xy_curr_l: torch.Tensor   # (K, 2)
     xy_curr_r: torch.Tensor   # (K, 2) gathered via stereo_map
@@ -56,34 +61,43 @@ class SolveResult(NamedTuple):
     prior_winner: object = False
 
 
+def take_slots(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Gather keypoint slots: x (..., K) or (..., K, C) at idx (..., M) ->
+    (..., M) or (..., M, C); the unbatched case is `x[idx]`."""
+    if x.dim() == idx.dim():
+        return torch.take_along_dim(x, idx, dim=-1)
+    return torch.take_along_dim(x, idx[..., None], dim=-2)
+
+
 def build_chain(xy_curr_l, xy_curr_r, valid_curr_l, valid_curr_r,
                 xy_prev_l, xy_prev_r, valid_prev_l, valid_prev_r,
                 stereo_map, interframe_map, prev_stereo_map,
                 stereo_threshold: float, min_disparity: float
                 ) -> SolveInputs:
-    """The filter chain as masked gathers."""
+    """The filter chain as masked gathers, batched over leading dims."""
     s_idx = torch.clamp(stereo_map, min=0).long()
     f_idx = torch.clamp(interframe_map, min=0).long()
-    uv_cr = xy_curr_r[s_idx]
-    uv_pl = xy_prev_l[f_idx]
-    prev_r_map = prev_stereo_map[f_idx]
+    uv_cr = take_slots(xy_curr_r, s_idx)
+    uv_pl = take_slots(xy_prev_l, f_idx)
+    prev_r_map = take_slots(prev_stereo_map, f_idx)
     pr_idx = torch.clamp(prev_r_map, min=0).long()
-    uv_pr = xy_prev_r[pr_idx]
+    uv_pr = take_slots(xy_prev_r, pr_idx)
 
-    dy = (xy_curr_l[:, 1] - uv_cr[:, 1]).abs()
-    disp = (xy_curr_l[:, 0] - uv_cr[:, 0]).abs()
+    dy = (xy_curr_l[..., 1] - uv_cr[..., 1]).abs()
+    disp = (xy_curr_l[..., 0] - uv_cr[..., 0]).abs()
     chain = (valid_curr_l
-             & (stereo_map >= 0) & valid_curr_r[s_idx]
-             & (interframe_map >= 0) & valid_prev_l[f_idx]
+             & (stereo_map >= 0) & take_slots(valid_curr_r, s_idx)
+             & (interframe_map >= 0) & take_slots(valid_prev_l, f_idx)
              & (dy <= stereo_threshold) & (disp >= min_disparity)
-             & (prev_r_map >= 0) & valid_prev_r[pr_idx])
+             & (prev_r_map >= 0) & take_slots(valid_prev_r, pr_idx))
     return SolveInputs(xy_curr_l, uv_cr, uv_pl, uv_pr, chain,
                        torch.where(chain, interframe_map,
                                    torch.full_like(interframe_map, -1)))
 
 
 class PreparedSolve(NamedTuple):
-    """Prior-independent solve inputs, compacted to `cfg.solve_slots` lanes."""
+    """Prior-independent solve inputs, compacted to `cfg.solve_slots` lanes
+    (leading pair dimensions allowed)."""
 
     pts3d_curr: torch.Tensor   # (L, 3)
     pts3d_prev: torch.Tensor   # (L, 3)
@@ -101,22 +115,24 @@ def prepare_solve(inputs: SolveInputs, P_l: torch.Tensor, P_r: torch.Tensor,
                   cfg: VOConfig) -> PreparedSolve:
     """Compaction + triangulation. Chain survivors are compacted into
     `cfg.solve_slots` lanes by a STABLE descending sort of the 0/1 mask
-    (valid lanes first, original order kept), as `lax.top_k` orders ties."""
+    (valid lanes first, original order kept), as `lax.top_k` orders ties.
+    Leading dimensions are pairs, each compacted on its own."""
     chain_full = inputs.chain_valid
-    K = chain_full.shape[0]
+    K = chain_full.shape[-1]
     L = min(cfg.solve_slots, K) if cfg.solve_slots else K
     if L < K:
-        _, order = torch.sort(chain_full.to(torch.float32), descending=True,
-                              stable=True)
-        sel = order[:L]
-        chain = chain_full[sel]
+        _, order = torch.sort(chain_full.to(torch.float32), dim=-1,
+                              descending=True, stable=True)
+        sel = order[..., :L]
+        chain = take_slots(chain_full, sel)
     else:
-        sel = torch.arange(K, device=chain_full.device)
+        sel = torch.arange(K, device=chain_full.device).expand(
+            chain_full.shape)
         chain = chain_full
-    xy_curr_l = inputs.xy_curr_l[sel]
-    xy_curr_r = inputs.xy_curr_r[sel]
-    xy_prev_l = inputs.xy_prev_l[sel]
-    xy_prev_r = inputs.xy_prev_r[sel]
+    xy_curr_l = take_slots(inputs.xy_curr_l, sel)
+    xy_curr_r = take_slots(inputs.xy_curr_r, sel)
+    xy_prev_l = take_slots(inputs.xy_prev_l, sel)
+    xy_prev_r = take_slots(inputs.xy_prev_r, sel)
 
     pts3d_curr = triangulate(P_l, P_r, xy_curr_l, xy_curr_r)
     pts3d_prev = triangulate(P_l, P_r, xy_prev_l, xy_prev_r)
@@ -124,21 +140,28 @@ def prepare_solve(inputs: SolveInputs, P_l: torch.Tensor, P_r: torch.Tensor,
               & torch.isfinite(pts3d_prev).all(dim=-1))
     chain = chain & finite
     zero = torch.zeros((), dtype=torch.float32, device=chain.device)
-    pts3d_curr = torch.where(chain[:, None], pts3d_curr, zero)
-    pts3d_prev = torch.where(chain[:, None], pts3d_prev, zero)
-    inter = inputs.inter_idx[sel]
+    pts3d_curr = torch.where(chain[..., None], pts3d_curr, zero)
+    pts3d_prev = torch.where(chain[..., None], pts3d_prev, zero)
+    inter = take_slots(inputs.inter_idx, sel)
     return PreparedSolve(pts3d_curr, pts3d_prev, xy_curr_l, xy_curr_r,
                          xy_prev_l, xy_prev_r, chain, sel,
-                         chain_full.sum().to(torch.int32),
+                         chain_full.sum(dim=-1).to(torch.int32),
                          torch.where(chain, inter, torch.full_like(inter, -1)))
 
 
-def pallas_solver_eligible(cfg: VOConfig, device) -> bool:
-    """The fused-kernel gate: single-batch RANSAC, unrolled LM, the flag,
-    and a CUDA device (the JAX package's TPU condition)."""
+def pallas_solver_config(cfg: VOConfig) -> bool:
+    """The configuration part of the fused-kernel gate: single-batch RANSAC,
+    unrolled LM and the flag. It alone picks the online hybrid's branch;
+    the device then picks the kernel or its plain version."""
     return (cfg.use_pallas_solver
             and pnp.is_single_batch(cfg.ransac_chunk, cfg.ransac_iterations)
-            and cfg.lm_unroll > 0 and torch.device(device).type == "cuda")
+            and cfg.lm_unroll > 0)
+
+
+def pallas_solver_eligible(cfg: VOConfig, device) -> bool:
+    """The per-frame fused-kernel gate: the configuration part and a CUDA
+    device (the JAX package's TPU condition)."""
+    return pallas_solver_config(cfg) and torch.device(device).type == "cuda"
 
 
 def _scatter(x: torch.Tensor, sel: torch.Tensor, k: int) -> torch.Tensor:
@@ -210,6 +233,12 @@ class LandmarkState(NamedTuple):
     length: torch.Tensor
 
 
+def init_landmarks(k: int, device) -> LandmarkState:
+    return LandmarkState(
+        torch.zeros((k, 3), dtype=torch.float32, device=device),
+        torch.zeros((k,), dtype=torch.int32, device=device))
+
+
 def substitute_landmarks(prep: PreparedSolve, lms: LandmarkState
                          ) -> Tuple[PreparedSolve, torch.Tensor]:
     """Carried landmarks replace the fresh prev-side triangulations where a
@@ -267,32 +296,57 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
                          frame_count: torch.Tensor, cfg: VOConfig,
                          k_capacity: int, *,
                          gumbel: Optional[torch.Tensor] = None,
-                         generator: Optional[torch.Generator] = None
+                         generator: Optional[torch.Generator] = None,
+                         hyp: Optional[torch.Tensor] = None,
+                         pts_static: Optional[torch.Tensor] = None,
+                         use_kernel: bool = True
                          ) -> Tuple[SolveResult, LandmarkState]:
-    """The per-frame landmark-fusion solve: substitute carried landmarks,
-    run `solve_prepared` on the substituted prep (the fused kernel when
-    eligible), run the GLS pass op by op (backward factors weighted by
-    track length, from the solved pose, on inliers of non-gated frames),
-    fuse the landmarks forward, and scatter masks and landmarks to
-    `k_capacity` slots."""
+    """The landmark-fusion solve: substitute carried landmarks, solve on the
+    substituted prep, run the GLS pass (backward factors weighted by track
+    length, from the solved pose, on inliers of non-gated frames), fuse the
+    landmarks forward, and scatter masks and landmarks to `k_capacity`
+    slots.
+
+    Per frame (`hyp` None): `solve_prepared` samples on the substituted
+    prep and the GLS pass runs op by op. The online hybrid passes `hyp`,
+    the (S, 12) hypotheses precomputed on the UNsubstituted prep, with
+    `pts_static`, `pack_points(prep)` hoisted out of its scan: then, when
+    `pallas_solver_config` holds, the 3 prev-side point rows and the GLS
+    weight row are spliced into the tile and one fused solve runs RANSAC,
+    LM and the GLS pass (its kernel wrapper, or with `use_kernel=False`
+    its plain version)."""
+    from spsvo_tpu_torch.ops import solver_cuda
     if cfg.landmark_refine:
         raise NotImplementedError("landmark_refine is not ported")
+    if (hyp is None) != (pts_static is None):
+        raise ValueError("pass hyp and pts_static together (the hoisted "
+                         "hypotheses and point tile)")
     prep2, lane_len = substitute_landmarks(prep, lms)
-    res = solve_prepared(prep2, P_l, P_r, q_pred, t_pred, frame_count, cfg,
-                         gumbel=gumbel, generator=generator)
+    weighted = cfg.landmark_weighted_lm and cfg.refinement_degree >= 3
+    w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(torch.float32)
+             if weighted else None)
+    weighted_in_kernel = False
+    if hyp is not None and pallas_solver_config(cfg):
+        res = solver_cuda.fused_solve(
+            hyp, prep2, P_l, P_r, q_pred, t_pred, frame_count, cfg,
+            pts=solver_cuda.splice_points(pts_static, prep2.pts3d_prev,
+                                          w_row),
+            weighted_lm=weighted, use_kernel=use_kernel)
+        weighted_in_kernel = weighted
+    else:
+        res = solve_prepared(prep2, P_l, P_r, q_pred, t_pred, frame_count,
+                             cfg, gumbel=gumbel, generator=generator)
     use_pred = (~res.pnp_success) | res.accel_anomaly
     inl = res.inliers
     q, t = res.q, res.t
-    if cfg.landmark_weighted_lm and cfg.refinement_degree >= 3:
-        w_inv = torch.clamp(lane_len, max=cfg.landmark_max_age
-                            ).to(torch.float32)
+    if weighted and not weighted_in_kernel:
         refined = lm.refine_pose(
             q, t, prep2.pts3d_curr, prep2.pts3d_prev, prep2.uv_prev_l,
             prep2.uv_prev_r, prep2.uv_curr_l, prep2.uv_curr_r,
             inl & ~use_pred, P_l, P_r,
             refinement_degree=cfg.refinement_degree,
             huber_delta=cfg.huber_delta, unroll=cfg.lm_unroll,
-            inv_factor_weights=w_inv)
+            inv_factor_weights=w_row)
         q = torch.where(use_pred, q, refined.q)
         t = torch.where(use_pred, t, refined.t)
 

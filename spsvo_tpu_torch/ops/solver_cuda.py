@@ -8,8 +8,9 @@ acceleration gates -> unrolled LM -> optional GLS LM, one launch per frame.
 
 Division of labour, as in the JAX package: hypothesis generation
 (`precompute_hypotheses`, Gumbel 3-point sampling + Horn) and point packing
-(`pack_points`) stay torch ops; everything that depends on the motion prior
-runs in the kernel. The kernel takes a frame dimension F (one
+(`pack_points`) stay torch ops, batched over leading pair dimensions for the
+online hybrid; everything that depends on the motion prior runs in the
+kernel. The kernel takes a frame dimension F (one
 thread-block cluster per frame); the per-frame path launches F=1.
 
 `fused_solve_packed` launches the kernel for CUDA tensors and uses the plain
@@ -71,33 +72,54 @@ def precompute_hypotheses(prep: PreparedSolve, cfg: VOConfig, *,
                           generator: Optional[torch.Generator] = None
                           ) -> torch.Tensor:
     """Gumbel 3-point sampling + Horn solves (`pnp.ransac_pose`'s hypothesis
-    stage): (S, 12) rows of [R row-major | t]."""
+    stage): (..., S, 12) rows of [R row-major | t] for a prep with leading
+    dims (...), from `gumbel` (..., S, L)."""
     idx = pnp._sample_indices(prep.chain, cfg.ransac_iterations, 3, gumbel,
                               generator)
-    q_h, t_h = pnp._horn(prep.pts3d_curr[idx], prep.pts3d_prev[idx],
+    q_h, t_h = pnp._horn(pnp.take_rows(prep.pts3d_curr, idx),
+                         pnp.take_rows(prep.pts3d_prev, idx),
                          torch.ones(idx.shape, dtype=torch.float32,
                                     device=idx.device))
     R_h = se3.quat_to_matrix(q_h)
-    return torch.cat([R_h.reshape(-1, 9), t_h], dim=-1).to(
+    return torch.cat([R_h.reshape(R_h.shape[:-2] + (9,)), t_h], dim=-1).to(
         torch.float32).contiguous()
 
 
 def pack_points(prep: PreparedSolve,
                 lane_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """PreparedSolve -> the kernel's (16, Lp) row layout, Lp = L rounded up
-    to a multiple of 128. Row 15 holds the GLS lane weights (zeros when
+    """PreparedSolve -> the kernel's (..., 16, Lp) row layout, Lp = L rounded
+    up to a multiple of 128. Row 15 holds the GLS lane weights (zeros when
     None)."""
-    L = prep.chain.shape[0]
+    L = prep.chain.shape[-1]
     Lp = max(128, -(-L // 128) * 128)
-    dev = prep.chain.device
+    lead = tuple(prep.chain.shape[:-1])
+    T = lambda x: x.transpose(-1, -2)  # noqa: E731
     rows = torch.cat([
-        prep.pts3d_curr.T, prep.pts3d_prev.T, prep.uv_prev_l.T,
-        prep.uv_prev_r.T, prep.uv_curr_l.T, prep.uv_curr_r.T,
-        prep.chain.to(torch.float32)[None],
-        (torch.zeros((1, L), device=dev) if lane_weights is None
-         else lane_weights.to(torch.float32)[None]),
-    ]).to(torch.float32)
+        T(prep.pts3d_curr), T(prep.pts3d_prev), T(prep.uv_prev_l),
+        T(prep.uv_prev_r), T(prep.uv_curr_l), T(prep.uv_curr_r),
+        prep.chain.to(torch.float32)[..., None, :],
+        (torch.zeros(lead + (1, L), device=prep.chain.device)
+         if lane_weights is None
+         else lane_weights.to(torch.float32)[..., None, :]),
+    ], dim=-2).to(torch.float32)
     return torch.nn.functional.pad(rows, (0, Lp - L)).contiguous()
+
+
+def splice_points(pts_static: torch.Tensor, pts3d_prev: torch.Tensor,
+                  lane_weights: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """A tile packed from the unsubstituted prep with the landmark-dependent
+    rows replaced: the prev-side points (rows 3-5) and, when given, the GLS
+    weights (row 15). Equal, bit for bit, to `pack_points` of the
+    substituted prep with those weights."""
+    Lp = pts_static.shape[-1]
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        x.to(torch.float32), (0, Lp - x.shape[-1]))
+    rows = [pts_static[..., 0:3, :], pad(pts3d_prev.transpose(-1, -2)),
+            pts_static[..., 6:15, :],
+            (pts_static[..., 15:16, :] if lane_weights is None
+             else pad(lane_weights[..., None, :]))]
+    return torch.cat(rows, dim=-2).contiguous()
 
 
 def pack_scalars(q_pred, t_pred, frame_count, P_l, P_r) -> torch.Tensor:
@@ -212,6 +234,7 @@ def fused_solve_packed(pts: torch.Tensor, hyp: torch.Tensor,
                      p.polish_iters, int(p.weighted_lm), stream)
     _build.check_status(err, "fused_solve")
     _build.launches["fused_solve"] += 1
+    _build.shapes["fused_solve"] = (F_, hyp.shape[1], Lp, int(p.weighted_lm))
     return out, inl
 
 
@@ -219,14 +242,27 @@ def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
                 P_r: torch.Tensor, q_pred: torch.Tensor, t_pred: torch.Tensor,
                 frame_count, cfg: VOConfig,
                 lane_weights: Optional[torch.Tensor] = None,
-                use_kernel: bool = True) -> SolveResult:
+                use_kernel: bool = True, pts: Optional[torch.Tensor] = None,
+                weighted_lm: Optional[bool] = None) -> SolveResult:
     """`solver.solve_prepared`'s prior-dependent core (single-batch RANSAC +
     unrolled LM) on hypotheses `hyp` (S, 12): the kernel wrapper, or with
     `use_kernel=False` the plain version on any device. `lane_weights` (L,)
-    runs the GLS weighted LM as a second pass. Masks stay at lane level."""
+    runs the GLS weighted LM as a second pass. `pts` is a tile already
+    packed (`pack_points`, `splice_points`); `weighted_lm` None infers the
+    GLS pass from `lane_weights`, True runs it on the weights packed in
+    `pts` row 15. Masks stay at lane level."""
+    if pts is not None and lane_weights is not None:
+        raise ValueError(
+            "pass lane_weights via pack_points(prep, lane_weights) (or splice "
+            "them into pts row 15 and set weighted_lm=True), not alongside a "
+            "packed pts: a pts packed without them would run the weighted LM "
+            "pass with all-zero weights")
     L = prep.chain.shape[0]
-    p = solve_params(cfg, weighted_lm=lane_weights is not None)
-    pts = pack_points(prep, lane_weights)
+    if weighted_lm is None:
+        weighted_lm = lane_weights is not None
+    p = solve_params(cfg, weighted_lm=weighted_lm)
+    if pts is None:
+        pts = pack_points(prep, lane_weights)
     scal = pack_scalars(q_pred, t_pred, frame_count, P_l, P_r)
     run = fused_solve_packed if use_kernel else fused_solve_plain
     out, inl = run(pts[None], hyp[None].contiguous(), scal[None], p)

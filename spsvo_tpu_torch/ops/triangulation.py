@@ -18,7 +18,7 @@ def _dlt_rows(P_l, P_r, xy_l, xy_r):
 
     a0, a1 = rows(P_l, xy_l)
     a2, a3 = rows(P_r, xy_r)
-    A = torch.stack([a0, a1, a2, a3], dim=-2)          # (K, 4, 4)
+    A = torch.stack([a0, a1, a2, a3], dim=-2)          # (..., K, 4, 4)
     return A / torch.clamp(torch.linalg.vector_norm(A, dim=-1, keepdim=True),
                            min=1e-12)
 
@@ -43,14 +43,15 @@ def _inv3(M: torch.Tensor) -> torch.Tensor:
 
 def triangulate(P_l: torch.Tensor, P_r: torch.Tensor, xy_l: torch.Tensor,
                 xy_r: torch.Tensor) -> torch.Tensor:
-    """Matched stereo pixels (K, 2) with (3, 4) projections -> (K, 3) points
-    in the left-camera frame. Invalid rows produce garbage; callers mask."""
+    """Matched stereo pixels (..., K, 2) with (3, 4) projections -> (..., K,
+    3) points in the left-camera frame. Invalid rows produce garbage;
+    callers mask."""
     A = _dlt_rows(P_l.to(torch.float32), P_r.to(torch.float32), xy_l, xy_r)
     A3 = A[..., :3]
     b = A[..., 3]
-    AtA = torch.einsum("kij,kil->kjl", A3, A3)
-    Atb = torch.einsum("kij,ki->kj", A3, b)
-    return -torch.einsum("kij,kj->ki", _inv3(AtA), Atb)
+    AtA = torch.einsum("...ij,...il->...jl", A3, A3)
+    Atb = torch.einsum("...ij,...i->...j", A3, b)
+    return -torch.einsum("...ij,...j->...i", _inv3(AtA), Atb)
 
 
 def project(P: torch.Tensor, pts3d: torch.Tensor) -> torch.Tensor:

@@ -10,14 +10,16 @@ import torch
 from spsvo_tpu_torch import pipeline
 from spsvo_tpu_torch.eval import synthetic
 from spsvo_tpu_torch.models import zoo
+from spsvo_tpu_torch.parallel import sharding
 from spsvo_tpu_torch.presets import flagship_tpu
 
 
 @pytest.mark.parametrize("fn", [pipeline.VisualOdometry.__init__,
                                 pipeline.init_state, zoo.load_model,
-                                synthetic.prepared_from_frame],
+                                synthetic.prepared_from_frame,
+                                sharding.build_online_hybrid],
                          ids=["VisualOdometry", "init_state", "load_model",
-                              "prepared_from_frame"])
+                              "prepared_from_frame", "build_online_hybrid"])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -31,3 +33,5 @@ def test_default_device_raises_without_cuda():
         pipeline.VisualOdometry(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
         pipeline.init_state(cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sharding.build_online_hybrid(cfg)

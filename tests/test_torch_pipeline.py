@@ -119,6 +119,20 @@ for _ in range(2):
     img = (rng.random((120, 376)) * 255).astype(np.uint8)
     T, _ = vo.process(img, np.roll(img, -4, axis=1), DEFAULT_P_L, P_r)
     assert np.isfinite(T).all()
+import torch
+from spsvo_tpu_torch.ops.image import preprocess_image_np, update_projection_matrix_np
+from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
+hybrid = build_online_hybrid(cfg, device="cpu")
+raw = [(rng.random((120, 376)) * 255).astype(np.uint8) for _ in range(3)]
+imgs = np.stack([[preprocess_image_np(im, 64, 200),
+                  preprocess_image_np(np.roll(im, -4, axis=1), 64, 200)]
+                 for im in raw]).astype(np.float32)
+Ps = [torch.as_tensor(update_projection_matrix_np(P, 120, 376, 64, 200),
+                      dtype=torch.float32) for P in (DEFAULT_P_L, P_r)]
+world, diag = hybrid(torch.as_tensor(imgs), *Ps,
+                     generator=torch.Generator().manual_seed(0))
+assert world.shape == (3, 4, 4) and torch.isfinite(world).all()
+assert diag["num_inliers"].shape == (2,)
 assert not any(m == "spsvo_tpu" or m.startswith("spsvo_tpu.") for m in sys.modules)
 print("NO_JAX_OK")
 """
