@@ -27,7 +27,25 @@ limit, then the result line:
      with its plain version from the same carry, the CUDA-graph replay
      against the eager run, accuracy bounds, and times: the sequence eager
      and replayed, frames per second, a per-phase split (one CUDA graph per
-     phase) and kernel 2 at the weighted shape.
+     phase) and kernel 2 at the weighted shape;
+  7. the run CLI and the evaluation harness over the same corridor written
+     as a KITTI tree (`sequences/00/image_0|1/*.png`, `calib.txt`, a
+     ground-truth pose file) by the package's own PNG writer:
+     a. `python -m spsvo_tpu_torch.run --mode frame` in process: pose file,
+        latency CSV, launches, drift; b. the same with `--instrument`, 8
+        frames: real stage columns; c. `--mode hybrid`; d. batch mode
+        through `harness.run_sequence_fused`: one matcher launch at B=63
+        and ONE solver launch at F=31 per call, that launch against the
+        plain version and bitwise against 31 launches at F=1, and its time
+        and bound; e. `process_stream` over `make_loader` on the tree and
+        `build_sequence_scan` on the same frames and noise: equal poses,
+        32 out, the captured step program bitwise equal to its eager run;
+        f. the reference-parity composition at full width
+        (`--preset superpoint_jetson`: 360x1176, bf16 trunk, K=1000, 500
+        hypotheses in chunks of 64, while-loop LM, 256 lanes; it runs no
+        hand-written kernel, as in the JAX package) in frame and hybrid
+        mode on 8 frames, with hypotheses scored, keypoints, inliers, ms
+        per frame and peak memory.
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -42,17 +60,23 @@ tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 "library_ms" is one PyTorch call computing the nearest function (kernel 1:
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
-"hybrid"), each counted from zero over that path's run; "launches" is
-their sum.
+"hybrid", and phase 7's "cli_frame", "cli_hybrid", "batch",
+"sequence_scan", "stream"), each counted from zero over that path's run;
+"launches" is their sum. A wrapper counts Python calls: a path that
+captures a CUDA graph calls it once in its warm-up run and once under
+capture, and replays add nothing.
 
 Exits non-zero at the first failed check, without a result line. Needs a
 CUDA device; imports neither jax nor the JAX package.
 """
 
+import csv
 import dataclasses
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -689,6 +713,459 @@ def phase_hybrid(dev, corridor):
     return launches, k2_t, m_err, max(worst["q"], worst["t"])
 
 
+def write_kitti_tree(root: str, corridor) -> str:
+    """The corridor as a KITTI odometry tree under `root`; returns the
+    ground-truth pose file."""
+    from spsvo_tpu_torch.io import kitti, png
+    frames, gt, P_l, P_r, _ = corridor
+    seq = os.path.join(root, "sequences", "00")
+    for cam in ("image_0", "image_1"):
+        os.makedirs(os.path.join(seq, cam))
+    for i, (il, ir) in enumerate(frames):
+        png.write_gray8(os.path.join(seq, "image_0", f"{i:06d}.png"), il)
+        png.write_gray8(os.path.join(seq, "image_1", f"{i:06d}.png"), ir)
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for key, P in (("P0", P_l), ("P1", P_r)):
+            f.write(key + ": " + " ".join(f"{v:.12e}" for v in P.reshape(-1))
+                    + "\n")
+    gt_file = os.path.join(root, "00_gt.txt")
+    kitti.write_kitti_poses(gt_file, gt)
+    return gt_file
+
+
+def run_cli(argv, out_dir: str, tag: str):
+    """`spsvo_tpu_torch.run.main(argv)` in process with its artefacts under
+    out_dir/tag. Returns (poses read back, latency CSV rows or None, the
+    launches and shapes of the run)."""
+    import torch
+
+    from spsvo_tpu_torch import _build, run
+    from spsvo_tpu_torch.io import kitti
+    res, lat = os.path.join(out_dir, tag, "res"), os.path.join(out_dir, tag,
+                                                              "lat")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    rc = run.main(list(argv) + ["--results-dir", res, "--latency-dir", lat])
+    torch.cuda.synchronize()
+    launches, shapes = dict(_build.launches), dict(_build.shapes)
+    if rc != 0:
+        fail(f"phase 7 {tag}: the CLI returned {rc}")
+    poses = kitti.read_kitti_poses(os.path.join(res, "default", "00_pred.txt"))
+    rows = None
+    lat_dir = os.path.join(lat, "tpu")
+    if os.path.isdir(lat_dir):
+        (name,) = os.listdir(lat_dir)
+        with open(os.path.join(lat_dir, name)) as f:
+            rows = list(csv.reader(f))
+    return poses, rows, launches, shapes
+
+
+def check_trajectory(tag: str, poses, gt, n: int, limit: float = 5.0) -> float:
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    if len(poses) != n:
+        fail(f"phase 7 {tag}: {len(poses)} poses, expected {n}")
+    if not all(np.isfinite(T).all() for T in poses):
+        fail(f"phase 7 {tag}: non-finite poses")
+    drift = score_trajectory(poses, gt[:n])["final_drift_percent"]
+    if not drift < limit:
+        fail(f"phase 7 {tag}: drift {drift:.3f}% >= {limit}%")
+    return drift
+
+
+def check_counts(tag: str, launches, want) -> None:
+    if {k: launches.get(k, 0) for k in want} != want:
+        fail(f"phase 7 {tag}: launches {launches}, expected {want}")
+
+
+# Batch mode solves every pair from the identity prior, so no pair has the
+# constant-velocity lane and the winner is a noisy minimal sample, refit. Its
+# inlier set lets wrong stereo matches in; one with zero disparity has a
+# singular triangulation and drags the degree-4 LM by metres (PERF.md section
+# 6). One such pair sets the final drift: 1.8-17.9% over 32 noise seeds
+# on the card (tools/torch_batch_drift.py), 2.4-23.1% over 8 keys in the JAX
+# package on the CPU, so one draw's drift is held only at 25%. The median
+# error of a pair's translation does not move with those pairs (0.032-0.070 m
+# over the 32 seeds, 0.018-0.023 m for the online hybrid, of 0.35 m per
+# frame), and it is what fails when a stage is half broken.
+BATCH_DRIFT_LIMIT = 25.0
+BATCH_PAIR_ERR_LIMIT_M = 0.10
+
+
+def pair_errors_m(poses, gt) -> np.ndarray:
+    """Per pair, the error of the relative translation against ground
+    truth's, in metres."""
+    def rel(Ts):
+        return np.stack([(np.linalg.inv(Ts[p]) @ Ts[p + 1])[:3, 3]
+                         for p in range(len(Ts) - 1)])
+    return np.linalg.norm(rel([np.asarray(T, np.float64) for T in poses])
+                          - rel([np.asarray(T, np.float64) for T in gt]),
+                          axis=1)
+
+
+def phase_batch(dev, corridor):
+    """7d: batch mode through the harness; kernel 2 at F=N-1."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval import harness
+    from spsvo_tpu_torch.ops import solver, solver_cuda
+    from spsvo_tpu_torch.ops import image as image_ops
+    from spsvo_tpu_torch.parallel import sharding
+
+    frames, gt, P_l_np, P_r_np, _ = corridor
+    n = len(frames)
+    cfg = dataclasses.replace(flagship_cfg(), landmark_fusion=False)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = harness.run_sequence_fused(cfg, frames, P_l_np, P_r_np,
+                                     mode="batch")
+    torch.cuda.synchronize()
+    launches, shapes = dict(_build.launches), dict(_build.shapes)
+    # the harness calls the program twice (one untimed run, one timed)
+    check_counts("7d", launches, {"match_nn": 2, "fused_solve": 2})
+    if shapes["match_nn"][0] != 2 * n - 1 or shapes["fused_solve"][0] != n - 1:
+        fail(f"phase 7d: shapes {shapes}, expected B={2 * n - 1}, F={n - 1}")
+    drift = check_trajectory("7d", res.poses, gt, n, BATCH_DRIFT_LIMIT)
+    pair_err = pair_errors_m(res.poses, gt)
+    if not np.median(pair_err) < BATCH_PAIR_ERR_LIMIT_M:
+        fail(f"phase 7d: median pair error {np.median(pair_err):.4f} m >= "
+             f"{BATCH_PAIR_ERR_LIMIT_M} m")
+    kps = [d["num_keypoints_left"] for d in res.diagnostics]
+    inl = [d["num_inliers"] for d in res.diagnostics]
+    gated = sum(d["gated"] for d in res.diagnostics)
+    if not (np.median(kps) > 200 and np.median(inl) > 30):
+        fail(f"phase 7d: median keypoints {np.median(kps)}, inliers "
+             f"{np.median(inl)}")
+    seq_ms = res.latencies_ms[0]["total"] * n
+    say("phase7d", mode="batch", launches=launches, calls=2,
+        shapes={k: list(v) for k, v in shapes.items()}, sequence_ms=seq_ms,
+        frames_per_s=n / seq_ms * 1e3, drift_percent=drift,
+        median_pair_err_m=float(np.median(pair_err)),
+        max_pair_err_m=float(pair_err.max()),
+        median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)), gated_pairs=int(gated))
+
+    # kernel 2 on this run's own tiles: F=31 against the plain version and,
+    # bit for bit, against 31 launches at F=1
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    h0, w0 = raw.shape[-2:]
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    P_l, P_r = (image_ops.update_projection_matrix(
+        torch.as_tensor(P, dtype=torch.float32, device=dev), h0, w0,
+        cfg.image_height, cfg.image_width) for P in (P_l_np, P_r_np))
+    batch = sharding.build_batch_vo(cfg, device=dev)
+    gumbel = batch.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    with torch.no_grad():
+        kp_l, kp_r = sharding.stereo_frontend(batch.model, imgs, cfg)
+        stereo, inter = sharding.match_pairs(kp_l, kp_r, cfg)
+        chains, _ = sharding.pair_chains(kp_l, kp_r, stereo, inter, cfg)
+        preps = solver.prepare_solve(chains, P_l, P_r, cfg)
+        hyp = solver_cuda.precompute_hypotheses(preps, cfg, gumbel=gumbel)
+        pts = solver_cuda.pack_points(preps)
+        scal = solver_cuda.pack_scalars(
+            torch.eye(4, device=dev)[3], torch.zeros(3, device=dev),
+            torch.zeros((), device=dev), P_l, P_r, (n - 1,)).contiguous()
+        p = solver_cuda.solve_params(cfg)
+        out, inl_k = solver_cuda.fused_solve_packed(pts, hyp, scal, p)
+        out_p, inl_p = solver_cuda.fused_solve_plain(pts, hyp, scal, p)
+        singles = [solver_cuda.fused_solve_packed(
+            pts[f:f + 1], hyp[f:f + 1], scal[f:f + 1], p)
+            for f in range(n - 1)]
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(o[0], out[f]) and torch.equal(i[0], inl_k[f])
+                  for f, (o, i) in enumerate(singles))
+    e_q = (out[:, 0:4] - out_p[:, 0:4]).abs().max().item()
+    e_t = (out[:, 4:7] - out_p[:, 4:7]).abs().max().item()
+    lanes = int(((inl_k > 0) != (inl_p > 0)).sum(-1).max().item())
+    flags = bool((out[:, 15:17] == out_p[:, 15:17]).all())
+    b_ms, b_by = solver_bound(pts, hyp, out, p)
+    fn = lambda: solver_cuda.fused_solve_packed(pts, hyp, scal, p)  # noqa: E731
+    k2 = {"ms_f31": graph_ms(fn, 50), "bound_ms_f31": b_ms,
+          "bound_by_f31": b_by, "plain_ms_f31": time_ms(
+              lambda: solver_cuda.fused_solve_plain(pts, hyp, scal, p), 2)}
+    say("phase7d", check="fused_solve F=31 vs plain and vs 31 x F=1",
+        F=n - 1, err_q=e_q, err_t=e_t, max_inlier_lanes=lanes,
+        flags_equal=flags, equals_F1_bitwise=bitwise, **k2)
+    if not (bitwise and e_q <= 1e-4 and e_t <= 1e-3 and lanes <= 3 and flags):
+        fail("phase 7d: fused_solve at F=31 disagrees with its plain version "
+             "or with the F=1 launches")
+    return launches, k2, max(e_q, e_t)
+
+
+def phase_stream_and_scan(dev, corridor, root):
+    """7e: process_stream over the loader, and the sequence scan, on the
+    same frames and noise."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.io import kitti
+    from spsvo_tpu_torch.io.loader import make_loader
+    from spsvo_tpu_torch.ops import pnp, solver
+    from spsvo_tpu_torch.ops.image import update_projection_matrix_np
+    from spsvo_tpu_torch.parallel.sharding import build_sequence_scan
+    from spsvo_tpu_torch.pipeline import VisualOdometry
+
+    _, gt, _, _, _ = corridor
+    cfg = flagship_cfg()
+    seq = kitti.KittiOdometrySequence(root, "00")
+    n = len(seq)
+    lp = [os.path.join(seq.left_dir, f) for f in seq.files]
+    rp = [os.path.join(seq.right_dir, f) for f in seq.files]
+    t0 = time.perf_counter()
+    loaded = list(make_loader(lp, rp, cfg.image_height, cfg.image_width))
+    load_ms = (time.perf_counter() - t0) * 1e3 / n
+    P_l, P_r = (update_projection_matrix_np(P, 375, 1242, cfg.image_height,
+                                            cfg.image_width)
+                for P in (seq.P_l, seq.P_r))
+    chunk = 16
+    gumbel = pnp.gumbel_noise((n,) + solver.gumbel_shape(cfg),
+                              torch.Generator(dev).manual_seed(0), dev)
+    padded = torch.cat([gumbel, gumbel.new_zeros(
+        (-n % chunk,) + tuple(gumbel.shape[1:]))])   # whole chunks
+    slabs = [padded[i:i + chunk].cpu().numpy() for i in range(0, n, chunk)]
+
+    vo = VisualOdometry(cfg, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = list(vo.process_stream(iter(loaded), P_l, P_r, chunk=chunk,
+                                 gumbel=iter(slabs)))
+    torch.cuda.synchronize()
+    stream_launches = dict(_build.launches)
+    # one step program: its warm-up run, then one graph replay per frame
+    # and per padding frame (the capture itself launches nothing)
+    steps = n + (-n % chunk) + 1
+    check_counts("7e stream", stream_launches,
+                 {"match_nn": steps, "fused_solve": steps})
+    check_counts("7e stream, recorded in the graph", dict(_build.captured),
+                 {"match_nn": 1, "fused_solve": 1})
+    if [i for i, _ in out] != list(range(n)):
+        fail(f"phase 7e: process_stream yielded {[i for i, _ in out]}")
+    vo.reset()
+    t0 = time.perf_counter()
+    list(vo.process_stream(iter(loaded), P_l, P_r, chunk=chunk,
+                           gumbel=iter(slabs)))
+    stream_ms = (time.perf_counter() - t0) * 1e3 / n
+    drift_s = check_trajectory("7e stream", vo.trajectory, gt, n)
+
+    imgs = torch.as_tensor(np.stack([f for _, f in loaded])).to(dev)
+    Pl_t, Pr_t = (torch.as_tensor(P, dtype=torch.float32).to(dev)
+                  for P in (P_l, P_r))
+    scan = build_sequence_scan(cfg, model=vo.model, device=dev)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    w_eager, d_eager = scan.eager(imgs, Pl_t, Pr_t, gumbel=gumbel)
+    torch.cuda.synchronize()
+    scan_launches = dict(_build.launches)
+    check_counts("7e scan", scan_launches, {"match_nn": n, "fused_solve": n})
+    _build.reset_launches()
+    w_graph, d_graph = scan(imgs, Pl_t, Pr_t, gumbel=gumbel)
+    torch.cuda.synchronize()
+    graph_launches = dict(_build.launches)
+    check_counts("7e scan, graph", graph_launches,
+                 {"match_nn": n + 1, "fused_solve": n + 1})
+    times = {"eager": [], "graph": []}
+    for _ in range(3):
+        for name, fn in (("eager", scan.eager), ("graph", scan)):
+            t0 = time.perf_counter()
+            fn(imgs, Pl_t, Pr_t, gumbel=gumbel)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3 / n)
+    same = torch.equal(w_graph, w_eager) and all(
+        torch.equal(d_graph[k], v) for k, v in d_eager.items())
+    world = [T.astype(np.float64) for T in w_graph.cpu().numpy()]
+    drift_q = check_trajectory("7e scan", world, gt, n)
+    diff = float(np.abs(np.stack(world) - np.stack(vo.trajectory)).max())
+    kps = d_graph["num_keypoints_left"].cpu().numpy()[1:]
+    inl = d_graph["num_inliers"].cpu().numpy()[1:]
+    say("phase7e", frames=n, chunk=chunk, loader_ms_per_frame=load_ms,
+        stream_ms_per_frame=stream_ms,
+        scan_graph_ms_per_frame=float(np.median(times["graph"])),
+        scan_eager_ms_per_frame=float(np.median(times["eager"])),
+        stream_launches=stream_launches, scan_eager_launches=scan_launches,
+        scan_graph_launches=graph_launches,
+        scan_graph_equals_eager_bitwise=same,
+        stream_vs_scan_max_abs_diff=diff, drift_percent_stream=drift_s,
+        drift_percent_scan=drift_q, median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)))
+    if not same:
+        fail("phase 7e: the captured step program differs from its eager run")
+    if not diff <= 1e-3:
+        fail(f"phase 7e: process_stream and the sequence scan differ by {diff}")
+    if not (np.median(kps) > 200 and np.median(inl) > 30):
+        fail(f"phase 7e: median keypoints {np.median(kps)}, inliers "
+             f"{np.median(inl)}")
+    return stream_launches, scan_launches, graph_launches
+
+
+def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
+    """7f: superpoint_jetson at full width, frame and hybrid mode."""
+    import torch
+
+    from spsvo_tpu_torch.eval import harness
+    from spsvo_tpu_torch.io import kitti
+    from spsvo_tpu_torch.pipeline import VisualOdometry
+    from spsvo_tpu_torch.presets import superpoint_jetson
+
+    _, gt, _, _, _ = corridor
+    n = 8
+    cfg = superpoint_jetson()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    report = {}
+    for mode in ("frame", "hybrid"):
+        poses, rows, launches, _ = run_cli(
+            ["--preset", "superpoint_jetson", "--mode", mode, "--kitti-root",
+             root, "--max-frames", str(n), "--ground-truth", gt_file],
+            out_dir, f"7f_{mode}")
+        report[f"drift_percent_{mode}"] = check_trajectory(
+            f"7f {mode}", poses, gt, n)
+        if launches:
+            fail(f"phase 7f: {launches} kernel launches in a configuration "
+                 "that uses neither kernel")
+        if mode == "frame":
+            report["ms_per_frame_frame"] = float(np.median(
+                [float(r[3]) for r in rows[3:]]))
+    # the same runs through the harness, for their diagnostics
+    seq = kitti.KittiOdometrySequence(root, "00", end=n)
+    frames = list(seq)
+    vo = VisualOdometry(cfg, device=dev)
+    res = harness.run_sequence(vo, frames, seq.P_l, seq.P_r, verbose=True)
+    fused = harness.run_sequence_fused(cfg, frames, seq.P_l, seq.P_r,
+                                       mode="hybrid", timing_reps=3)
+    torch.cuda.synchronize()
+    for name, diags in (("frame", res.diagnostics[1:]),
+                        ("hybrid", fused.diagnostics)):
+        kps = np.median([d["num_keypoints_left"] for d in diags])
+        inl = np.median([d["num_inliers"] for d in diags])
+        report[f"median_keypoints_{name}"] = float(kps)
+        report[f"median_inliers_{name}"] = float(inl)
+        report[f"median_n_ransac_hypotheses_{name}"] = float(np.median(
+            [d["n_ransac_hypotheses"] for d in diags]))
+        if not (kps > 200 and inl > 30):
+            fail(f"phase 7f {name}: median keypoints {kps}, inliers {inl}")
+    check_trajectory("7f harness frame", res.poses, gt, n)
+    check_trajectory("7f harness hybrid", fused.poses, gt, n)
+    # the same step program eager (the RANSAC and LM loops end early, one
+    # host read per iteration) and captured (the loops masked, full length)
+    from spsvo_tpu_torch.ops.image import (preprocess_image_np,
+                                           update_projection_matrix_np)
+    from spsvo_tpu_torch.parallel.sharding import build_sequence_scan
+    h, w = cfg.image_height, cfg.image_width
+    imgs = torch.as_tensor(np.stack(
+        [[preprocess_image_np(il, h, w), preprocess_image_np(ir, h, w)]
+         for il, ir in frames])).to(dev)
+    P_l, P_r = (torch.as_tensor(update_projection_matrix_np(
+        P, *frames[0][0].shape, h, w), dtype=torch.float32).to(dev)
+        for P in (seq.P_l, seq.P_r))
+    scan = build_sequence_scan(cfg, model=vo.model, device=dev)
+    gumbel = scan.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    runs = {}
+    for name, fn in (("eager", scan.eager), ("graph", scan)):
+        fn(imgs, P_l, P_r, gumbel=gumbel)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runs[name] = fn(imgs, P_l, P_r, gumbel=gumbel)
+        torch.cuda.synchronize()
+        report[f"scan_{name}_ms_per_frame"] = (
+            (time.perf_counter() - t0) * 1e3 / n)
+    same = torch.equal(runs["graph"][0], runs["eager"][0]) and all(
+        torch.equal(runs["graph"][1][k], v)
+        for k, v in runs["eager"][1].items())
+    report["scan_graph_equals_eager_bitwise"] = same
+    if not same:
+        fail("phase 7f: the captured step program (masked loops) differs "
+             "from its eager run (loops ending early)")
+    report["hybrid_sequence_ms"] = fused.latencies_ms[0]["total"] * n
+    report["hybrid_ms_per_frame"] = fused.latencies_ms[0]["total"]
+    report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    say("phase7f", preset="superpoint_jetson",
+        config=cfg.config_string, frames=n, **report)
+
+
+def phase_cli(dev, corridor):
+    """Phase 7: the CLI and the harness over the corridor as a KITTI tree.
+    Returns ({path: launches}, kernel 2's F=31 timing, its largest error
+    against the plain version)."""
+    from spsvo_tpu_torch.io import kitti, png
+
+    frames, gt, _, _, _ = corridor
+    n = len(frames)
+    by_path = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "out")
+        t0 = time.perf_counter()
+        gt_file = write_kitti_tree(root, corridor)
+        write_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+        seq = kitti.KittiOdometrySequence(root, "00")
+        t0 = time.perf_counter()
+        for f in seq.files:
+            png.read_gray8(os.path.join(seq.left_dir, f))
+            png.read_gray8(os.path.join(seq.right_dir, f))
+        decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+        say("phase7", tree_frames=n, png_write_ms_per_image=write_ms,
+            png_decode_ms_per_image=decode_ms)
+        base = ["--preset", "flagship_tpu", "--model",
+                "superpoint_pretrained", "--kitti-root", root,
+                "--ground-truth", gt_file]
+
+        poses, rows, launches, _ = run_cli(
+            base + ["--mode", "frame", "--max-frames", str(n)], out_dir, "7a")
+        drift = check_trajectory("7a", poses, gt, n)
+        if rows[0] != ["detect", "match", "solve", "total"] or \
+                len(rows) != n + 1:
+            fail(f"phase 7a: latency CSV header {rows[0]}, {len(rows)} rows")
+        check_counts("7a", launches, {"match_nn": n, "fused_solve": n})
+        total = float(np.median([float(r[3]) for r in rows[5:]]))
+        # `total` starts once the frame source has handed the pair over, so
+        # the decode time stands beside it, not inside
+        say("phase7a", mode="frame", frames=n, launches=launches,
+            drift_percent=drift, median_total_ms=total,
+            png_decode_ms_per_pair=2 * decode_ms,
+            png_decode_share_of_decode_plus_total=(
+                2 * decode_ms / (2 * decode_ms + total)))
+        by_path["cli_frame"] = launches
+
+        m = 8
+        poses, rows, launches, _ = run_cli(
+            base + ["--mode", "frame", "--instrument", "--max-frames",
+                    str(m)], out_dir, "7b")
+        check_trajectory("7b", poses, gt, m)
+        cols = np.array([[float(v) for v in r] for r in rows[1:]])
+        if len(cols) != m or not (cols[:, :3] > 0).all():
+            fail(f"phase 7b: stage columns {cols.tolist()}")
+        gap = np.abs(cols[:, :3].sum(1) - cols[:, 3]) / cols[:, 3]
+        if not gap.max() <= 0.05:
+            fail(f"phase 7b: stages and total differ by {gap.max():.3f}")
+        med = np.median(cols[2:], axis=0)
+        say("phase7b", mode="frame --instrument", frames=m,
+            median_detect_ms=med[0], median_match_ms=med[1],
+            median_solve_ms=med[2], median_total_ms=med[3],
+            max_stage_sum_gap=float(gap.max()))
+
+        poses, _, launches, shapes = run_cli(
+            base + ["--mode", "hybrid", "--max-frames", str(n)], out_dir,
+            "7c")
+        drift = check_trajectory("7c", poses, gt, n)
+        # the harness calls the program twice: the first call warms up
+        # eagerly, captures (which launches nothing) and replays, the timed
+        # call replays; each of the three runs 1 + 31 launches
+        check_counts("7c", launches, {"match_nn": 3, "fused_solve":
+                                      3 * (n - 1)})
+        if shapes["match_nn"][0] != 2 * n - 1 or shapes["fused_solve"][3] != 1:
+            fail(f"phase 7c: shapes {shapes}")
+        say("phase7c", mode="hybrid", frames=n, launches=launches,
+            shapes={k: list(v) for k, v in shapes.items()},
+            drift_percent=drift)
+        by_path["cli_hybrid"] = launches
+
+        by_path["batch"], k2_f31, err = phase_batch(dev, corridor)
+        (by_path["stream"], by_path["sequence_scan_eager"],
+         by_path["sequence_scan_graph"]) = phase_stream_and_scan(
+            dev, corridor, root)
+        phase_reference_parity(dev, corridor, root, gt_file, out_dir)
+    return by_path, k2_f31, err
+
+
 def main() -> None:
     try:
         import torch
@@ -703,6 +1180,10 @@ def main() -> None:
         fail(f"spsvo_tpu_torch not importable (run from the repo root): {e}")
     if "jax" in sys.modules:
         fail("jax was imported")
+    import logging
+
+    from spsvo_tpu_torch.utils.logging import get_logger
+    get_logger(logging.ERROR)     # the harness's per-frame warnings stay out
     dev = torch.device("cuda", 0)
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
@@ -711,11 +1192,13 @@ def main() -> None:
         nvcc=nvcc_v[-1] if nvcc_v else "", gpu=gpu,
         device=torch.cuda.get_device_name(0))
 
+    t0 = time.perf_counter()
+    try:
+        _build.load_all(("match_nn", "fused_solve"))   # nvcc runs side by side
+    except RuntimeError as e:
+        fail(f"kernel build: {e}")
+    say("phase2", both_built_s=time.perf_counter() - t0)
     for name in ("match_nn", "fused_solve"):
-        try:
-            _build.load(name)
-        except RuntimeError as e:
-            fail(f"build of {name}: {e}")
         log = _build.build_log[name]
         regs = [ln.strip() for ln in log["ptxas"].splitlines()
                 if "registers" in ln]
@@ -738,14 +1221,21 @@ def main() -> None:
     h_launches, k2_t, h_m_err, h_s_err = phase_hybrid(dev, corridor)
     m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
     say("phase6", gpu=gpu)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    c_launches, k2_f31, c_s_err = phase_cli(dev, corridor)
+    s_err = max(s_err, c_s_err)
+    say("phase7", result="pass", gpu=gpu)
+    if "jax" in sys.modules or "cv2" in sys.modules:
+        fail("jax or cv2 was imported")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def counts(name):
         by_path = {"per_frame": launches.get(name, 0),
-                   "hybrid": h_launches.get(name, 0)}
+                   "hybrid": h_launches.get(name, 0),
+                   **{path: c.get(name, 0) for path, c in c_launches.items()}}
+        missing = [path for path, count in by_path.items() if count == 0]
+        if missing:
+            fail(f"{name} was not launched on {missing}")
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
     print(json.dumps({"kernels": [
@@ -758,7 +1248,7 @@ def main() -> None:
          "source": "spsvo_tpu_torch/csrc/fused_solve.cu",
          "replaces": "spsvo_tpu/ops/solver_pallas.py:383",
          **counts("fused_solve"), "max_abs_err": s_err,
-         **{k: s_t[k] for k in keys}, **k2_t}]}), flush=True)
+         **{k: s_t[k] for k in keys}, **k2_t, **k2_f31}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 
 class DetectorType(enum.Enum):
@@ -220,3 +221,72 @@ class VOConfig:
         return (f"{self.model_name_prefix}_{self.model_batch_size}_"
                 f"{self.image_height}_{self.image_width}_"
                 f"{self.precision.suffix}")
+
+
+# The full engine sweep grid: 6 backbones x 2 batch sizes x 3 resolutions x
+# 2 precisions = 72 NN configs.
+MODEL_PREFIXES = ("superpoint_pretrained", "sp_sparse", "sp_mbv1", "sp_mbv2",
+                  "sp_squeeze", "sp_resnet18")
+SWEEP_RESOLUTIONS = ((360, 1176), (240, 784), (120, 392))
+SWEEP_BATCH_SIZES = (1, 2)
+SWEEP_PRECISIONS = (Precision.FP32, Precision.BF16)
+
+
+def classic_sweep_configs(base: Optional[VOConfig] = None) -> list[VOConfig]:
+    """The 6 classic configs benchmarked beside the 72 NN engines: each
+    classic detector with its natural descriptor (detector-only families
+    use ORB descriptors). The BRISK and AKAZE rows name the device front
+    ends at native resolution, the others the host detectors. Enumerated
+    for the sweep's bookkeeping: the classic front ends are not ported, so
+    `run_sweep` records these rows as errors."""
+    base = base or VOConfig()
+    pairs = [
+        (DetectorType.SHI_TOMASI, DescriptorType.ORB),
+        (DetectorType.FAST, DescriptorType.ORB),
+        (DetectorType.ORB, DescriptorType.ORB),
+        (DetectorType.BRISK, DescriptorType.BRISK),
+        (DetectorType.AKAZE, DescriptorType.AKAZE),
+        (DetectorType.SIFT, DescriptorType.SIFT),
+    ]
+    rows = []
+    for det, desc in pairs:
+        if det in (DetectorType.BRISK, DetectorType.AKAZE):
+            rows.append(dataclasses.replace(
+                base, is_classic=True, device_classic=True,
+                detector_type=det, descriptor_type=desc,
+                image_height=375, image_width=1242, orb_edge_threshold=31))
+            continue
+        rows.append(dataclasses.replace(
+            base, is_classic=True, detector_type=det, descriptor_type=desc,
+            image_height=0, image_width=0))  # native resolution
+    return rows
+
+
+def device_classic_sweep_configs(base: Optional[VOConfig] = None
+                                 ) -> list[VOConfig]:
+    """The device-resident classic rows: ORB and Shi-Tomasi at the flagship
+    resolution and at native KITTI resolution (not ported, see
+    `classic_sweep_configs`)."""
+    base = base or VOConfig()
+    rows = []
+    for det in (DetectorType.ORB, DetectorType.SHI_TOMASI):
+        for (h, w, border) in ((120, 392, 16), (375, 1242, 31)):
+            rows.append(dataclasses.replace(
+                base, is_classic=True, device_classic=True,
+                detector_type=det, descriptor_type=DescriptorType.ORB,
+                image_height=h, image_width=w, orb_edge_threshold=border))
+    return rows
+
+
+def sweep_configs(base: Optional[VOConfig] = None) -> list[VOConfig]:
+    """Enumerate the 72-config NN sweep."""
+    base = base or VOConfig()
+    out = []
+    for prefix in MODEL_PREFIXES:
+        for batch in SWEEP_BATCH_SIZES:
+            for (h, w) in SWEEP_RESOLUTIONS:
+                for prec in SWEEP_PRECISIONS:
+                    out.append(dataclasses.replace(
+                        base, model_name_prefix=prefix, model_batch_size=batch,
+                        image_height=h, image_width=w, precision=prec))
+    return out

@@ -1,10 +1,14 @@
 """Synthetic ground-truthed stereo sequences, numpy only.
 
-Copies of `spsvo_tpu.eval.synthetic`'s corridor renderer, trajectory
-model and scoring, so the port renders a drive without jax or OpenCV. The texture blurs reproduce cv2.GaussianBlur: a float Gaussian
-kernel with reflect-101 borders for the float pass, and the fixed-point
-(8 fractional bits per pass) arithmetic of OpenCV's bit-exact 8-bit path
-for the uint8 pass. The tests hold the renders against the originals.
+Copies of `spsvo_tpu.eval.synthetic`'s three scene generators (textured
+plane, corridor, block-world street), trajectory model and scoring, so the
+port renders a drive without jax or OpenCV. The texture blurs reproduce
+cv2.GaussianBlur: a float Gaussian kernel with reflect-101 borders for the
+float pass, and the fixed-point (8 fractional bits per pass) arithmetic of
+OpenCV's bit-exact 8-bit path for the uint8 pass. The plane's homography
+warp reproduces cv2.warpPerspective(INTER_LINEAR): source coordinates
+rounded to 1/32 pixel, bilinear taps, zeros outside the texture. The tests
+hold the renders against the originals.
 
 `solver_frame` makes one synthetic solver input (points, observations,
 known motion, outliers) for checking the fused solver, and
@@ -78,6 +82,84 @@ def _trajectory(n_frames, twists, yaw_rate, forward_per_frame):
             T = T @ dT
         poses.append(T.copy())
     return poses
+
+
+def _warp_perspective(src: np.ndarray, H: np.ndarray, w: int, h: int
+                      ) -> np.ndarray:
+    """cv2.warpPerspective(src, H, (w, h), flags=INTER_LINEAR) for uint8:
+    destination pixel (x, y) samples the source at H^-1 [x, y, 1], the
+    coordinates rounded to 1/32 pixel, constant-0 border."""
+    Hi = np.linalg.inv(H)
+    xs, ys = np.meshgrid(np.arange(w, dtype=np.float64),
+                         np.arange(h, dtype=np.float64))
+    den = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]
+    den = np.where(den == 0.0, 1.0, 1.0 / np.where(den == 0.0, 1.0, den))
+    lim = float(2 ** 31 - 1) / 32
+    sx = np.rint(np.clip((Hi[0, 0] * xs + Hi[0, 1] * ys + Hi[0, 2]) * den,
+                         -lim, lim) * 32).astype(np.int64)
+    sy = np.rint(np.clip((Hi[1, 0] * xs + Hi[1, 1] * ys + Hi[1, 2]) * den,
+                         -lim, lim) * 32).astype(np.int64)
+    x0, y0 = sx >> 5, sy >> 5
+    fx, fy = (sx & 31) / 32.0, (sy & 31) / 32.0
+    sh, sw = src.shape
+    srcf = src.astype(np.float64)
+
+    def tap(yy, xx):
+        inside = (yy >= 0) & (yy < sh) & (xx >= 0) & (xx < sw)
+        return np.where(inside, srcf[np.clip(yy, 0, sh - 1),
+                                     np.clip(xx, 0, sw - 1)], 0.0)
+
+    out = (tap(y0, x0) * (1 - fy) * (1 - fx) + tap(y0, x0 + 1) * (1 - fy) * fx
+           + tap(y0 + 1, x0) * fy * (1 - fx) + tap(y0 + 1, x0 + 1) * fy * fx)
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def synthetic_drive(rng: np.random.Generator, n_frames: int = 10,
+                    h: int = 375, w: int = 1242, depth: float = 8.0,
+                    forward_per_frame: float = 0.35,
+                    yaw_rate: float = 0.0,
+                    twists: Optional[Sequence[Tuple[np.ndarray,
+                                                    np.ndarray]]] = None,
+                    P_l: Optional[np.ndarray] = None,
+                    baseline_fx: float = DEFAULT_BASELINE_FX
+                    ) -> Tuple[List[Tuple[np.ndarray, np.ndarray]],
+                               List[np.ndarray], np.ndarray, np.ndarray]:
+    """Render a stereo sequence over a fronto-parallel textured plane at
+    `depth` metres. Returns (frames [(img_l, img_r) uint8], gt world_T_cam
+    poses, P_l, P_r); `twists` overrides the built-in motion. The drive is
+    valid only while the camera stays in front of the plane (a
+    RuntimeWarning fires past 90% of `depth`)."""
+    P_l = DEFAULT_P_L.copy() if P_l is None else np.asarray(P_l, np.float64)
+    P_r = P_l.copy()
+    P_r[0, 3] = baseline_fx
+
+    # texture plane parameterisation: X(u, v) = M @ [u, v, 1]
+    tw_, th_ = 3000, 1000
+    extent_x, extent_y = 5.0 * depth, 1.75 * depth
+    M = np.array([[extent_x / tw_, 0.0, -extent_x / 2],
+                  [0.0, extent_y / th_, -extent_y / 2],
+                  [0.0, 0.0, depth]])
+    tex = blob_texture(rng, th_, tw_)
+
+    frames: List[Tuple[np.ndarray, np.ndarray]] = []
+    poses = _trajectory(n_frames, twists, yaw_rate, forward_per_frame)
+    for i, T in enumerate(poses):
+        if T[2, 3] > 0.9 * depth:
+            import warnings
+            warnings.warn(
+                f"synthetic_drive: frame {i} is {T[2, 3]:.1f} m forward of "
+                f"a plane at depth={depth} m — geometry degenerates at the "
+                "plane; pass a larger `depth` for this drive length",
+                RuntimeWarning, stacklevel=2)
+        Tinv = np.linalg.inv(T)
+
+        def render(P):
+            P_i = P @ Tinv
+            H = P_i[:, :3] @ M + np.outer(P_i[:, 3], [0.0, 0.0, 1.0])
+            return _warp_perspective(tex, H, w, h)
+
+        frames.append((render(P_l), render(P_r)))
+    return frames, poses, P_l, P_r
 
 
 def score_trajectory(est_poses: Sequence[np.ndarray],
@@ -167,6 +249,104 @@ def synthetic_corridor(rng: np.random.Generator, n_frames: int = 10,
             img = np.where(valid, _bilinear_wrap(tex, X[:, ua], X[:, va],
                                                  tex_scale), img)
             best_t = np.where(valid, t, best_t)
+        return np.clip(img.reshape(h, w), 0, 255).astype(np.uint8)
+
+    baseline = -baseline_fx / P_l[0, 0]
+    poses = _trajectory(n_frames, twists, yaw_rate, forward_per_frame)
+    frames = [(render(T, 0.0), render(T, baseline)) for T in poses]
+    return frames, poses, P_l, P_r
+
+
+def synthetic_blocks(rng: np.random.Generator, n_frames: int = 10,
+                     h: int = 375, w: int = 1242,
+                     forward_per_frame: float = 0.35,
+                     yaw_rate: float = 0.0,
+                     twists: Optional[Sequence[Tuple[np.ndarray,
+                                                     np.ndarray]]] = None,
+                     street_half: float = 8.0, cam_height: float = 1.65,
+                     max_range: float = 80.0,
+                     P_l: Optional[np.ndarray] = None,
+                     baseline_fx: float = DEFAULT_BASELINE_FX,
+                     tex_scale: float = 48.0, blob_sigma: float = 6.0,
+                     tex_px: int = 4096
+                     ) -> Tuple[List[Tuple[np.ndarray, np.ndarray]],
+                                List[np.ndarray], np.ndarray, np.ndarray]:
+    """Ray-cast stereo sequence down a block-world street: a ground plane
+    at y=+cam_height plus axis-aligned boxes of random width, height and
+    depth lining both sides of a `2*street_half` m street with random gaps,
+    each face sampling a wrapping blob texture at a per-box offset. Exact
+    per-pixel ray casting (slab-method ray/box, nearest hit wins); same
+    return and `twists` contract as `synthetic_corridor`. Keep drives
+    inside |x| < street_half."""
+    P_l = DEFAULT_P_L.copy() if P_l is None else np.asarray(P_l, np.float64)
+    P_r = P_l.copy()
+    P_r[0, 3] = baseline_fx
+    texs = [blob_texture(rng, tex_px, tex_px, blob_sigma).astype(np.float32)
+            for _ in range(3)]
+
+    # boxes from behind the start to past the last frame's horizon, both
+    # sides: (lo[3], hi[3], texture index, u-offset, v-offset)
+    z_max = n_frames * abs(forward_per_frame) + max_range + 20.0
+    boxes = []
+    for side in (-1.0, 1.0):
+        z = -20.0
+        while z < z_max:
+            depth_b = rng.uniform(8.0, 16.0)
+            width_b = rng.uniform(4.0, 10.0)
+            height_b = rng.uniform(4.0, 18.0)
+            x_in = side * street_half
+            x_out = side * (street_half + width_b)
+            lo = np.array([min(x_in, x_out), cam_height - height_b, z])
+            hi = np.array([max(x_in, x_out), cam_height, z + depth_b])
+            boxes.append((lo, hi, int(rng.integers(0, 3)),
+                          float(rng.uniform(0, 40)),
+                          float(rng.uniform(0, 40))))
+            z += depth_b + rng.uniform(2.0, 8.0)
+
+    rays_cam, ray_norms = _camera_rays(P_l, h, w)
+    # texture axes per hit-face normal axis: x-face -> (z, y), y-face ->
+    # (x, z), z-face -> (x, y)
+    uv_axes = {0: (2, 1), 1: (0, 2), 2: (0, 1)}
+
+    def render(T_world_cam, eye_offset_x):
+        R = T_world_cam[:3, :3]
+        C = T_world_cam[:3, 3] + R @ np.array([eye_offset_x, 0.0, 0.0])
+        d = rays_cam @ R.T
+        best_t = np.full(h * w, np.inf)
+        img = np.full(h * w, 110.0, np.float32)             # sky grey
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (cam_height - C[1]) / d[:, 1]
+        X = C[None, :] + t[:, None] * d
+        valid = (np.isfinite(t) & (t > 0.05)
+                 & (t * ray_norms < max_range) & (t < best_t))
+        img = np.where(valid, _bilinear_wrap(texs[0], X[:, 0], X[:, 2],
+                                             tex_scale), img)
+        best_t = np.where(valid, t, best_t)
+
+        inv_d = np.where(d == 0.0, np.inf, 1.0 / np.where(d == 0.0, 1.0, d))
+        for lo, hi, ti, off_u, off_v in boxes:
+            t_a = (lo[None, :] - C[None, :]) * inv_d
+            t_b = (hi[None, :] - C[None, :]) * inv_d
+            t_near = np.minimum(t_a, t_b)
+            t_far = np.maximum(t_a, t_b)
+            face_axis = np.argmax(t_near, axis=1)           # entry face
+            tn = np.max(t_near, axis=1)
+            tf = np.min(t_far, axis=1)
+            hit = ((tn <= tf) & (tn > 0.05)
+                   & (tn * ray_norms < max_range) & (tn < best_t))
+            if not hit.any():
+                continue
+            hit_idx = np.nonzero(hit)[0]
+            X = C[None, :] + tn[hit_idx, None] * d[hit_idx]
+            fa = face_axis[hit_idx]
+            img = img.copy()
+            for axis, (ua, va) in uv_axes.items():
+                sel = np.nonzero(fa == axis)[0]
+                if sel.size:
+                    img[hit_idx[sel]] = _bilinear_wrap(
+                        texs[ti], X[sel, ua], X[sel, va], tex_scale, off_u,
+                        off_v)
+            best_t = np.where(hit, tn, best_t)
         return np.clip(img.reshape(h, w), 0, 255).astype(np.uint8)
 
     baseline = -baseline_fx / P_l[0, 0]

@@ -170,6 +170,5 @@ def match_nn_batched(desc0: torch.Tensor, valid0: torch.Tensor,
                 *common, rowmin.data_ptr(), rowarg.data_ptr(),
                 colkey.data_ptr(), idx.data_ptr(), dist2.data_ptr(), stream)
     _build.check_status(err, "match_nn")
-    _build.launches["match_nn"] += 1
-    _build.shapes["match_nn"] = (B, K0, K1, D)
+    _build.count_launch("match_nn", (B, K0, K1, D))
     return idx, dist2

@@ -3,7 +3,8 @@
 Mirrors `spsvo_tpu.ops.postprocess`: channel softmax with the +1e-5
 denominator, depth-to-space, iterated max-pool NMS, masked top-K (with the
 4x4 block-max path) and bilinear descriptor sampling (align_corners=True)
-with L2 normalisation. Inputs and outputs keep the JAX layouts: heads NHWC,
+with L2 normalisation, and the two sub-pixel refiners. Inputs and outputs
+keep the JAX layouts: heads NHWC,
 keypoints (x=col, y=row). Top-K is a stable descending sort, so equal scores
 keep the lowest index first, as `lax.top_k` does.
 """
@@ -116,6 +117,82 @@ def select_topk(scores: torch.Tensor, k: int, conf_thresh: float,
     return xy, top_scores, top_scores > 0.0
 
 
+def _neighbour_reader(heat: torch.Tensor):
+    """at(yy, xx) -> heat value at integer pixels (B, K), 0 outside."""
+    b, h, w = heat.shape
+    flat = heat.reshape(b, h * w)
+
+    def at(yy, xx):
+        inb = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
+        idx = torch.clamp(yy, 0, h - 1) * w + torch.clamp(xx, 0, w - 1)
+        return torch.where(inb, torch.gather(flat, 1, idx),
+                           torch.zeros_like(flat[:, :1]))
+    return at
+
+
+def refine_subpixel(heat: torch.Tensor, xy: torch.Tensor, valid: torch.Tensor
+                    ) -> torch.Tensor:
+    """Per-axis parabolic peak interpolation: a parabola through each
+    winner's score and its two axis neighbours, shifted to the vertex,
+    shift = (f(-1) - f(+1)) / (2 (f(-1) - 2 f(0) + f(+1))) clamped to
+    +-0.5. Out-of-image neighbours contribute 0; invalid slots pass through.
+
+    heat: (B, H, W) RAW heatmap (pre-threshold and pre-NMS, so every
+    neighbour carries its true score); xy: (B, K, 2) integer pixel coords."""
+    at = _neighbour_reader(heat)
+    x0 = xy[..., 0].to(torch.int64)
+    y0 = xy[..., 1].to(torch.int64)
+
+    def axis_shift(v_m, v_0, v_p):
+        denom = v_m - 2.0 * v_0 + v_p
+        flat = denom.abs() < 1e-12
+        shift = 0.5 * (v_m - v_p) / torch.where(
+            flat, torch.full_like(denom, 1e-12), denom)
+        return torch.clamp(torch.where(flat, torch.zeros_like(shift), shift),
+                           -0.5, 0.5)
+
+    dx = axis_shift(at(y0, x0 - 1), at(y0, x0), at(y0, x0 + 1))
+    dy = axis_shift(at(y0 - 1, x0), at(y0, x0), at(y0 + 1, x0))
+    refined = torch.stack([xy[..., 0] + dx, xy[..., 1] + dy], dim=-1)
+    return torch.where(valid[..., None], refined, xy)
+
+
+def refine_subpixel_quad(heat: torch.Tensor, xy: torch.Tensor,
+                         valid: torch.Tensor) -> torch.Tensor:
+    """Coupled 2D quadratic refinement: f(x, y) = a + bx + cy + dx^2 + exy +
+    fy^2 fitted to the 3x3 neighbourhood (Savitzky-Golay closed form), shift
+    to the vertex of [[2d, e], [e, 2f]] s = -[b, c]. No shift where the
+    Hessian is not negative definite; clamped to +-0.5 per axis. Same
+    contract as `refine_subpixel`."""
+    at = _neighbour_reader(heat)
+    x0 = xy[..., 0].to(torch.int64)
+    y0 = xy[..., 1].to(torch.int64)
+    f = [[at(y0 + dy_, x0 + dx_) for dx_ in (-1, 0, 1)] for dy_ in (-1, 0, 1)]
+    cells = [(i, j) for i in range(3) for j in range(3)]
+    s_all = sum(f[i][j] for i, j in cells)
+    sx = sum(f[i][j] * (j - 1) for i, j in cells)
+    sy = sum(f[i][j] * (i - 1) for i, j in cells)
+    sxx = sum(f[i][j] * (j - 1) ** 2 for i, j in cells)
+    syy = sum(f[i][j] * (i - 1) ** 2 for i, j in cells)
+    sxy = sum(f[i][j] * (i - 1) * (j - 1) for i, j in cells)
+    bq = sx / 6.0
+    cq = sy / 6.0
+    dq = 0.5 * sxx - s_all / 3.0
+    fq = 0.5 * syy - s_all / 3.0
+    eq = sxy / 4.0
+    det = 4.0 * dq * fq - eq * eq
+    neg_def = (dq < 0) & (det > 1e-12)
+    safe_det = torch.where(det.abs() < 1e-12, torch.full_like(det, 1e-12),
+                           det)
+    zero = torch.zeros_like(det)
+    dx = (-2.0 * fq * bq + eq * cq) / safe_det
+    dy = (-2.0 * dq * cq + eq * bq) / safe_det
+    dx = torch.clamp(torch.where(neg_def, dx, zero), -0.5, 0.5)
+    dy = torch.clamp(torch.where(neg_def, dy, zero), -0.5, 0.5)
+    refined = torch.stack([xy[..., 0] + dx, xy[..., 1] + dy], dim=-1)
+    return torch.where(valid[..., None], refined, xy)
+
+
 def sample_descriptors(desc_grid: torch.Tensor, xy: torch.Tensor,
                        image_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear sampling with align_corners=True semantics, then per-keypoint
@@ -150,10 +227,14 @@ def extract_keypoints(det: torch.Tensor, desc: torch.Tensor, *, k: int,
                       conf_thresh: float, nms_radius: int, border: int,
                       nms_iterations: int = 2, subpixel=False) -> Keypoints:
     """Raw heads -> fixed-capacity keypoints + descriptors.
-    det (B, Hc, Wc, 65) logits; desc (B, Hc, Wc, 256) normalised grid."""
-    if subpixel:
-        raise NotImplementedError(
-            "subpixel_refine is not ported yet (integer-pixel keypoints only)")
+    det (B, Hc, Wc, 65) logits; desc (B, Hc, Wc, 256) normalised grid.
+    `subpixel` shifts winners to their sub-pixel peak: True/"axis" = per-axis
+    parabolas, "quad" = coupled 2D quadratic fit; both read the RAW heatmap
+    (pre-threshold, pre-NMS)."""
+    if subpixel and subpixel not in (True, "axis", "quad"):
+        raise ValueError(
+            f"subpixel_refine={subpixel!r}: expected False, True/'axis' "
+            "(per-axis parabolas) or 'quad' (coupled 2D quadratic)")
     heat_raw = heatmap_from_logits(det)
     h, w = heat_raw.shape[1], heat_raw.shape[2]
     heat = torch.where(heat_raw > conf_thresh, heat_raw,
@@ -161,5 +242,9 @@ def extract_keypoints(det: torch.Tensor, desc: torch.Tensor, *, k: int,
     suppressed = nms(heat, nms_radius, nms_iterations)
     xy, score, valid = select_topk(suppressed, k, conf_thresh, border,
                                    post_nms_radius=nms_radius)
+    if subpixel:
+        refine = (refine_subpixel_quad if subpixel == "quad"
+                  else refine_subpixel)
+        xy = refine(heat_raw, xy, valid)
     descs = sample_descriptors(desc, xy, (h, w))
     return Keypoints(xy=xy, score=score, valid=valid, desc=descs)

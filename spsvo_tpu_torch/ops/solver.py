@@ -9,14 +9,18 @@ anomaly (after `ignore_frame_count` frames) reuse the predicted motion;
 otherwise the constant-velocity prior takes the raw PnP pose. Output is
 cam0_curr_T_cam0_prev.
 
-When `pallas_solver_eligible` holds (single-batch RANSAC, lm_unroll > 0,
-use_pallas_solver, CUDA device) `solve_prepared` runs the fused CUDA kernel
-(ops/solver_cuda.py); otherwise it runs the kernel's plain version, the
-same math op by op.
+`solve_prepared` has two routes. With single-batch RANSAC and an unrolled
+LM (the fused solver's composition) it computes the hypotheses and runs the
+fused solver (ops/solver_cuda.py): the CUDA kernel when
+`pallas_solver_eligible` holds (use_pallas_solver, CUDA device), otherwise
+its plain version. Every other configuration (the adaptive chunked RANSAC,
+the while-loop LM: `VOConfig`'s defaults) runs op by op: `pnp.ransac_pose`,
+the gates, `lm.refine_pose`.
 
-`build_chain` and `prepare_solve` take any leading dimensions: the
-per-frame path calls them on one frame pair (K,), the online hybrid
-(parallel/sharding.py) on all pairs of a sequence at once (P, K).
+`build_chain`, `prepare_solve` and `solve_prepared` take any leading
+dimensions: the per-frame path calls them on one frame pair (K,), the
+whole-sequence modes (parallel/sharding.py) on all pairs of a sequence at
+once (P, K).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ class SolveResult(NamedTuple):
     pnp_success: torch.Tensor
     accel_anomaly: torch.Tensor
     lm_improved: torch.Tensor
-    n_ransac_hypotheses: int
+    n_ransac_hypotheses: torch.Tensor   # int32: scored before the stop rule
     chain_truncated: torch.Tensor
     prior_winner: object = False
 
@@ -153,9 +157,7 @@ def pallas_solver_config(cfg: VOConfig) -> bool:
     """The configuration part of the fused-kernel gate: single-batch RANSAC,
     unrolled LM and the flag. It alone picks the online hybrid's branch;
     the device then picks the kernel or its plain version."""
-    return (cfg.use_pallas_solver
-            and pnp.is_single_batch(cfg.ransac_chunk, cfg.ransac_iterations)
-            and cfg.lm_unroll > 0)
+    return cfg.use_pallas_solver and fused_composition(cfg)
 
 
 def pallas_solver_eligible(cfg: VOConfig, device) -> bool:
@@ -164,10 +166,31 @@ def pallas_solver_eligible(cfg: VOConfig, device) -> bool:
     return pallas_solver_config(cfg) and torch.device(device).type == "cuda"
 
 
+def gumbel_shape(cfg: VOConfig) -> Tuple[int, int]:
+    """(rows, lanes) of one solve's RANSAC sampling noise: the sampled
+    triples (`ransac_iterations` rounded up to whole chunks) by the solver
+    lanes. Every place that draws the noise sizes it here."""
+    size, n_chunks = pnp.chunking(cfg.ransac_chunk, cfg.ransac_iterations)
+    k = cfg.max_keypoints
+    return size * n_chunks, (min(cfg.solve_slots, k) if cfg.solve_slots
+                             else k)
+
+
+def fused_composition(cfg: VOConfig) -> bool:
+    """The composition the fused solver computes: single-batch RANSAC and
+    an unrolled LM."""
+    return (pnp.is_single_batch(cfg.ransac_chunk, cfg.ransac_iterations)
+            and cfg.lm_unroll > 0)
+
+
 def _scatter(x: torch.Tensor, sel: torch.Tensor, k: int) -> torch.Tensor:
-    out = torch.zeros((k,) + x.shape[1:], dtype=x.dtype, device=x.device)
-    out[sel] = x
-    return out
+    """Lane values to keypoint slots: x (..., L) or (..., L, C) at slots sel
+    (..., L) -> (..., k) or (..., k, C), zeros elsewhere."""
+    dim = sel.dim() - 1
+    idx = sel.reshape(sel.shape + (1,) * (x.dim() - sel.dim())).expand_as(x)
+    out = torch.zeros(x.shape[:dim] + (k,) + x.shape[dim + 1:],
+                      dtype=x.dtype, device=x.device)
+    return out.scatter_(dim, idx, x)
 
 
 def solve_stereo_odometry(inputs: SolveInputs, P_l: torch.Tensor,
@@ -180,8 +203,62 @@ def solve_stereo_odometry(inputs: SolveInputs, P_l: torch.Tensor,
     """prepare_solve + solve_prepared, masks scattered to capacity K."""
     prep = prepare_solve(inputs, P_l, P_r, cfg)
     return solve_prepared(prep, P_l, P_r, q_pred, t_pred, frame_count, cfg,
-                          k_capacity=inputs.chain_valid.shape[0],
+                          k_capacity=inputs.chain_valid.shape[-1],
                           gumbel=gumbel, generator=generator)
+
+
+def _solve_op_by_op(prep: PreparedSolve, P_l, P_r, q_pred, t_pred,
+                    frame_count, cfg: VOConfig, gumbel, generator
+                    ) -> SolveResult:
+    """RANSAC -> gates -> prior update -> LM, one torch op at a time, for
+    any RANSAC chunking and LM form; masks at lane level."""
+    chain = prep.chain
+    res = pnp.ransac_pose(
+        prep.pts3d_curr, prep.pts3d_prev, prep.uv_prev_l, chain, P_l, q_pred,
+        t_pred, iterations=cfg.ransac_iterations,
+        reproj_threshold=cfg.ransac_reproj_threshold,
+        min_inliers=cfg.ransac_min_inliers,
+        confidence=cfg.ransac_confidence, chunk=cfg.ransac_chunk,
+        polish_unroll=(min(cfg.lm_unroll, 4) if cfg.lm_unroll else 0),
+        gumbel=gumbel, generator=generator)
+    dev = chain.device
+    q_pred = q_pred.to(torch.float32).expand(res.q.shape)
+    t_pred = t_pred.to(torch.float32).expand(res.t.shape)
+    frame_count = torch.as_tensor(frame_count, device=dev)
+    accel = (torch.linalg.vector_norm(res.t - t_pred, dim=-1)
+             / cfg.time_interval)
+    accel_anomaly = ((frame_count > cfg.ignore_frame_count)
+                     & (accel > cfg.max_acceleration))
+    use_pred = (~res.success) | accel_anomaly
+    do_optimize = ~use_pred
+    q = torch.where(use_pred[..., None], q_pred, res.q)
+    t = torch.where(use_pred[..., None], t_pred, res.t)
+    # the prior takes the raw PnP pose, before refinement
+    q_pred_new = torch.where(do_optimize[..., None], res.q, q_pred)
+    t_pred_new = torch.where(do_optimize[..., None], res.t, t_pred)
+
+    lm_improved = torch.zeros_like(use_pred)
+    if cfg.refinement_degree > 0:
+        refined = lm.refine_pose(
+            q, t, prep.pts3d_curr, prep.pts3d_prev, prep.uv_prev_l,
+            prep.uv_prev_r, prep.uv_curr_l, prep.uv_curr_r,
+            res.inliers & do_optimize[..., None], P_l, P_r,
+            refinement_degree=cfg.refinement_degree,
+            max_iterations=cfg.lm_max_iterations,
+            huber_delta=cfg.huber_delta, unroll=cfg.lm_unroll)
+        q = torch.where(do_optimize[..., None], refined.q, q)
+        t = torch.where(do_optimize[..., None], refined.t, t)
+        lm_improved = refined.improved & do_optimize
+    return SolveResult(
+        q=q, t=t,
+        T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
+        q_pred=q_pred_new, t_pred=t_pred_new, chain_valid=chain,
+        inliers=res.inliers & chain,
+        num_chain=chain.sum(dim=-1).to(torch.int32),
+        num_inliers=res.num_inliers, pnp_success=res.success,
+        accel_anomaly=accel_anomaly, lm_improved=lm_improved,
+        n_ransac_hypotheses=res.n_hypotheses,
+        chain_truncated=prep.num_chain_total > chain.shape[-1])
 
 
 def solve_prepared(prep: PreparedSolve, P_l: torch.Tensor, P_r: torch.Tensor,
@@ -191,22 +268,26 @@ def solve_prepared(prep: PreparedSolve, P_l: torch.Tensor, P_r: torch.Tensor,
                    gumbel: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None
                    ) -> SolveResult:
-    """RANSAC + gates + LM on prepared inputs: the S hypotheses, then the
-    fused solver — its CUDA kernel when `pallas_solver_eligible`, else its
-    plain version (op by op: the JAX package's XLA route). `k_capacity` is
-    the keypoint capacity the masks scatter back to (0 = stay at lane
-    level). `gumbel` is the (S, L) sampling noise; None draws it from
-    `generator`."""
-    from spsvo_tpu_torch.ops import solver_cuda
-    if not pnp.is_single_batch(cfg.ransac_chunk, cfg.ransac_iterations):
-        raise NotImplementedError("the adaptive chunked RANSAC loop is not "
-                                  "ported yet (set ransac_chunk <= 0)")
-    hyp = solver_cuda.precompute_hypotheses(prep, cfg, gumbel=gumbel,
-                                            generator=generator)
-    res = solver_cuda.fused_solve(
-        hyp, prep, P_l, P_r, q_pred, t_pred, frame_count, cfg,
-        use_kernel=pallas_solver_eligible(cfg, prep.chain.device))
-    L = prep.chain.shape[0]
+    """RANSAC + gates + LM on prepared inputs, the only solve stage that
+    consumes the motion prior. With `fused_composition` the S hypotheses,
+    then the fused solver: its CUDA kernel when `pallas_solver_eligible`
+    (one launch for all leading pairs), else its plain version; otherwise
+    op by op. `k_capacity` is the keypoint capacity the masks scatter back
+    to (0 = stay at lane level). `gumbel` is the (..., rows, L) sampling
+    noise (`gumbel_shape`); None draws it from `generator`. `prep` may
+    carry leading pair dimensions; the prior and `frame_count` broadcast
+    over them."""
+    if fused_composition(cfg):
+        from spsvo_tpu_torch.ops import solver_cuda
+        hyp = solver_cuda.precompute_hypotheses(prep, cfg, gumbel=gumbel,
+                                                generator=generator)
+        res = solver_cuda.fused_solve(
+            hyp, prep, P_l, P_r, q_pred, t_pred, frame_count, cfg,
+            use_kernel=pallas_solver_eligible(cfg, prep.chain.device))
+    else:
+        res = _solve_op_by_op(prep, P_l, P_r, q_pred, t_pred, frame_count,
+                              cfg, gumbel, generator)
+    L = prep.chain.shape[-1]
     K = k_capacity or L
     if L < K:
         res = res._replace(inliers=_scatter(res.inliers, prep.sel, K),
@@ -345,6 +426,7 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
             prep2.uv_prev_r, prep2.uv_curr_l, prep2.uv_curr_r,
             inl & ~use_pred, P_l, P_r,
             refinement_degree=cfg.refinement_degree,
+            max_iterations=cfg.lm_max_iterations,
             huber_delta=cfg.huber_delta, unroll=cfg.lm_unroll,
             inv_factor_weights=w_row)
         q = torch.where(use_pred, q, refined.q)

@@ -122,13 +122,18 @@ def splice_points(pts_static: torch.Tensor, pts3d_prev: torch.Tensor,
     return torch.cat(rows, dim=-2).contiguous()
 
 
-def pack_scalars(q_pred, t_pred, frame_count, P_l, P_r) -> torch.Tensor:
-    """[q_pred(4) t_pred(3) frame_count(1) P_l(12) P_r(12)] -> (32,)."""
+def pack_scalars(q_pred, t_pred, frame_count, P_l, P_r, lead=()
+                 ) -> torch.Tensor:
+    """[q_pred(4) t_pred(3) frame_count(1) P_l(12) P_r(12)] -> (*lead, 32);
+    each argument is one frame's or carries `lead` already."""
     dev = q_pred.device
-    return torch.cat([
-        q_pred.to(torch.float32).reshape(4), t_pred.to(torch.float32).reshape(3),
-        torch.as_tensor(frame_count, device=dev).to(torch.float32).reshape(1),
-        P_l.to(torch.float32).reshape(12), P_r.to(torch.float32).reshape(12)])
+    lead = tuple(lead)
+    parts = ((q_pred, 4), (t_pred, 3),
+             (torch.as_tensor(frame_count, device=dev)[..., None], 1),
+             (P_l.reshape(P_l.shape[:-2] + (12,)), 12),
+             (P_r.reshape(P_r.shape[:-2] + (12,)), 12))
+    return torch.cat([x.to(torch.float32).expand(lead + (n,))
+                      for x, n in parts], dim=-1)
 
 
 def _plain_one(pts: torch.Tensor, hyp: torch.Tensor, scal: torch.Tensor,
@@ -233,8 +238,8 @@ def fused_solve_packed(pts: torch.Tensor, hyp: torch.Tensor,
                      p.ignore_frame_count, p.degree, p.lm_iters,
                      p.polish_iters, int(p.weighted_lm), stream)
     _build.check_status(err, "fused_solve")
-    _build.launches["fused_solve"] += 1
-    _build.shapes["fused_solve"] = (F_, hyp.shape[1], Lp, int(p.weighted_lm))
+    _build.count_launch("fused_solve",
+                        (F_, hyp.shape[1], Lp, int(p.weighted_lm)))
     return out, inl
 
 
@@ -250,33 +255,45 @@ def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
     runs the GLS weighted LM as a second pass. `pts` is a tile already
     packed (`pack_points`, `splice_points`); `weighted_lm` None infers the
     GLS pass from `lane_weights`, True runs it on the weights packed in
-    `pts` row 15. Masks stay at lane level."""
+    `pts` row 15. Masks stay at lane level.
+
+    `prep` and `hyp` may carry one leading pair dimension (F, ...): all F
+    pairs then go through ONE launch of the kernel, each with the prior
+    and frame count given (broadcast when they are one frame's)."""
     if pts is not None and lane_weights is not None:
         raise ValueError(
             "pass lane_weights via pack_points(prep, lane_weights) (or splice "
             "them into pts row 15 and set weighted_lm=True), not alongside a "
             "packed pts: a pts packed without them would run the weighted LM "
             "pass with all-zero weights")
-    L = prep.chain.shape[0]
+    L = prep.chain.shape[-1]
+    lead = tuple(prep.chain.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"at most one leading pair dimension, got {lead}")
     if weighted_lm is None:
         weighted_lm = lane_weights is not None
     p = solve_params(cfg, weighted_lm=weighted_lm)
     if pts is None:
         pts = pack_points(prep, lane_weights)
-    scal = pack_scalars(q_pred, t_pred, frame_count, P_l, P_r)
+    scal = pack_scalars(q_pred, t_pred, frame_count, P_l, P_r, lead)
+    hyp = hyp.contiguous()
+    if not lead:
+        pts, hyp, scal = pts[None], hyp[None], scal[None]
     run = fused_solve_packed if use_kernel else fused_solve_plain
-    out, inl = run(pts[None], hyp[None].contiguous(), scal[None], p)
-    out = out[0]
-    q, t = out[0:4], out[4:7]
+    out, inl = run(pts, hyp, scal.contiguous(), p)
+    if not lead:
+        out, inl = out[0], inl[0]
+    q, t = out[..., 0:4], out[..., 4:7]
     chain = prep.chain
     return SolveResult(
         q=q, t=t, T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
-        q_pred=out[7:11], t_pred=out[11:14],
-        chain_valid=chain, inliers=(inl[0, :L] > 0) & chain,
-        num_chain=out[19].to(torch.int32),
-        num_inliers=out[14].to(torch.int32),
-        pnp_success=out[15] > 0, accel_anomaly=out[16] > 0,
-        lm_improved=out[17] > 0,
-        n_ransac_hypotheses=cfg.ransac_iterations,
+        q_pred=out[..., 7:11], t_pred=out[..., 11:14],
+        chain_valid=chain, inliers=(inl[..., :L] > 0) & chain,
+        num_chain=out[..., 19].to(torch.int32),
+        num_inliers=out[..., 14].to(torch.int32),
+        pnp_success=out[..., 15] > 0, accel_anomaly=out[..., 16] > 0,
+        lm_improved=out[..., 17] > 0,
+        n_ransac_hypotheses=torch.full(lead, cfg.ransac_iterations,
+                                       dtype=torch.int32, device=out.device),
         chain_truncated=prep.num_chain_total > L,
-        prior_winner=out[18] > 0)
+        prior_winner=out[..., 18] > 0)

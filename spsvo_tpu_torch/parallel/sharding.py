@@ -1,8 +1,12 @@
-"""The online hybrid: whole-sequence online VO on one GPU.
+"""Whole-sequence VO on one GPU: the online hybrid, the offline batch mode
+and the sequence scan.
 
-Mirrors `spsvo_tpu.parallel.sharding.build_online_hybrid` without a mesh
-(multi-GPU sharding is not ported). Every prior-independent stage runs once
-over the whole sequence of N stereo frames:
+Mirrors `spsvo_tpu.parallel.sharding` without a mesh (multi-GPU sharding is
+not ported): `build_online_hybrid`, `build_batch_vo` (every pair solved
+from the identity prior in one batched solve, the gates re-applied by a
+scalar pass, `_gate_scan`) and `build_sequence_scan` (the per-frame step in
+an on-device loop). In the online hybrid every prior-independent stage runs
+once over the whole sequence of N stereo frames:
 
   1. frontend: CNN trunk + detector postprocess over all 2N images;
   2. matching: stereo (N pairs) and inter-frame (N-1 pairs) matches in one
@@ -31,17 +35,20 @@ graph.
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import Precision, SelectorType, VOConfig
 from spsvo_tpu_torch.geometry import se3
 from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import matching, pnp, solver, solver_cuda
 from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched, match_scratch
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
-from spsvo_tpu_torch.pipeline import _mdesc, check_supported
+from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, check_supported,
+                                      init_state)
 
 # scan branches, chosen from the configuration alone
 LANDMARK_KERNEL = "landmark_kernel"   # flagship: hoisted tile + fused solve
@@ -77,6 +84,27 @@ def frontend_batch(model, images: torch.Tensor, cfg: VOConfig) -> Keypoints:
         x = torch.cat([x, x.new_zeros((pad,) + x.shape[1:])])
     parts = [run(c) for c in x.split(chunk)]
     return Keypoints(*(torch.cat(f)[:n] for f in zip(*parts)))
+
+
+def stereo_frontend(model, images: torch.Tensor, cfg: VOConfig
+                    ) -> Tuple[Keypoints, Keypoints]:
+    """`frontend_batch` over the 2N images of (N, 2, H, W) stereo frames ->
+    (left, right) Keypoints with leading N."""
+    n = images.shape[0]
+    kps = frontend_batch(model, images.reshape(
+        (2 * n,) + tuple(images.shape[2:])), cfg)
+    kp = Keypoints(*(a.reshape((n, 2) + a.shape[1:]) for a in kps))
+    return (Keypoints(*(a[:, 0] for a in kp)),
+            Keypoints(*(a[:, 1] for a in kp)))
+
+
+def draw_pair_gumbel(cfg: VOConfig, n_frames: int,
+                     generator: Optional[torch.Generator], device
+                     ) -> torch.Tensor:
+    """The RANSAC noise of a sequence's N-1 pairs, one
+    `solver.gumbel_shape(cfg)` slab each."""
+    return pnp.gumbel_noise((n_frames - 1,) + solver.gumbel_shape(cfg),
+                            generator, device)
 
 
 def matcher_gate(cfg: VOConfig) -> bool:
@@ -166,7 +194,8 @@ def _diag_of(res: solver.SolveResult) -> Dict[str, torch.Tensor]:
     return {"num_chain": res.num_chain, "num_inliers": res.num_inliers,
             "pnp_success": res.pnp_success,
             "accel_anomaly": res.accel_anomaly,
-            "chain_truncated": res.chain_truncated}
+            "chain_truncated": res.chain_truncated,
+            "n_ransac_hypotheses": res.n_ransac_hypotheses}
 
 
 def scan_step(carry: Carry, x: ScanInputs, P_l: torch.Tensor,
@@ -196,14 +225,20 @@ def scan_step(carry: Carry, x: ScanInputs, P_l: torch.Tensor,
     return Carry(res.q_pred, res.t_pred, fc + 1, lms), res, diag
 
 
-def chain_poses(qs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
-    """world_T_cam (N, 4, 4) from the per-pair prev_T_curr motions (N-1,):
-    identity first, then the cumulative product (a log-depth scan)."""
-    T = se3.make_transform(qs, ts)
+def cumulative_product(T: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative matrix product T_0, T_0 T_1, ... over the
+    leading dimension (a log-depth scan)."""
     d = 1
     while d < T.shape[0]:
         T = torch.cat([T[:d], T[:-d] @ T[d:]])
         d *= 2
+    return T
+
+
+def chain_poses(qs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
+    """world_T_cam (N, 4, 4) from the per-pair prev_T_curr motions (N-1,):
+    identity first, then the cumulative product."""
+    T = cumulative_product(se3.make_transform(qs, ts))
     return torch.cat([torch.eye(4, dtype=T.dtype, device=T.device)[None], T])
 
 
@@ -212,14 +247,15 @@ class _Captured(NamedTuple):
     scratch: Tuple[torch.Tensor, torch.Tensor]  # kernel 1's, graph-owned
     inputs: Tuple[torch.Tensor, ...]
     outputs: Tuple[torch.Tensor, Dict[str, torch.Tensor]]
+    recorded: collections.Counter   # the kernel launches the graph holds
 
 
 class OnlineHybrid:
     """`hybrid(images, P_l, P_r, *, gumbel=None, generator=None) -> (world
     (N, 4, 4), diag)`. `images` (N, 2, H, W) are preprocessed frames in
     [0, 1] on the device, P_l/P_r the updated 3x4 projections. `gumbel` is
-    the (N-1, S, L) RANSAC noise, one (S, L) slab per pair; None draws it
-    from `generator`. `diag` holds per-pair (N-1,) tensors."""
+    the (N-1, *solver.gumbel_shape(cfg)) RANSAC noise, one slab per pair;
+    None draws it from `generator`. `diag` holds per-pair (N-1,) tensors."""
 
     def __init__(self, cfg: VOConfig, model, device):
         self.cfg = cfg
@@ -236,12 +272,7 @@ class OnlineHybrid:
 
     # -- the phases -------------------------------------------------------
     def frontend(self, images: torch.Tensor) -> Tuple[Keypoints, Keypoints]:
-        n = images.shape[0]
-        kps = frontend_batch(self.model, images.reshape(
-            (2 * n,) + tuple(images.shape[2:])), self.cfg)
-        kp = Keypoints(*(a.reshape((n, 2) + a.shape[1:]) for a in kps))
-        return (Keypoints(*(a[:, 0] for a in kp)),
-                Keypoints(*(a[:, 1] for a in kp)))
+        return stereo_frontend(self.model, images, self.cfg)
 
     def prepare(self, kp_l: Keypoints, kp_r: Keypoints, stereo: torch.Tensor,
                 inter: torch.Tensor, P_l: torch.Tensor, P_r: torch.Tensor,
@@ -281,9 +312,6 @@ class OnlineHybrid:
             ts.append(res.t)
             diags.append(d)
         diag = {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
-        diag["n_ransac_hypotheses"] = torch.full(
-            (n_pairs,), self.cfg.ransac_iterations, dtype=torch.int32,
-            device=self.device)
         return torch.stack(qs), torch.stack(ts), diag
 
     # -- the program ------------------------------------------------------
@@ -313,9 +341,7 @@ class OnlineHybrid:
     def draw_gumbel(self, n_frames: int,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-        return pnp.gumbel_noise(
-            (n_frames - 1, self.cfg.ransac_iterations, self.lanes),
-            generator, self.device)
+        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device)
 
     def __call__(self, images: torch.Tensor, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
@@ -334,6 +360,7 @@ class OnlineHybrid:
         for dst, src in zip(rec.inputs, (images, P_l, P_r, gumbel)):
             dst.copy_(src)
         rec.graph.replay()
+        _build.count_replay(rec.recorded)
         world, diag = rec.outputs
         return world.clone(), {k: v.clone() for k, v in diag.items()}
 
@@ -354,9 +381,25 @@ class OnlineHybrid:
                 self.eager(*static, scratch)
             torch.cuda.current_stream(dev).wait_stream(stream)
             graph = torch.cuda.CUDAGraph()
+            before = _build.captured.copy()
             with torch.cuda.graph(graph, stream=stream):
                 outputs = self.eager(*static, scratch)
-        return _Captured(graph, scratch, static, outputs)
+        return _Captured(graph, scratch, static, outputs,
+                         _build.captured_since(before))
+
+
+def _resolve(cfg: VOConfig, model, device, who: str):
+    """Check the configuration and the device, load the model if needed."""
+    check_supported(cfg)
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' to run "
+                           "on the CPU)")
+    if model is None:
+        dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
+                 else torch.float32)
+        model = zoo.load_model(cfg.model_name_prefix, dtype, device)
+    return model, device
 
 
 def build_online_hybrid(cfg: VOConfig, model=None, device="cuda", *,
@@ -370,13 +413,163 @@ def build_online_hybrid(cfg: VOConfig, model=None, device="cuda", *,
             "binary_desc, frontend_batch_fn)")
     if cfg.speculative_solve:
         raise NotImplementedError("speculative_solve is not ported")
-    check_supported(cfg)
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("build_online_hybrid: no CUDA device (pass "
-                           "device='cpu' to run on the CPU)")
-    if model is None:
-        dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
-                 else torch.float32)
-        model = zoo.load_model(cfg.model_name_prefix, dtype, device)
+    model, device = _resolve(cfg, model, device, "build_online_hybrid")
     return OnlineHybrid(cfg, model, device)
+
+
+# --------------------------------------------------------------------------
+# offline batch mode: every pair solved from the identity prior at once
+# --------------------------------------------------------------------------
+
+def _pair_solve(chains: solver.SolveInputs, P_l: torch.Tensor,
+                P_r: torch.Tensor, cfg: VOConfig, gumbel: torch.Tensor):
+    """Solve all pre-chained pairs (leading dimension) in one batched call
+    from the identity prior with the gates disarmed (`frame_count` 0);
+    `_gate_scan` applies the gates afterwards. With the fused solver's
+    composition this is one launch of its kernel for all pairs. Returns
+    ((q, t, q_raw, t_raw, success), diag): q/t the refined pose,
+    q_raw/t_raw the raw PnP pose (the source of the prior update)."""
+    dev = chains.chain_valid.device
+    res = solver.solve_stereo_odometry(
+        chains, P_l, P_r, torch.eye(4, device=dev)[3],
+        torch.zeros(3, device=dev),
+        torch.zeros((), dtype=torch.int32, device=dev), cfg, gumbel=gumbel)
+    diag = {"num_chain": res.num_chain, "num_inliers": res.num_inliers,
+            "pnp_success": res.pnp_success,
+            "chain_truncated": res.chain_truncated}
+    return (res.q, res.t, res.q_pred, res.t_pred, res.pnp_success), diag
+
+
+def _gate_scan(qs: torch.Tensor, ts: torch.Tensor, qs_raw: torch.Tensor,
+               ts_raw: torch.Tensor, success: torch.Tensor, cfg: VOConfig
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The online gates over already-solved pairs, in order, on scalars:
+    where PnP failed or the acceleration |t_raw - t_pred| / dt exceeds the
+    limit (armed after `ignore_frame_count` pairs), the constant-velocity
+    prediction replaces the solved pose; otherwise the prediction takes the
+    raw PnP pose. Pair p is solved at frame count p. Returns (q_out, t_out,
+    gated), each with the leading pair dimension. No host reads."""
+    dev = qs.device
+    q_pred = torch.eye(4, dtype=qs.dtype, device=dev)[3]
+    t_pred = torch.zeros(3, dtype=ts.dtype, device=dev)
+    q_out, t_out, gated = [], [], []
+    for p in range(qs.shape[0]):
+        accel = (torch.linalg.vector_norm(ts_raw[p] - t_pred)
+                 / cfg.time_interval)
+        use_pred = ~success[p]
+        if p > cfg.ignore_frame_count:
+            use_pred = use_pred | (accel > cfg.max_acceleration)
+        q_out.append(torch.where(use_pred, q_pred, qs[p]))
+        t_out.append(torch.where(use_pred, t_pred, ts[p]))
+        gated.append(use_pred)
+        q_pred = torch.where(use_pred, q_pred, qs_raw[p])
+        t_pred = torch.where(use_pred, t_pred, ts_raw[p])
+    return torch.stack(q_out), torch.stack(t_out), torch.stack(gated)
+
+
+class BatchVO:
+    """`batch(images, P_l, P_r, *, gumbel=None, generator=None) -> (world
+    (N, 4, 4), diag)`: the offline frame-parallel program. Front end over
+    all 2N images, one matcher call over the 2N-1 entries, the chain filter
+    and ONE batched solve over the N-1 pairs (identity prior), then the
+    scalar gate pass and pose chaining. Inputs and noise as for
+    `OnlineHybrid`; `diag` holds per-pair (N-1,) tensors, `gated` among
+    them."""
+
+    def __init__(self, cfg: VOConfig, model, device):
+        self.cfg, self.model = cfg, model
+        self.device = torch.device(device)
+
+    def draw_gumbel(self, n_frames: int,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device)
+
+    @torch.no_grad()
+    def __call__(self, images: torch.Tensor, P_l: torch.Tensor,
+                 P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        if images.shape[0] < 2:
+            raise ValueError("the batch mode needs at least 2 frames")
+        if gumbel is None:
+            gumbel = self.draw_gumbel(images.shape[0], generator)
+        P_l = P_l.to(self.device, torch.float32)
+        P_r = P_r.to(self.device, torch.float32)
+        kp_l, kp_r = stereo_frontend(self.model, images, self.cfg)
+        stereo, inter = match_pairs(kp_l, kp_r, self.cfg)
+        chains, counts = pair_chains(kp_l, kp_r, stereo, inter, self.cfg)
+        (qs, ts, qs_raw, ts_raw, ok), diag = _pair_solve(
+            chains, P_l, P_r, self.cfg, gumbel)
+        q_out, t_out, gated = _gate_scan(qs, ts, qs_raw, ts_raw, ok, self.cfg)
+        return chain_poses(q_out, t_out), dict(diag, **counts, gated=gated)
+
+
+def build_batch_vo(cfg: VOConfig, model=None, mesh=None, device="cuda"
+                   ) -> BatchVO:
+    """The offline batch mode for `cfg` on `device` (see `BatchVO`). One
+    device: `mesh` must be None."""
+    if mesh is not None:
+        raise NotImplementedError("not ported yet: a device mesh (multi-GPU "
+                                  "sharding)")
+    model, device = _resolve(cfg, model, device, "build_batch_vo")
+    return BatchVO(cfg, model, device)
+
+
+# --------------------------------------------------------------------------
+# sequence scan: the per-frame step in an on-device loop
+# --------------------------------------------------------------------------
+
+class SequenceScan:
+    """`scan(images, P_l, P_r, *, gumbel=None, generator=None) -> (world
+    (N, 4, 4), diag)`: whole-sequence online VO as a loop of `vo_step` on
+    the device, exact sequential semantics, no host round trip per frame.
+    `images` (N, 2, H, W) preprocessed frames on the device; `gumbel`
+    (N, *solver.gumbel_shape(cfg)), one slab per FRAME (the first frame's
+    is drawn and unused, as in the per-frame path); `diag` holds per-frame
+    (N,) tensors. On a CUDA device the step is one CUDA graph replayed N
+    times (`pipeline.StepProgram`); `eager` runs it op by op."""
+
+    def __init__(self, cfg: VOConfig, model, device):
+        self.cfg, self.model = cfg, model
+        self.device = torch.device(device)
+        self._programs: Dict[tuple, StepProgram] = {}
+
+    def draw_gumbel(self, n_frames: int,
+                    generator: Optional[torch.Generator] = None
+                    ) -> torch.Tensor:
+        return pnp.gumbel_noise((n_frames,) + solver.gumbel_shape(self.cfg),
+                                generator, self.device)
+
+    def _run(self, graph: Optional[bool], images, P_l, P_r, gumbel, generator):
+        if gumbel is None:
+            gumbel = self.draw_gumbel(images.shape[0], generator)
+        key = (tuple(images.shape[1:]), images.dtype, graph)
+        prog = self._programs.get(key)
+        if prog is None:
+            prog = self._programs[key] = StepProgram(
+                self.model, self.cfg, self.device, key[0], key[1],
+                graph=graph)
+        prog.set_projections(P_l.to(self.device, torch.float32),
+                             P_r.to(self.device, torch.float32))
+        prog.load_state(init_state(self.cfg, self.device))
+        outs = [prog.step(images[i], gumbel[i])
+                for i in range(images.shape[0])]
+        world = cumulative_product(se3.invert_transform(
+            torch.stack([T for T, _ in outs])))
+        diag = {k: torch.stack([d[k] for _, d in outs]) for k in outs[0][1]}
+        return world, diag
+
+    def __call__(self, images, P_l, P_r, *, gumbel=None, generator=None):
+        return self._run(None, images, P_l, P_r, gumbel, generator)
+
+    def eager(self, images, P_l, P_r, *, gumbel=None, generator=None):
+        """The same program without a CUDA graph."""
+        return self._run(False, images, P_l, P_r, gumbel, generator)
+
+
+def build_sequence_scan(cfg: VOConfig, model=None, device="cuda"
+                        ) -> SequenceScan:
+    """The sequence scan for `cfg` on `device` (see `SequenceScan`)."""
+    model, device = _resolve(cfg, model, device, "build_sequence_scan")
+    return SequenceScan(cfg, model, device)

@@ -13,20 +13,26 @@ the fused solver kernel; everything else is PyTorch ops. State (the
 previous frame's keypoints and stereo map, the motion prior, the frame
 counter, the fused landmarks) is an explicit `VOState` of device tensors.
 
-Randomness: the RANSAC sampling noise of each frame is an (S, L) Gumbel
-tensor, drawn from the `VisualOdometry`'s `torch.Generator` unless the
-caller passes it (`process(..., gumbel=...)`), which is how tests inject the
-JAX package's draws.
+Randomness: the RANSAC sampling noise of each frame is a Gumbel tensor of
+`solver.gumbel_shape(cfg)`, drawn from the `VisualOdometry`'s
+`torch.Generator` unless the caller passes it (`process(..., gumbel=...)`),
+which is how tests inject the JAX package's draws.
+
+`StepProgram` is `vo_step` on static buffers, the body of the on-device
+frame loops (`VisualOdometry.process_stream`, `parallel.sharding.
+build_sequence_scan`): on a CUDA device it is captured once as a CUDA graph
+and replayed per frame, the counterpart of the JAX package's jitted scan.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import Precision, SelectorType, VOConfig
 from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import image as image_ops
@@ -107,11 +113,13 @@ def _mdesc(desc: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
 
 
 def match_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints, *,
-                cfg: VOConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                cfg: VOConfig, scratch=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stereo + inter-frame matching. Both pairs share the current-left
     query: on CUDA one launch of the fused matcher matches it against both
-    targets (B=2, the query broadcast); otherwise one (K, 2K) distance
-    product feeds both selections."""
+    targets (B=2, the query broadcast; a CUDA graph passes the kernel
+    `scratch` it owns); otherwise one (K, 2K) distance product feeds both
+    selections."""
     if (cfg.use_pallas_matcher and cfg.selector_type == SelectorType.NN
             and cfg.cross_check and kp_l.desc.device.type == "cuda"):
         from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched
@@ -121,7 +129,8 @@ def match_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints, *,
             q[None].expand(2, *q.shape), kp_l.valid[None].expand(2, k),
             torch.stack([_mdesc(kp_r.desc, cfg),
                          _mdesc(state.prev_left.desc, cfg)]),
-            torch.stack([kp_r.valid, state.prev_left.valid]))
+            torch.stack([kp_r.valid, state.prev_left.valid]),
+            scratch=scratch)
         stereo_idx, inter_idx = idx[0], idx[1]
     else:
         k = kp_r.desc.shape[0]
@@ -208,10 +217,11 @@ def solve_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints,
 def features_step(state: VOState, kp_l: Keypoints, kp_r: Keypoints,
                   P_l: torch.Tensor, P_r: torch.Tensor, *, cfg: VOConfig,
                   gumbel: Optional[torch.Tensor] = None,
-                  generator: Optional[torch.Generator] = None
+                  generator: Optional[torch.Generator] = None, scratch=None
                   ) -> Tuple[VOState, VOStepOutput]:
     """Matching + geometry for one frame given extracted features."""
-    stereo_idx, inter_idx = match_stage(state, kp_l, kp_r, cfg=cfg)
+    stereo_idx, inter_idx = match_stage(state, kp_l, kp_r, cfg=cfg,
+                                        scratch=scratch)
     return solve_stage(state, kp_l, kp_r, stereo_idx, inter_idx, P_l, P_r,
                        cfg=cfg, gumbel=gumbel, generator=generator)
 
@@ -219,12 +229,109 @@ def features_step(state: VOState, kp_l: Keypoints, kp_r: Keypoints,
 def vo_step(model, state: VOState, images: torch.Tensor, P_l: torch.Tensor,
             P_r: torch.Tensor, *, cfg: VOConfig,
             gumbel: Optional[torch.Tensor] = None,
-            generator: Optional[torch.Generator] = None
+            generator: Optional[torch.Generator] = None, scratch=None
             ) -> Tuple[VOState, VOStepOutput]:
     """One full VO step on preprocessed images (2, H, W) in [0, 1]."""
     kp_l, kp_r = superpoint_frontend(model, images, cfg)
     return features_step(state, kp_l, kp_r, P_l, P_r, cfg=cfg,
-                         gumbel=gumbel, generator=generator)
+                         gumbel=gumbel, generator=generator, scratch=scratch)
+
+
+def state_leaves(state: VOState) -> List[torch.Tensor]:
+    """The state's tensors in a fixed order."""
+    return [*state.prev_left, *state.prev_right, *state[2:]]
+
+
+class StepProgram:
+    """`vo_step` on static buffers: `step(images, gumbel, real)` runs one
+    frame from the carried state and returns (T_curr_prev, diagnostics).
+
+    With `graph` (the default on a CUDA device) the step is captured once
+    as a CUDA graph that owns the matcher kernel's scratch, and every call
+    copies its inputs into the graph's buffers and replays it; otherwise
+    the same code runs op by op. A frame with `real=False` (tail padding of
+    a chunk) leaves the state as it was: every state tensor is reverted by
+    `torch.where`, inside the program. uint8 frames are normalised on the
+    device."""
+
+    def __init__(self, model, cfg: VOConfig, device, frame_shape,
+                 frame_dtype=torch.float32, graph: Optional[bool] = None):
+        self.model, self.cfg = model, cfg
+        self.device = dev = torch.device(device)
+        self.use_graph = dev.type == "cuda" if graph is None else graph
+        self.images = torch.zeros(tuple(frame_shape), dtype=frame_dtype,
+                                  device=dev)
+        self.gumbel = torch.zeros(solver.gumbel_shape(cfg), device=dev)
+        self.real = torch.ones((), dtype=torch.bool, device=dev)
+        self.P_l = torch.zeros((3, 4), device=dev)
+        self.P_r = torch.zeros((3, 4), device=dev)
+        self.state = init_state(cfg, dev)
+        self.scratch = None
+        if dev.type == "cuda" and cfg.matcher_bf16:
+            from spsvo_tpu_torch.ops.matching_cuda import match_scratch
+            k = cfg.max_keypoints
+            self.scratch = match_scratch(dev, 2, k, k)
+        self._graph = None
+        self._outputs = None
+        self._recorded = None    # the kernel launches the graph holds
+
+    def set_projections(self, P_l: torch.Tensor, P_r: torch.Tensor) -> None:
+        self.P_l.copy_(P_l)
+        self.P_r.copy_(P_r)
+
+    def load_state(self, state: VOState) -> None:
+        for dst, src in zip(state_leaves(self.state), state_leaves(state)):
+            dst.copy_(src)
+
+    def state_copy(self) -> VOState:
+        leaves = [t.clone() for t in state_leaves(self.state)]
+        return VOState(Keypoints(*leaves[0:4]), Keypoints(*leaves[4:8]),
+                       *leaves[8:])
+
+    def _body(self) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        imgs = self.images
+        if imgs.dtype == torch.uint8:
+            imgs = imgs.to(torch.float32) / 255.0
+        new, out = vo_step(self.model, self.state, imgs, self.P_l, self.P_r,
+                           cfg=self.cfg, gumbel=self.gumbel,
+                           scratch=self.scratch)
+        for dst, src in zip(state_leaves(self.state), state_leaves(new)):
+            dst.copy_(torch.where(self.real, src, dst))
+        return out.T_curr_prev, out.diagnostics
+
+    def _capture(self) -> None:
+        """Warm up on a side stream (it builds the kernels; the state is
+        put back afterwards), then capture the step on that stream."""
+        dev = self.device
+        saved = self.state_copy()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                self._body()
+                self.load_state(saved)
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            self._graph = torch.cuda.CUDAGraph()
+            before = _build.captured.copy()
+            with torch.cuda.graph(self._graph, stream=stream):
+                self._outputs = self._body()
+            self._recorded = _build.captured_since(before)
+
+    @torch.no_grad()
+    def step(self, images: torch.Tensor, gumbel: torch.Tensor,
+             real: bool = True
+             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        self.images.copy_(images)
+        self.gumbel.copy_(gumbel)
+        self.real.fill_(bool(real))
+        if not self.use_graph:
+            return self._body()
+        if self._graph is None:
+            self._capture()
+        self._graph.replay()
+        _build.count_replay(self._recorded)
+        T, diag = self._outputs
+        return T.clone(), {k: v.clone() for k, v in diag.items()}
 
 
 def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
@@ -247,14 +354,8 @@ def check_supported(cfg: VOConfig) -> None:
         missing.append("the classic front ends (is_classic)")
     if cfg.precision == Precision.INT8:
         missing.append("the int8 trunk")
-    if cfg.lm_unroll <= 0:
-        missing.append("the while-loop LM (lm_unroll=0)")
-    if not pnp.is_single_batch(cfg.ransac_chunk, cfg.ransac_iterations):
-        missing.append("the adaptive chunked RANSAC (ransac_chunk>0)")
     if cfg.landmark_refine:
         missing.append("landmark_refine")
-    if cfg.subpixel_refine:
-        missing.append("subpixel_refine")
     if missing:
         raise NotImplementedError("not ported yet: " + ", ".join(missing))
 
@@ -282,6 +383,8 @@ class VisualOdometry:
         self.model = model
         self.seed = seed
         self.generator = torch.Generator(self.device)
+        # process_stream's step programs, by (frame shape, dtype)
+        self._programs: Dict[tuple, StepProgram] = {}
         self.reset()
 
     def reset(self) -> None:
@@ -292,17 +395,9 @@ class VisualOdometry:
         self.trajectory: list[np.ndarray] = []
         self.latencies: list[Dict[str, float]] = []
 
-    @torch.no_grad()
-    def process(self, img_l: np.ndarray, img_r: np.ndarray,
-                P_l: np.ndarray, P_r: np.ndarray,
-                want_diagnostics: bool = False,
-                gumbel: Optional[np.ndarray] = None
-                ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """One frame. `gumbel` is this frame's (S, L) RANSAC sampling noise;
-        None draws it from the instance's generator."""
-        cfg = self.cfg
-        dev = self.device
-        t0 = time.perf_counter()
+    def _upload(self, img_l, img_r, P_l, P_r, gumbel):
+        """Frames, projections and noise to the device; preprocessing there."""
+        dev, cfg = self.device, self.cfg
         il = torch.as_tensor(np.asarray(img_l)).to(dev, non_blocking=True)
         ir = torch.as_tensor(np.asarray(img_r)).to(dev, non_blocking=True)
         Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
@@ -311,8 +406,22 @@ class VisualOdometry:
             il, ir, Pl, Pr, dst_h=cfg.image_height, dst_w=cfg.image_width)
         g = None if gumbel is None else torch.as_tensor(
             np.array(gumbel, np.float32)).to(dev)
+        return imgs, Pl2, Pr2, g
+
+    @torch.no_grad()
+    def process(self, img_l: np.ndarray, img_r: np.ndarray,
+                P_l: np.ndarray, P_r: np.ndarray,
+                want_diagnostics: bool = False,
+                gumbel: Optional[np.ndarray] = None
+                ) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """One frame. `gumbel` is this frame's RANSAC sampling noise
+        (`solver.gumbel_shape(cfg)`); None draws it from the instance's
+        generator."""
+        t0 = time.perf_counter()
+        imgs, Pl2, Pr2, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
         self.state, out = vo_step(self.model, self.state, imgs, Pl2, Pr2,
-                                  cfg=cfg, gumbel=g, generator=self.generator)
+                                  cfg=self.cfg, gumbel=g,
+                                  generator=self.generator)
         T = out.T_curr_prev.cpu().numpy().astype(np.float64)
         t1 = time.perf_counter()
 
@@ -327,3 +436,110 @@ class VisualOdometry:
 
     def current_pose(self) -> np.ndarray:
         return self.world_T_cam.copy()
+
+    @torch.no_grad()
+    def process_instrumented(self, img_l: np.ndarray, img_r: np.ndarray,
+                             P_l: np.ndarray, P_r: np.ndarray,
+                             gumbel: Optional[np.ndarray] = None
+                             ) -> Tuple[np.ndarray, Dict[str, Any]]:
+        """Like `process`, in three stages (front end / matching / solve)
+        with a host read after each, so `info["stages_ms"]` carries real
+        detect/match/solve/total times for the latency CSV. Same math and
+        the same noise stream as `process`: equal results; each stage
+        boundary costs one synchronisation."""
+        cfg = self.cfg
+        t0 = time.perf_counter()
+        imgs, Pl2, Pr2, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
+        kp_l, kp_r = superpoint_frontend(self.model, imgs, cfg)
+        kp_l.xy.cpu()
+        t1 = time.perf_counter()
+        stereo_idx, inter_idx = match_stage(self.state, kp_l, kp_r, cfg=cfg)
+        stereo_idx.cpu()
+        t2 = time.perf_counter()
+        self.state, out = solve_stage(
+            self.state, kp_l, kp_r, stereo_idx, inter_idx, Pl2, Pr2, cfg=cfg,
+            gumbel=g, generator=self.generator)
+        T = out.T_curr_prev.cpu().numpy().astype(np.float64)
+        t3 = time.perf_counter()
+
+        T = apply_pose_update(self, T)
+        lat = {"detect": (t1 - t0) * 1e3, "match": (t2 - t1) * 1e3,
+               "solve": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
+        self.latencies.append(lat)
+        return T, {"latency_s": t3 - t0, "stages_ms": lat, "output": out}
+
+    def process_stream(self, frames, P_l: np.ndarray, P_r: np.ndarray,
+                       chunk: int = 16,
+                       gumbel: Optional[Iterable[np.ndarray]] = None):
+        """Process an iterator of preprocessed (2, H, W) frames (float in
+        [0, 1] or uint8; bare, or `(idx, frame)` tuples as
+        `io.loader.make_loader` yields) in on-device chunks: exact online
+        semantics, with one host round trip per `chunk` frames instead of
+        one per frame. `P_l`/`P_r` are the projections already rescaled to
+        the frame resolution. Yields (frame_idx, T_curr_prev 4x4) in order.
+
+        `gumbel` yields one (chunk, *solver.gumbel_shape(cfg)) noise slab
+        per chunk; None draws them from the instance's generator. A partial
+        last chunk is padded to `chunk` frames whose state update is
+        reverted on the device and whose outputs are dropped, so the state
+        afterwards is the state after the last real frame."""
+        cfg, dev = self.cfg, self.device
+        Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
+        Pr = torch.as_tensor(np.asarray(P_r), dtype=torch.float32).to(dev)
+        noise = None if gumbel is None else iter(gumbel)
+        buf: List[Tuple[int, np.ndarray]] = []
+
+        @torch.no_grad()
+        def flush():
+            idxs = [i for i, _ in buf]
+            imgs = torch.as_tensor(np.stack([f for _, f in buf])).to(dev)
+            if noise is None:
+                g = pnp.gumbel_noise((chunk,) + solver.gumbel_shape(cfg),
+                                     self.generator, dev)
+            else:
+                g = torch.as_tensor(np.asarray(next(noise), np.float32)
+                                    ).to(dev)
+                if tuple(g.shape) != (chunk,) + solver.gumbel_shape(cfg):
+                    raise ValueError(
+                        "process_stream: each noise slab must be "
+                        f"{(chunk,) + solver.gumbel_shape(cfg)}, got "
+                        f"{tuple(g.shape)}")
+            key = (tuple(imgs.shape[1:]), imgs.dtype)
+            prog = self._programs.get(key)
+            if prog is None:
+                prog = self._programs[key] = StepProgram(
+                    self.model, cfg, dev, *key)
+            prog.set_projections(Pl, Pr)
+            prog.load_state(self.state)
+            Ts = [prog.step(imgs[j], g[j], idxs[j] >= 0)[0]
+                  for j in range(len(buf))]
+            self.state = prog.state_copy()
+            T_seq = torch.stack(Ts).cpu().numpy().astype(np.float64)
+            buf.clear()
+            return [(i, apply_pose_update(self, T))
+                    for i, T in zip(idxs, T_seq) if i >= 0]
+
+        next_idx = 0
+        for item in frames:
+            if isinstance(item, tuple):
+                idx, frame = item
+            else:
+                idx, frame = next_idx, item
+            next_idx = idx + 1
+            frame = np.asarray(frame)
+            if cfg.image_height > 0 and frame.shape[-2:] != (
+                    cfg.image_height, cfg.image_width):
+                raise ValueError(
+                    "process_stream expects frames preprocessed to the "
+                    f"config resolution {cfg.image_height}x{cfg.image_width}"
+                    f", got {frame.shape[-2:]}; use ops.image."
+                    "preprocess_image_np + update_projection_matrix_np")
+            if frame.dtype != np.uint8:
+                frame = frame.astype(np.float32)
+            buf.append((idx, frame))
+            if len(buf) == chunk:
+                yield from flush()
+        if buf:
+            while len(buf) < chunk:
+                buf.append((-1, buf[-1][1]))
+            yield from flush()

@@ -306,10 +306,29 @@ def test_chain_poses_is_the_cumulative_product(rng):
                                    atol=1e-5)
 
 
+@pytest.mark.parametrize("change,branch", [
+    (dict(ransac_chunk=16), tsh.LANDMARK),
+    (dict(lm_unroll=0), tsh.LANDMARK),
+    (dict(ransac_chunk=16, lm_unroll=0, landmark_fusion=False), tsh.PLAIN)],
+    ids=["ransac_chunk16", "lm_unroll0", "plain_reference_solve"])
+def test_hybrid_reference_solve_matches_jax_xla(change, branch):
+    """The adaptive chunked RANSAC (64 hypotheses in chunks of 16) and the
+    while-loop LM in the hybrid's scan, through `solve_prepared` op by op,
+    against the JAX package's XLA hybrid over 4 frames: same counts, flags
+    and `n_ransac_hypotheses` per pair, world poses within 2e-3."""
+    pytest.importorskip("jax")
+    jcfg, tcfg = _cfgs(**change)
+    jw, jd, tw, td, gt, hybrid = _run_both(4, jcfg, tcfg)
+    assert hybrid.branch == branch
+    _assert_hybrid_matches(jw, jd, tw, td, gt)
+    if "ransac_chunk" in change:
+        assert (td["n_ransac_hypotheses"] < 64).any()
+
+
 @pytest.mark.parametrize("change", [
     dict(speculative_solve=True), dict(landmark_refine=True),
-    dict(ransac_chunk=16), dict(lm_unroll=0), dict(feature_input=True),
-    dict(binary_desc=True), dict(frontend_batch_fn=print)])
+    dict(feature_input=True), dict(binary_desc=True),
+    dict(frontend_batch_fn=print)])
 def test_unported_configurations_raise(change):
     cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL)
     kw = {k: v for k, v in change.items()

@@ -102,6 +102,7 @@ def test_first_frame_identity_and_reset(rng):
 _NO_JAX = r"""
 import sys
 sys.modules["jax"] = None          # any `import jax` now raises ImportError
+sys.modules["cv2"] = None          # and so does `import cv2`
 import dataclasses
 import numpy as np
 import spsvo_tpu_torch
@@ -133,21 +134,56 @@ world, diag = hybrid(torch.as_tensor(imgs), *Ps,
                      generator=torch.Generator().manual_seed(0))
 assert world.shape == (3, 4, 4) and torch.isfinite(world).all()
 assert diag["num_inliers"].shape == (2,)
+# every module of the port imports, and the CLI runs a tree end to end
+import importlib, os, pkgutil, tempfile
+for mod in pkgutil.walk_packages(spsvo_tpu_torch.__path__, "spsvo_tpu_torch."):
+    importlib.import_module(mod.name)
+from spsvo_tpu_torch import run
+from spsvo_tpu_torch.io import png
+from spsvo_tpu_torch.io.loader import make_loader
+from spsvo_tpu_torch.parallel.sharding import build_batch_vo, build_sequence_scan
+with tempfile.TemporaryDirectory() as root:
+    seq = os.path.join(root, "sequences", "00")
+    for cam, shift in (("image_0", 0), ("image_1", -4)):
+        os.makedirs(os.path.join(seq, cam))
+        for i, im in enumerate(raw):
+            png.write_gray8(os.path.join(seq, cam, f"{i:06d}.png"),
+                            np.roll(im, shift, axis=1))
+    with open(os.path.join(seq, "calib.txt"), "w") as f:
+        for k, P in (("P0", DEFAULT_P_L), ("P1", P_r)):
+            f.write(k + ": " + " ".join(str(v) for v in P.reshape(-1)) + "\n")
+    for mode in ("frame", "hybrid"):
+        rc = run.main(["--preset", "superpoint_jetson", "--device", "cpu",
+                       "--kitti-root", root, "--max-frames", "2", "--mode", mode,
+                       "--results-dir", os.path.join(root, "res"),
+                       "--latency-dir", os.path.join(root, "lat")])
+        assert rc == 0
+    assert os.path.exists(os.path.join(root, "res", "default", "00_pred.txt"))
+    lp = sorted(os.path.join(seq, "image_0", f) for f in os.listdir(os.path.join(seq, "image_0")))
+    rp = [p.replace("image_0", "image_1") for p in lp]
+    stream = list(vo.process_stream(make_loader(lp, rp, 64, 200), *(P.numpy() for P in Ps), chunk=2))
+    assert [i for i, _ in stream] == [0, 1, 2]
+cfg_b = dataclasses.replace(cfg, landmark_fusion=False)
+for build in (build_batch_vo, build_sequence_scan):
+    world, _ = build(cfg_b, device="cpu")(torch.as_tensor(imgs), *Ps,
+                                          generator=torch.Generator().manual_seed(0))
+    assert world.shape == (3, 4, 4) and torch.isfinite(world).all()
 assert not any(m == "spsvo_tpu" or m.startswith("spsvo_tpu.") for m in sys.modules)
+assert "cv2" not in sys.modules or sys.modules["cv2"] is None
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO,
-                          capture_output=True, text=True, timeout=300,
+                          capture_output=True, text=True, timeout=600,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
 
 
 def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|spsvo_tpu)\b", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|spsvo_tpu|cv2)\b", re.M)
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "spsvo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
