@@ -45,7 +45,24 @@ limit, then the result line:
         hypotheses in chunks of 64, while-loop LM, 256 lanes; it runs no
         hand-written kernel, as in the JAX package) in frame and hybrid
         mode on 8 frames, with hypotheses scored, keypoints, inliers, ms
-        per frame and peak memory.
+        per frame and peak memory;
+  8. the device-resident classic front ends (ops/orb.py, ops/akaze.py: no
+     kernel of their own, every op a PyTorch op) behind the flagship solve
+     at the native 375x1242, K=512, 8 pyramid levels, edge border 31:
+     a. each front end (ORB with BRIEF or BRISK bits, Shi-Tomasi, AKAZE) on
+        two stereo frames, the card against the CPU: FAST maps equal,
+        keypoints equal (by overlap for the float detectors), differing
+        bits under 1e-3, Hamming match maps equal; b. `build_orb_hybrid`
+        with each front end over the 32 frames (AKAZE: 8): kernel 1 never
+        launched, kernel 2 N-1 times with the GLS pass, every scan step
+        against the plain version, graph replay against eager, drift under
+        a limit per front end set from its spread over noise seeds, ms per
+        sequence, the front end's share and peak memory;
+        c. `ClassicVisualOdometry`: `process`, `process_instrumented` and
+        `process_stream` on equal noise; d. mode "orb" through the harness over phase 7's tree (8b's
+        trajectory), the CLI's `--preset classic_orb --mode orb` on 8
+        frames, and `build_feature_hybrid` fed with 8b's keypoints packed
+        to bytes (8b's trajectory bit for bit).
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -60,11 +77,15 @@ tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 "library_ms" is one PyTorch call computing the nearest function (kernel 1:
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
-"hybrid", and phase 7's "cli_frame", "cli_hybrid", "batch",
-"sequence_scan", "stream"), each counted from zero over that path's run;
-"launches" is their sum. A wrapper counts Python calls: a path that
-captures a CUDA graph calls it once in its warm-up run and once under
-capture, and replays add nothing.
+"hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
+"stream", and phase 8's "orb_hybrid_*", "classic_process",
+"classic_stream", "harness_orb", "feature_hybrid"), each counted from zero
+over that path's run; "launches" is their sum. Every path must launch both
+kernels, but for the classic ones, which must launch kernel 1 never: binary
+descriptors are matched by a Hamming matrix product outside it, as in the
+JAX package. A count is a launch that ran on the card: a wrapper's call
+under CUDA-graph capture is recorded with the graph and counted at every
+replay.
 
 Exits non-zero at the first failed check, without a result line. Needs a
 CUDA device; imports neither jax nor the JAX package.
@@ -502,12 +523,11 @@ def hybrid_phase_graphs(hybrid, imgs, P_l, P_r, gumbel):
     while replaying)."""
     import torch
 
-    from spsvo_tpu_torch.parallel.sharding import chain_poses, match_pairs
-    cfg = hybrid.cfg
+    from spsvo_tpu_torch.parallel.sharding import chain_poses
     scratch = hybrid.match_scratch(imgs.shape[0])
     phases = [
         ("frontend", lambda s: hybrid.frontend(imgs)),
-        ("match", lambda s: match_pairs(*s["frontend"], cfg, scratch)),
+        ("match", lambda s: hybrid.match(*s["frontend"], scratch)),
         ("chain_prep_hyp_pack", lambda s: hybrid.prepare(
             *s["frontend"], *s["match"], P_l, P_r, gumbel)),
         ("scan", lambda s: hybrid.scan(s["chain_prep_hyp_pack"][0], P_l,
@@ -553,6 +573,54 @@ def phase_split_ms(hybrid, imgs, P_l, P_r, gumbel, reps: int = 5):
     return ms
 
 
+def check_scan_steps(phase, hybrid, xs, P_l, P_r, n):
+    """Every step of the hybrid's scan over `xs`: the body with kernel 2
+    against the body with its plain version, from the same (the kernel's)
+    carry: q within 1e-4, t within 1e-3, at most 3 inlier lanes, the same
+    success flag. Returns (the worst errors, kernel 2's packed inputs at
+    step n // 2 of a landmark branch, for timing)."""
+    import torch
+
+    from spsvo_tpu_torch.ops import solver, solver_cuda
+    from spsvo_tpu_torch.parallel.sharding import scan_step
+    cfg = hybrid.cfg
+    carry = hybrid.init_carry()
+    worst = {"q": 0.0, "t": 0.0, "lanes": 0}
+    k2 = None
+    for p in range(n - 1):
+        x = xs.pair(p)
+        if p == n // 2:        # kernel 2's inputs at this step, for timing
+            prep2, lane_len = solver.substitute_landmarks(x.prep,
+                                                          carry.landmarks)
+            w_row = torch.clamp(lane_len, max=cfg.landmark_max_age).float()
+            k2 = (solver_cuda.splice_points(x.pts, prep2.pts3d_prev,
+                                            w_row)[None],
+                  x.hyp[None].contiguous(),
+                  solver_cuda.pack_scalars(carry.q_pred, carry.t_pred,
+                                           carry.frame_count, P_l, P_r)[None])
+        with torch.no_grad():
+            c_k, r_k, d_k = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
+                                      cfg.max_keypoints, use_kernel=True)
+            _, r_p, d_p = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
+                                    cfg.max_keypoints, use_kernel=False)
+        torch.cuda.synchronize()
+        e_q = (r_k.q - r_p.q).abs().max().item()
+        e_t = (r_k.t - r_p.t).abs().max().item()
+        lanes = int((r_k.inliers != r_p.inliers).sum().item())
+        worst = {"q": max(worst["q"], e_q), "t": max(worst["t"], e_t),
+                 "lanes": max(worst["lanes"], lanes)}
+        if not (e_q <= 1e-4 and e_t <= 1e-3 and lanes <= 3
+                and bool(d_k["pnp_success"]) == bool(d_p["pnp_success"])):
+            fail(f"{phase} scan step {p}: kernel vs plain q err {e_q}, t err "
+                 f"{e_t}, inlier lanes {lanes}, pnp_success "
+                 f"{bool(d_k['pnp_success'])}/{bool(d_p['pnp_success'])}")
+        carry = c_k
+    say(phase, check="scan body kernel vs plain", steps=n - 1,
+        max_err_q=worst["q"], max_err_t=worst["t"],
+        max_inlier_lanes=worst["lanes"])
+    return worst, k2
+
+
 def phase_hybrid(dev, corridor):
     """The online hybrid over the corridor: launches, kernels against their
     plain versions on the run's own inputs, graph replay against eager,
@@ -563,11 +631,10 @@ def phase_hybrid(dev, corridor):
     from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
     from spsvo_tpu_torch.ops import image as image_ops
-    from spsvo_tpu_torch.ops import solver, solver_cuda
+    from spsvo_tpu_torch.ops import solver_cuda
     from spsvo_tpu_torch.parallel.sharding import (LANDMARK_KERNEL,
                                                    build_online_hybrid,
-                                                   match_batch, match_pairs,
-                                                   scan_step)
+                                                   match_batch, match_pairs)
 
     frames, gt, P_l_np, P_r_np, _ = corridor
     n = len(frames)
@@ -624,40 +691,7 @@ def phase_hybrid(dev, corridor):
     # version, from the same (the kernel's) carry
     stereo, inter = match_pairs(kp_l, kp_r, cfg)
     xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
-    carry = hybrid.init_carry()
-    worst = {"q": 0.0, "t": 0.0, "lanes": 0}
-    k2 = None
-    for p in range(n - 1):
-        x = xs.pair(p)
-        if p == n // 2:        # kernel 2's inputs at this step, for timing
-            prep2, lane_len = solver.substitute_landmarks(x.prep,
-                                                          carry.landmarks)
-            w_row = torch.clamp(lane_len, max=cfg.landmark_max_age).float()
-            k2 = (solver_cuda.splice_points(x.pts, prep2.pts3d_prev,
-                                            w_row)[None],
-                  x.hyp[None].contiguous(),
-                  solver_cuda.pack_scalars(carry.q_pred, carry.t_pred,
-                                           carry.frame_count, P_l, P_r)[None])
-        with torch.no_grad():
-            c_k, r_k, d_k = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
-                                      cfg.max_keypoints, use_kernel=True)
-            _, r_p, d_p = scan_step(carry, x, P_l, P_r, cfg, hybrid.branch,
-                                    cfg.max_keypoints, use_kernel=False)
-        torch.cuda.synchronize()
-        e_q = (r_k.q - r_p.q).abs().max().item()
-        e_t = (r_k.t - r_p.t).abs().max().item()
-        lanes = int((r_k.inliers != r_p.inliers).sum().item())
-        worst = {"q": max(worst["q"], e_q), "t": max(worst["t"], e_t),
-                 "lanes": max(worst["lanes"], lanes)}
-        if not (e_q <= 1e-4 and e_t <= 1e-3 and lanes <= 3
-                and bool(d_k["pnp_success"]) == bool(d_p["pnp_success"])):
-            fail(f"hybrid scan step {p}: kernel vs plain q err {e_q}, t err "
-                 f"{e_t}, inlier lanes {lanes}, pnp_success "
-                 f"{bool(d_k['pnp_success'])}/{bool(d_p['pnp_success'])}")
-        carry = c_k
-    say("phase6", check="scan body kernel vs plain", steps=n - 1,
-        max_err_q=worst["q"], max_err_t=worst["t"],
-        max_inlier_lanes=worst["lanes"])
+    worst, k2 = check_scan_steps("phase6", hybrid, xs, P_l, P_r, n)
 
     # the CUDA graph: first call captures, later calls replay
     t0 = time.perf_counter()
@@ -749,7 +783,7 @@ def run_cli(argv, out_dir: str, tag: str):
     torch.cuda.synchronize()
     launches, shapes = dict(_build.launches), dict(_build.shapes)
     if rc != 0:
-        fail(f"phase 7 {tag}: the CLI returned {rc}")
+        fail(f"phase {tag}: the CLI returned {rc}")
     poses = kitti.read_kitti_poses(os.path.join(res, "default", "00_pred.txt"))
     rows = None
     lat_dir = os.path.join(lat, "tpu")
@@ -763,18 +797,18 @@ def run_cli(argv, out_dir: str, tag: str):
 def check_trajectory(tag: str, poses, gt, n: int, limit: float = 5.0) -> float:
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
     if len(poses) != n:
-        fail(f"phase 7 {tag}: {len(poses)} poses, expected {n}")
+        fail(f"phase {tag}: {len(poses)} poses, expected {n}")
     if not all(np.isfinite(T).all() for T in poses):
-        fail(f"phase 7 {tag}: non-finite poses")
+        fail(f"phase {tag}: non-finite poses")
     drift = score_trajectory(poses, gt[:n])["final_drift_percent"]
     if not drift < limit:
-        fail(f"phase 7 {tag}: drift {drift:.3f}% >= {limit}%")
+        fail(f"phase {tag}: drift {drift:.3f}% >= {limit}%")
     return drift
 
 
 def check_counts(tag: str, launches, want) -> None:
     if {k: launches.get(k, 0) for k in want} != want:
-        fail(f"phase 7 {tag}: launches {launches}, expected {want}")
+        fail(f"phase {tag}: launches {launches}, expected {want}")
 
 
 # Batch mode solves every pair from the identity prior, so no pair has the
@@ -1082,88 +1116,466 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
         config=cfg.config_string, frames=n, **report)
 
 
-def phase_cli(dev, corridor):
-    """Phase 7: the CLI and the harness over the corridor as a KITTI tree.
-    Returns ({path: launches}, kernel 2's F=31 timing, its largest error
-    against the plain version)."""
+def phase_cli(dev, corridor, tmp):
+    """Phase 7: the CLI and the harness over the corridor as a KITTI tree
+    under `tmp`/kitti. Returns ({path: launches}, kernel 2's F=31 timing,
+    its largest error against the plain version, the ground-truth file)."""
     from spsvo_tpu_torch.io import kitti, png
 
     frames, gt, _, _, _ = corridor
     n = len(frames)
     by_path = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        root, out_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "out")
+    root, out_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "out")
+    t0 = time.perf_counter()
+    gt_file = write_kitti_tree(root, corridor)
+    write_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+    seq = kitti.KittiOdometrySequence(root, "00")
+    t0 = time.perf_counter()
+    for f in seq.files:
+        png.read_gray8(os.path.join(seq.left_dir, f))
+        png.read_gray8(os.path.join(seq.right_dir, f))
+    decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
+    say("phase7", tree_frames=n, png_write_ms_per_image=write_ms,
+        png_decode_ms_per_image=decode_ms)
+    base = ["--preset", "flagship_tpu", "--model",
+            "superpoint_pretrained", "--kitti-root", root,
+            "--ground-truth", gt_file]
+
+    poses, rows, launches, _ = run_cli(
+        base + ["--mode", "frame", "--max-frames", str(n)], out_dir, "7a")
+    drift = check_trajectory("7a", poses, gt, n)
+    if rows[0] != ["detect", "match", "solve", "total"] or \
+            len(rows) != n + 1:
+        fail(f"phase 7a: latency CSV header {rows[0]}, {len(rows)} rows")
+    check_counts("7a", launches, {"match_nn": n, "fused_solve": n})
+    total = float(np.median([float(r[3]) for r in rows[5:]]))
+    # `total` starts once the frame source has handed the pair over, so
+    # the decode time stands beside it, not inside
+    say("phase7a", mode="frame", frames=n, launches=launches,
+        drift_percent=drift, median_total_ms=total,
+        png_decode_ms_per_pair=2 * decode_ms,
+        png_decode_share_of_decode_plus_total=(
+            2 * decode_ms / (2 * decode_ms + total)))
+    by_path["cli_frame"] = launches
+
+    m = 8
+    poses, rows, launches, _ = run_cli(
+        base + ["--mode", "frame", "--instrument", "--max-frames",
+                str(m)], out_dir, "7b")
+    check_trajectory("7b", poses, gt, m)
+    cols = np.array([[float(v) for v in r] for r in rows[1:]])
+    if len(cols) != m or not (cols[:, :3] > 0).all():
+        fail(f"phase 7b: stage columns {cols.tolist()}")
+    gap = np.abs(cols[:, :3].sum(1) - cols[:, 3]) / cols[:, 3]
+    if not gap.max() <= 0.05:
+        fail(f"phase 7b: stages and total differ by {gap.max():.3f}")
+    med = np.median(cols[2:], axis=0)
+    say("phase7b", mode="frame --instrument", frames=m,
+        median_detect_ms=med[0], median_match_ms=med[1],
+        median_solve_ms=med[2], median_total_ms=med[3],
+        max_stage_sum_gap=float(gap.max()))
+
+    poses, _, launches, shapes = run_cli(
+        base + ["--mode", "hybrid", "--max-frames", str(n)], out_dir,
+        "7c")
+    drift = check_trajectory("7c", poses, gt, n)
+    # the harness calls the program twice: the first call warms up
+    # eagerly, captures (which launches nothing) and replays, the timed
+    # call replays; each of the three runs 1 + 31 launches
+    check_counts("7c", launches, {"match_nn": 3, "fused_solve":
+                                  3 * (n - 1)})
+    if shapes["match_nn"][0] != 2 * n - 1 or shapes["fused_solve"][3] != 1:
+        fail(f"phase 7c: shapes {shapes}")
+    say("phase7c", mode="hybrid", frames=n, launches=launches,
+        shapes={k: list(v) for k, v in shapes.items()},
+        drift_percent=drift)
+    by_path["cli_hybrid"] = launches
+
+    by_path["batch"], k2_f31, err = phase_batch(dev, corridor)
+    (by_path["stream"], by_path["sequence_scan_eager"],
+     by_path["sequence_scan_graph"]) = phase_stream_and_scan(
+        dev, corridor, root)
+    phase_reference_parity(dev, corridor, root, gt_file, out_dir)
+    return by_path, k2_f31, err, gt_file
+
+
+# ---- phase 8: the device-resident classic front ends and their modes ----
+
+# Card against CPU on the same frames: FAST is integer arithmetic (equal),
+# a descriptor bit flips only where its two samples are closer than a float
+# stage's rounding. Shi-Tomasi's and AKAZE's float response maps may order
+# near-equal peaks otherwise, so their keypoints are held by overlap.
+CLASSIC_BIT_LIMIT = 1e-3
+CLASSIC_OVERLAP = {"ORB": 1.0, "SHI_TOMASI": 0.99, "AKAZE": 0.95}
+# Drift limits per front end, set from the spread over 16 noise seeds on
+# this corridor on the card (tools/torch_classic_drift.py): ORB with BRIEF
+# bits 16.9-20.9% (median 17.3; integer-pixel corners scaled by 1.2^level,
+# per-pair translation error 6.6 cm of 35 cm), with BRISK bits 7.3-16.7%,
+# Shi-Tomasi 4.1-5.3%, AKAZE 0.25-0.33%. The JAX package's own bound for
+# device ORB on this scene family is 20% on 16 frames (tests/test_orb.py);
+# the SuperPoint paths are held at 5%.
+CLASSIC_DRIFT_LIMIT = {"ORB/ORB": 25.0, "ORB/BRISK": 25.0,
+                       "SHI_TOMASI/ORB": 10.0, "AKAZE/AKAZE": 5.0}
+CLASSIC_SETTINGS = (("ORB", "ORB", 32), ("ORB", "BRISK", 32),
+                    ("SHI_TOMASI", "ORB", 32), ("AKAZE", "AKAZE", 8))
+
+
+def classic_cfg(det: str = "ORB", desc: str = "ORB"):
+    """The flagship solve behind a device-resident classic front end at the
+    native 375x1242: K=512, 8 levels, 256 hypotheses, 128 lanes, landmark
+    fusion, kernel 2 with the GLS pass."""
+    from spsvo_tpu_torch.config import DescriptorType, DetectorType
+    from spsvo_tpu_torch.presets import flagship_tpu
+    return dataclasses.replace(
+        flagship_tpu(), is_classic=True, device_classic=True,
+        detector_type=DetectorType[det], descriptor_type=DescriptorType[desc],
+        image_height=375, image_width=1242, orb_edge_threshold=31)
+
+
+def phase_classic_frontend(dev, corridor):
+    """8a: each front end on two stereo frames, the card against the CPU."""
+    import torch
+
+    from spsvo_tpu_torch.ops import matching, orb
+    frames = corridor[0][:2]
+    imgs = torch.as_tensor(np.stack(
+        [im for pair in frames for im in pair]).astype(np.float32) / 255.0)
+    base = torch.round(imgs * 255.0)
+    corners = {}
+    for thr in (20, 7):
+        card = orb.fast_score_map(base.to(dev), thr).cpu()
+        cpu = orb.fast_score_map(base, thr)
+        if not torch.equal(card, cpu):
+            fail(f"phase 8a: FAST map (threshold {thr}) differs between the "
+                 f"card and the CPU at {(card != cpu).sum().item()} pixels")
+        corners[f"corners_t{thr}"] = int((cpu > 0).sum())
+    say("phase8a", check="FAST score maps card == CPU", images=4, **corners)
+    for det, desc, _ in CLASSIC_SETTINGS:
+        kw = orb.frontend_kwargs(classic_cfg(det, desc))
         t0 = time.perf_counter()
-        gt_file = write_kitti_tree(root, corridor)
-        write_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
-        seq = kitti.KittiOdometrySequence(root, "00")
+        cpu = orb.orb_frontend_batch(imgs, **kw)
+        cpu_s = time.perf_counter() - t0
+        card = type(cpu)(*(a.cpu() for a in
+                           orb.orb_frontend_batch(imgs.to(dev), **kw)))
+        both = cpu.valid & card.valid
+        same = (cpu.xy == card.xy).all(-1) & both
+        overlap = same.sum().item() / max(1, cpu.valid.sum().item())
+        bits = (cpu.desc[same] != card.desc[same]).float().mean().item()
+        # Hamming matching on the same bits (the CPU's), stereo and
+        # inter-frame, the three selections: index maps equal
+        maps_equal = True
+        for sel in (dict(), dict(cross_check=False),
+                    dict(use_ratio_test=True)):
+            for a, b in ((0, 1), (2, 0)):
+                args = (cpu.desc[a], cpu.valid[a], cpu.desc[b], cpu.valid[b])
+                m_cpu = matching.match_descriptors(*args, binary=True, **sel)
+                m_card = matching.match_descriptors(
+                    *(t.to(dev) for t in args), binary=True, **sel)
+                maps_equal &= torch.equal(m_card.idx.cpu(), m_cpu.idx)
+        say("phase8a", detector=det, descriptor=desc,
+            bits=cpu.desc.shape[-1], valid_cpu=int(cpu.valid.sum()),
+            valid_card=int(card.valid.sum()), same_keypoints=int(same.sum()),
+            overlap=overlap, differing_bit_fraction=bits,
+            hamming_maps_equal=maps_equal, cpu_frontend_s=cpu_s)
+        if int(cpu.valid.sum()) != int(card.valid.sum()) and det == "ORB":
+            fail(f"phase 8a {det}/{desc}: valid keypoint counts differ")
+        if not overlap >= CLASSIC_OVERLAP[det]:
+            fail(f"phase 8a {det}/{desc}: {overlap:.4f} of the keypoints "
+                 f"coincide, expected >= {CLASSIC_OVERLAP[det]}")
+        if not bits <= CLASSIC_BIT_LIMIT:
+            fail(f"phase 8a {det}/{desc}: {bits:.2e} of the bits differ, "
+                 f"limit {CLASSIC_BIT_LIMIT}")
+        if not maps_equal:
+            fail(f"phase 8a {det}/{desc}: Hamming match maps differ between "
+                 "the card and the CPU")
+
+
+def phase_classic_hybrid(dev, corridor, det, desc, n):
+    """8b: `build_orb_hybrid` with one front end over the first n frames.
+    Returns (launches of one call, kernel 2's worst error against its plain
+    version, world poses of the eager run, (kp_l, kp_r), the noise)."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.parallel.sharding import (LANDMARK_KERNEL,
+                                                   build_orb_hybrid)
+    frames, gt, P_l_np, P_r_np, _ = corridor
+    tag = f"phase8b {det}/{desc}"
+    cfg = classic_cfg(det, desc)
+    hybrid = build_orb_hybrid(cfg, device=dev)
+    if hybrid.branch != LANDMARK_KERNEL or hybrid.match_scratch(n) is not None:
+        fail(f"{tag}: branch {hybrid.branch}, or kernel 1 on a binary path")
+    imgs = (torch.as_tensor(np.stack([[il, ir] for il, ir in frames[:n]]))
+            .to(dev).float() / 255.0)
+    P_l, P_r = (torch.as_tensor(P, dtype=torch.float32, device=dev)
+                for P in (P_l_np, P_r_np))
+    gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    hybrid.eager(imgs, P_l, P_r, gumbel)            # warm-up, table uploads
+    torch.cuda.synchronize()
+    eager_ms = []
+    for i in range(2):
+        if i == 0:
+            _build.reset_launches()
         t0 = time.perf_counter()
-        for f in seq.files:
-            png.read_gray8(os.path.join(seq.left_dir, f))
-            png.read_gray8(os.path.join(seq.right_dir, f))
-        decode_ms = (time.perf_counter() - t0) * 1e3 / (2 * n)
-        say("phase7", tree_frames=n, png_write_ms_per_image=write_ms,
-            png_decode_ms_per_image=decode_ms)
-        base = ["--preset", "flagship_tpu", "--model",
-                "superpoint_pretrained", "--kitti-root", root,
-                "--ground-truth", gt_file]
+        world_e, diag_e = hybrid.eager(imgs, P_l, P_r, gumbel)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches, shapes = dict(_build.launches), dict(_build.shapes)
+    if launches != {"fused_solve": n - 1} or shapes["fused_solve"][3] != 1:
+        fail(f"{tag}: launches {launches} at {shapes}, expected fused_solve "
+             f"{n - 1} with the GLS pass in the kernel and match_nn 0")
 
-        poses, rows, launches, _ = run_cli(
-            base + ["--mode", "frame", "--max-frames", str(n)], out_dir, "7a")
-        drift = check_trajectory("7a", poses, gt, n)
-        if rows[0] != ["detect", "match", "solve", "total"] or \
-                len(rows) != n + 1:
-            fail(f"phase 7a: latency CSV header {rows[0]}, {len(rows)} rows")
-        check_counts("7a", launches, {"match_nn": n, "fused_solve": n})
-        total = float(np.median([float(r[3]) for r in rows[5:]]))
-        # `total` starts once the frame source has handed the pair over, so
-        # the decode time stands beside it, not inside
-        say("phase7a", mode="frame", frames=n, launches=launches,
-            drift_percent=drift, median_total_ms=total,
-            png_decode_ms_per_pair=2 * decode_ms,
-            png_decode_share_of_decode_plus_total=(
-                2 * decode_ms / (2 * decode_ms + total)))
-        by_path["cli_frame"] = launches
+    # kernel 2 on the classic path's own inputs, step by step
+    kp_l, kp_r = hybrid.frontend(imgs)
+    stereo, inter = hybrid.match(kp_l, kp_r)
+    xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
+    worst, _ = check_scan_steps(tag, hybrid, xs, P_l, P_r, n)
 
-        m = 8
-        poses, rows, launches, _ = run_cli(
-            base + ["--mode", "frame", "--instrument", "--max-frames",
-                    str(m)], out_dir, "7b")
-        check_trajectory("7b", poses, gt, m)
-        cols = np.array([[float(v) for v in r] for r in rows[1:]])
-        if len(cols) != m or not (cols[:, :3] > 0).all():
-            fail(f"phase 7b: stage columns {cols.tolist()}")
-        gap = np.abs(cols[:, :3].sum(1) - cols[:, 3]) / cols[:, 3]
-        if not gap.max() <= 0.05:
-            fail(f"phase 7b: stages and total differ by {gap.max():.3f}")
-        med = np.median(cols[2:], axis=0)
-        say("phase7b", mode="frame --instrument", frames=m,
-            median_detect_ms=med[0], median_match_ms=med[1],
-            median_solve_ms=med[2], median_total_ms=med[3],
-            max_stage_sum_gap=float(gap.max()))
+    t0 = time.perf_counter()
+    world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)   # captures
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    replay_ms = []
+    for i in range(5):
+        if i == 0:
+            _build.reset_launches()
+        t0 = time.perf_counter()
+        world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)
+        torch.cuda.synchronize()
+        replay_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            replay_launches = dict(_build.launches)
+    same = torch.equal(world_g, world_e) and all(
+        torch.equal(diag_g[k], v) for k, v in diag_e.items())
+    if replay_launches != {"fused_solve": n - 1}:
+        fail(f"{tag}: a graph replay counted {replay_launches}")
+    split = phase_split_ms(hybrid, imgs, P_l, P_r, gumbel, reps=3)
+    seq_ms = float(np.median(replay_ms))
+    world = [T.astype(np.float64) for T in world_e.cpu().numpy()]
+    score = score_trajectory(world, gt[:n])
+    kps = diag_e["num_keypoints_left"].cpu().numpy()
+    inl = diag_e["num_inliers"].cpu().numpy()
+    say(tag, frames=n, bits=kp_l.desc.shape[-1], launches=launches,
+        shapes={k: list(v) for k, v in shapes.items()},
+        graph_equals_eager_bitwise=same, capture_s=capture_s,
+        eager_ms=float(np.median(eager_ms)), replay_ms=seq_ms,
+        frames_per_s=n / seq_ms * 1e3, phase_ms=split,
+        frontend_share=split["frontend"] / sum(split.values()),
+        median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)),
+        pnp_success=int(diag_e["pnp_success"].sum().item()),
+        drift_percent=score["final_drift_percent"], ate_m=score["ate_m"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 2 ** 30)
+    if not same:
+        fail(f"{tag}: graph replay differs from eager")
+    if not all(np.isfinite(T).all() for T in world):
+        fail(f"{tag}: non-finite trajectory")
+    if not (np.median(kps) > 200 and np.median(inl) > 30):
+        fail(f"{tag}: median keypoints {np.median(kps)}, inliers "
+             f"{np.median(inl)}")
+    limit = CLASSIC_DRIFT_LIMIT[f"{det}/{desc}"]
+    if not score["final_drift_percent"] < limit:
+        fail(f"{tag}: drift {score['final_drift_percent']:.3f}% >= {limit}%")
+    return (launches, max(worst["q"], worst["t"]), world_e, (kp_l, kp_r),
+            (imgs, P_l, P_r, gumbel))
 
-        poses, _, launches, shapes = run_cli(
-            base + ["--mode", "hybrid", "--max-frames", str(n)], out_dir,
-            "7c")
-        drift = check_trajectory("7c", poses, gt, n)
-        # the harness calls the program twice: the first call warms up
-        # eagerly, captures (which launches nothing) and replays, the timed
-        # call replays; each of the three runs 1 + 31 launches
-        check_counts("7c", launches, {"match_nn": 3, "fused_solve":
-                                      3 * (n - 1)})
-        if shapes["match_nn"][0] != 2 * n - 1 or shapes["fused_solve"][3] != 1:
-            fail(f"phase 7c: shapes {shapes}")
-        say("phase7c", mode="hybrid", frames=n, launches=launches,
-            shapes={k: list(v) for k, v in shapes.items()},
-            drift_percent=drift)
-        by_path["cli_hybrid"] = launches
 
-        by_path["batch"], k2_f31, err = phase_batch(dev, corridor)
-        (by_path["stream"], by_path["sequence_scan_eager"],
-         by_path["sequence_scan_graph"]) = phase_stream_and_scan(
-            dev, corridor, root)
-        phase_reference_parity(dev, corridor, root, gt_file, out_dir)
-    return by_path, k2_f31, err
+def phase_classic_vo(dev, corridor):
+    """8c: `ClassicVisualOdometry` (ORB/ORB) per frame, instrumented and
+    streamed, on equal noise. Returns (process launches, stream launches)."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.frontend_classic import ClassicVisualOdometry
+    from spsvo_tpu_torch.ops import pnp, solver
+    frames, gt, P_l, P_r, _ = corridor
+    n = len(frames)
+    cfg = classic_cfg()
+    chunk = 16
+    noise = pnp.gumbel_noise((n,) + solver.gumbel_shape(cfg),
+                             torch.Generator(dev).manual_seed(0),
+                             dev).cpu().numpy()
+    vo = ClassicVisualOdometry(cfg, device=dev)
+    vo.process(*frames[0], P_l, P_r, gumbel=noise[0])       # table uploads
+    vo.reset()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    Ts, infos = [], []
+    for f, (il, ir) in enumerate(frames):
+        T, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                             gumbel=noise[f])
+        Ts.append(T)
+        infos.append(info)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    if launches != {"fused_solve": n}:
+        fail(f"phase 8c: process launched {launches}, expected fused_solve "
+             f"{n} and match_nn 0")
+    drift = check_trajectory("8c process", vo.trajectory, gt, n,
+                             CLASSIC_DRIFT_LIMIT["ORB/ORB"])
+    kps = [i["num_keypoints_left"] for i in infos[1:]]
+    inl = [i["num_inliers"] for i in infos[1:]]
+    if not (np.median(kps) > 200 and np.median(inl) > 30):
+        fail(f"phase 8c: median keypoints {np.median(kps)}, inliers "
+             f"{np.median(inl)}")
+    process_ms = float(np.median([i["latency_s"] * 1e3 for i in infos[4:]]))
+
+    m = 8
+    vo_i = ClassicVisualOdometry(cfg, device=dev)
+    stages = []
+    for f, (il, ir) in enumerate(frames[:m]):
+        T, info = vo_i.process_instrumented(il, ir, P_l, P_r, gumbel=noise[f])
+        if not np.array_equal(T, Ts[f]):
+            fail(f"phase 8c: process_instrumented differs from process at "
+                 f"frame {f} by {np.abs(T - Ts[f]).max()}")
+        stages.append(info["stages_ms"])
+    gap = max(abs(s["detect"] + s["match"] + s["solve"] - s["total"])
+              / s["total"] for s in stages)
+    if not gap <= 1e-6:
+        fail(f"phase 8c: stages and total differ by {gap}")
+    med = {k: float(np.median([s[k] for s in stages[2:]])) for k in stages[0]}
+
+    vo_s = ClassicVisualOdometry(cfg, device=dev)
+    stacks = [np.stack(f) for f in frames]
+    padded = np.concatenate([noise, np.zeros(
+        (-n % chunk,) + noise.shape[1:], np.float32)])       # whole chunks
+    slabs = [padded[i:i + chunk] for i in range(0, n, chunk)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = list(vo_s.process_stream(iter(stacks), P_l, P_r, chunk=chunk,
+                                   gumbel=iter(slabs)))
+    torch.cuda.synchronize()
+    stream_launches = dict(_build.launches)
+    # the step program's warm-up run, then one graph replay per frame and
+    # per padding frame
+    steps = n + (-n % chunk) + 1
+    if stream_launches != {"fused_solve": steps}:
+        fail(f"phase 8c: process_stream launched {stream_launches}, expected "
+             f"fused_solve {steps} and match_nn 0")
+    if [i for i, _ in out] != list(range(n)):
+        fail(f"phase 8c: process_stream yielded {[i for i, _ in out]}")
+    diff = float(np.abs(np.stack([T for _, T in out]) - np.stack(Ts)).max())
+    if not diff <= 1e-5:
+        fail(f"phase 8c: process_stream and process differ by {diff}")
+    vo_s.reset()
+    t0 = time.perf_counter()
+    list(vo_s.process_stream(iter(stacks), P_l, P_r, chunk=chunk,
+                             gumbel=iter(slabs)))
+    stream_ms = (time.perf_counter() - t0) * 1e3 / n
+    say("phase8c", frames=n, launches=launches,
+        stream_launches=stream_launches, median_process_ms=process_ms,
+        instrumented_ms=med, max_stage_sum_gap=gap,
+        stream_ms_per_frame=stream_ms, stream_vs_process_max_abs_diff=diff,
+        drift_percent=drift, median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)),
+        ate_m=score_trajectory(vo.trajectory, gt)["ate_m"])
+    return launches, stream_launches
+
+
+def phase_classic_cli(dev, corridor, tmp, gt_file, orb_run):
+    """8d: the harness and the CLI in mode "orb" over phase 7's KITTI tree,
+    and the feature hybrid fed with 8b's keypoints packed to bytes. Returns
+    {path: launches}."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval import harness
+    from spsvo_tpu_torch.ops.postprocess import Keypoints
+    from spsvo_tpu_torch.parallel.sharding import build_feature_hybrid
+    _, gt, _, _, _ = corridor
+    n = len(gt)
+    root, out_dir = os.path.join(tmp, "kitti"), os.path.join(tmp, "out")
+    world_b, (kp_l, kp_r), (_, P_l, P_r, gumbel) = orb_run
+    want = [T.astype(np.float64) for T in world_b.cpu().numpy()]
+    by_path = {}
+
+    # the harness's entry point on 8b's configuration: the tree's PNGs, the
+    # harness's own preprocessing and noise (a generator seeded with 0, as
+    # 8b draws it) give 8b's trajectory
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    res = harness.run_eval_id(classic_cfg(), root, 0, mode="orb", device=dev,
+                              results_dir=os.path.join(out_dir, "8d", "res"))
+    torch.cuda.synchronize()
+    by_path["harness_orb"] = dict(_build.launches)
+    # a warm-up run, the first call's replay and the timed call's replay
+    if by_path["harness_orb"] != {"fused_solve": 3 * (n - 1)}:
+        fail(f"phase 8d: the harness launched {by_path['harness_orb']}")
+    drift_h = check_trajectory("8d harness", res.poses, gt, n,
+                               CLASSIC_DRIFT_LIMIT["ORB/ORB"])
+    diff_h = float(np.abs(np.stack(res.poses) - np.stack(want)).max())
+    if not diff_h <= 1e-5:
+        fail(f"phase 8d: the harness and 8b differ by {diff_h}")
+
+    # the CLI: `--mode orb` makes the reference's classic preset
+    # device-resident (native resolution, K=1000, 500 hypotheses in chunks
+    # of 64, while-loop LM: no hand-written kernel, as in the JAX package)
+    m = 8
+    poses, _, launches, _ = run_cli(
+        ["--preset", "classic_orb", "--mode", "orb", "--kitti-root", root,
+         "--max-frames", str(m), "--ground-truth", gt_file], out_dir, "8d_cli")
+    drift_c = check_trajectory("8d cli", poses, gt, m,
+                               CLASSIC_DRIFT_LIMIT["ORB/ORB"])
+    if launches:
+        fail(f"phase 8d: {launches} kernel launches in a configuration that "
+             "uses neither kernel")
+
+    # 8b's keypoints as a host detector would feed them: bits packed to
+    # bytes, unpacked on the card
+    stack = Keypoints(*(torch.stack([a, b], 1) for a, b in zip(kp_l, kp_r)))
+    packed = torch.as_tensor(np.packbits(
+        stack.desc.cpu().numpy().astype(np.uint8), axis=-1)).to(dev)
+    feat = build_feature_hybrid(classic_cfg(), binary_desc=True, device=dev)
+    feat(stack._replace(desc=packed), P_l, P_r, gumbel=gumbel)   # captures
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    world_f, _ = feat(stack._replace(desc=packed), P_l, P_r, gumbel=gumbel)
+    torch.cuda.synchronize()
+    feat_ms = (time.perf_counter() - t0) * 1e3
+    by_path["feature_hybrid"] = dict(_build.launches)
+    if by_path["feature_hybrid"] != {"fused_solve": n - 1}:
+        fail(f"phase 8d: the feature hybrid launched "
+             f"{by_path['feature_hybrid']}")
+    equal = torch.equal(world_f, world_b)
+    say("phase8d", harness_launches=by_path["harness_orb"],
+        harness_drift_percent=drift_h, harness_vs_8b_max_abs_diff=diff_h,
+        harness_sequence_ms=res.latencies_ms[0]["total"] * n,
+        cli_preset="classic_orb", cli_frames=m, cli_drift_percent=drift_c,
+        packed_bytes_per_keypoint=packed.shape[-1],
+        feature_hybrid_equals_8b_bitwise=equal,
+        feature_hybrid_replay_ms=feat_ms,
+        feature_launches=by_path["feature_hybrid"])
+    if not equal:
+        fail("phase 8d: the feature hybrid on 8b's keypoints differs from 8b "
+             f"by {(world_f - world_b).abs().max().item()}")
+    return by_path
+
+
+def phase_classic(dev, corridor, tmp, gt_file):
+    """Phase 8. Returns ({path: launches}, kernel 2's worst error against
+    its plain version on the classic paths' inputs)."""
+    by_path = {}
+    err = 0.0
+    phase_classic_frontend(dev, corridor)
+    orb_run = None
+    for det, desc, n in CLASSIC_SETTINGS:
+        launches, e, world, kps, inputs = phase_classic_hybrid(
+            dev, corridor, det, desc, n)
+        by_path[f"orb_hybrid_{det}_{desc}".lower()] = launches
+        err = max(err, e)
+        if (det, desc) == ("ORB", "ORB"):
+            orb_run = (world, kps, inputs)
+    (by_path["classic_process"],
+     by_path["classic_stream"]) = phase_classic_vo(dev, corridor)
+    by_path.update(phase_classic_cli(dev, corridor, tmp, gt_file, orb_run))
+    return by_path, err
 
 
 def main() -> None:
@@ -1221,21 +1633,34 @@ def main() -> None:
     h_launches, k2_t, h_m_err, h_s_err = phase_hybrid(dev, corridor)
     m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
     say("phase6", gpu=gpu)
-    c_launches, k2_f31, c_s_err = phase_cli(dev, corridor)
-    s_err = max(s_err, c_s_err)
-    say("phase7", result="pass", gpu=gpu)
+    with tempfile.TemporaryDirectory() as tmp:
+        c_launches, k2_f31, c_s_err, gt_file = phase_cli(dev, corridor, tmp)
+        say("phase7", result="pass", gpu=gpu)
+        b_launches, b_s_err = phase_classic(dev, corridor, tmp, gt_file)
+    s_err = max(s_err, c_s_err, b_s_err)
+    say("phase8", result="pass", gpu=gpu)
     if "jax" in sys.modules or "cv2" in sys.modules:
         fail("jax or cv2 was imported")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def counts(name):
+        # every path launches both kernels, but for the classic ones:
+        # binary descriptors never reach kernel 1, as in the JAX package
         by_path = {"per_frame": launches.get(name, 0),
                    "hybrid": h_launches.get(name, 0),
                    **{path: c.get(name, 0) for path, c in c_launches.items()}}
+        classic = {path: c.get(name, 0) for path, c in b_launches.items()}
         missing = [path for path, count in by_path.items() if count == 0]
+        if name == "match_nn":
+            stray = [path for path, count in classic.items() if count]
+            if stray:
+                fail(f"match_nn was launched on the classic paths {stray}")
+        else:
+            missing += [path for path, count in classic.items() if count == 0]
         if missing:
             fail(f"{name} was not launched on {missing}")
+        by_path.update(classic)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
     print(json.dumps({"kernels": [

@@ -101,7 +101,7 @@ class VOConfig:
     matcher_type: MatcherType = MatcherType.BF
     selector_type: SelectorType = SelectorType.NN
     cross_check: bool = True
-    # --- device classic front end (not ported yet) ---------------------------
+    # --- device classic front end (ops/orb.py, ops/akaze.py) -----------------
     device_classic: bool = False
     orb_n_levels: int = 8
     orb_scale_factor: float = 1.2
@@ -236,9 +236,9 @@ def classic_sweep_configs(base: Optional[VOConfig] = None) -> list[VOConfig]:
     """The 6 classic configs benchmarked beside the 72 NN engines: each
     classic detector with its natural descriptor (detector-only families
     use ORB descriptors). The BRISK and AKAZE rows name the device front
-    ends at native resolution, the others the host detectors. Enumerated
-    for the sweep's bookkeeping: the classic front ends are not ported, so
-    `run_sweep` records these rows as errors."""
+    ends at native KITTI resolution and run (`run_sweep`: mode "orb"); the
+    others name the host OpenCV detectors, which are not ported, so
+    `run_sweep` records those rows as errors."""
     base = base or VOConfig()
     pairs = [
         (DetectorType.SHI_TOMASI, DescriptorType.ORB),
@@ -265,8 +265,7 @@ def classic_sweep_configs(base: Optional[VOConfig] = None) -> list[VOConfig]:
 def device_classic_sweep_configs(base: Optional[VOConfig] = None
                                  ) -> list[VOConfig]:
     """The device-resident classic rows: ORB and Shi-Tomasi at the flagship
-    resolution and at native KITTI resolution (not ported, see
-    `classic_sweep_configs`)."""
+    resolution and at native KITTI resolution (`run_sweep`: mode "orb")."""
     base = base or VOConfig()
     rows = []
     for det in (DetectorType.ORB, DetectorType.SHI_TOMASI):

@@ -6,12 +6,13 @@ Mirrors `spsvo_tpu.eval.harness` with the same artefacts:
     write the KITTI-format pose file `<results_dir>/<description>/NN_pred.txt`
     and the 4-column per-frame latency CSV `{detect,match,solve,total}`
     named `<config_string>_<tag>.csv` under `<latency_dir>/<machine_name>/`;
-  * `run_sequence_fused` — the whole-sequence modes ("hybrid", "batch");
+  * `run_sequence_fused` — the whole-sequence modes ("hybrid", "batch", and
+    "orb": the device-resident classic front end in the hybrid);
   * `run_eval_id`        — the kitti_eval_id 0..13 entry point;
   * `run_sweep`          — the config grid.
 
-The classic front ends and the per-frame visualisation need OpenCV and are
-not ported: `mode="classic"/"orb"` and `viz_dir` raise NotImplementedError.
+Detection by OpenCV on the host and the per-frame visualisation are not
+ported: `mode="classic"` and `viz_dir` raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from spsvo_tpu_torch.config import VOConfig, sweep_configs
 from spsvo_tpu_torch.eval import metrics as metrics_mod
 from spsvo_tpu_torch.io import kitti
 
-_NO_CLASSIC = ("not ported yet: the classic/ORB front ends and their fused "
-               "modes need OpenCV (ROADMAP.md, Queue 1: classic/ORB/AKAZE)")
+_NO_CLASSIC = ("not ported yet: mode='classic' (the host classic front "
+               "ends detect with OpenCV; ROADMAP.md, Queue 1); the "
+               "device-resident classic front ends run as mode='orb'")
 _NO_VIZ = ("not ported yet: viz_dir (the match/inlier renderings of viz.py "
            "need OpenCV; ROADMAP.md, Queue 1: viz.py)")
 
@@ -178,6 +180,8 @@ def run_sequence_fused(cfg: VOConfig,
     semantics, prior-independent stages frame-parallel.
     mode="batch":  `parallel.build_batch_vo` — identity-prior solves of all
     pairs at once, the gates re-applied in a scalar pass (offline mode).
+    mode="orb":    `parallel.build_orb_hybrid` — the device-resident classic
+    front end (`cfg.device_classic`) in the hybrid's program.
 
     Raw frames are preprocessed on the host (crop + resize + P update) and
     shipped once; the whole sequence runs as one device program, so
@@ -193,10 +197,15 @@ def run_sequence_fused(cfg: VOConfig,
     from spsvo_tpu_torch.parallel import sharding
     from spsvo_tpu_torch.utils.logging import RuntimeGuards
 
-    if mode in ("classic", "orb") or cfg.is_classic:
-        raise NotImplementedError(_NO_CLASSIC)
-    if mode not in ("hybrid", "batch"):
+    if mode not in ("hybrid", "batch", "classic", "orb"):
         raise ValueError(f"unknown fused mode {mode!r}")
+    if mode == "classic" or (cfg.is_classic and not cfg.device_classic):
+        raise NotImplementedError(_NO_CLASSIC)
+    if cfg.is_classic != (mode == "orb"):
+        raise ValueError(
+            "mode='orb' is the fused mode for device-classic configs; CNN "
+            f"configs use mode='hybrid'/'batch' (got mode={mode!r}, "
+            f"is_classic={cfg.is_classic})")
     frames = list(frames)
     n = len(frames)
     if n < 2:
@@ -212,8 +221,9 @@ def run_sequence_fused(cfg: VOConfig,
                                preprocess_image_np(ir, h, w)])
                      for il, ir in frames])
 
-    build = (sharding.build_online_hybrid if mode == "hybrid"
-             else sharding.build_batch_vo)
+    build = {"hybrid": sharding.build_online_hybrid,
+             "batch": sharding.build_batch_vo,
+             "orb": sharding.build_orb_hybrid}[mode]
     fn = build(cfg, device=device)
     dev = fn.device
     args = (torch.as_tensor(imgs).to(dev),
@@ -264,9 +274,10 @@ def run_eval_id(vo, kitti_root: str, kitti_eval_id: int,
                 device="cuda") -> SequenceResult:
     """The kitti_eval_id 0..13 entry point over the KITTI odometry layout
     under `kitti_root` (sequences 00..10 for ids 0..10). `mode`: "frame"
-    (per-frame online API, `vo` a `VisualOdometry`) or a fused mode
-    ("hybrid"/"batch"), for which `vo` may be a bare VOConfig and `device`
-    says where the program runs."""
+    (per-frame online API, `vo` a `VisualOdometry` or, for a device-classic
+    config, a `ClassicVisualOdometry`) or a fused mode ("hybrid"/"batch"/
+    "orb"), for which `vo` may be a bare VOConfig and `device` says where
+    the program runs."""
     if not 0 <= kitti_eval_id < len(kitti.KITTI_EVAL_DRIVES):
         raise ValueError(f"kitti_eval_id {kitti_eval_id} out of range")
     start = kitti.KITTI_EVAL_START_FRAME[kitti_eval_id]
@@ -310,7 +321,8 @@ def run_sweep(frames_fn, P_l: np.ndarray, P_r: np.ndarray,
               device="cuda") -> List[Dict]:
     """Latency + accuracy sweep over the config grid (default: the 72 NN
     configs). `frames_fn() -> iterable of (img_l, img_r)`; every row runs
-    `run_sequence_fused(mode="hybrid", timing_reps=4)`. With `gt_poses`
+    `run_sequence_fused(timing_reps=4)` in mode "hybrid", a device-classic
+    row in mode "orb". With `gt_poses`
     every row also carries ATE, final drift (over distance travelled) and
     RPE. A row that cannot run (a model family or front end that is not
     ported, absent weights) is recorded as `{"config", "error"}` and the

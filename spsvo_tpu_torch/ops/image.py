@@ -6,6 +6,7 @@ intensities to [0, 1].
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -50,17 +51,23 @@ def _bilinear_axis_weights(src: int, dst: int):
     return i0, i1, w1
 
 
+@functools.lru_cache(maxsize=None)
+def _axis_tables(src: int, dst: int, device: torch.device):
+    """`_bilinear_axis_weights` on `device`, uploaded once per (src, dst):
+    a resize inside a CUDA-graph capture cannot copy from the host, the
+    capture's warm-up run can."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _bilinear_axis_weights(src, dst))
+
+
 def bilinear_resize(img: torch.Tensor, dst_h: int, dst_w: int
                     ) -> torch.Tensor:
     """Plain bilinear resize matching cv2.INTER_LINEAR, as two 1-D gathers
     with static index tables."""
     src_h, src_w = img.shape[-2], img.shape[-1]
     img = img.to(torch.float32)
-    dev = img.device
-    r0, r1, wr = (torch.from_numpy(a).to(dev)
-                  for a in _bilinear_axis_weights(src_h, dst_h))
-    c0, c1, wc = (torch.from_numpy(a).to(dev)
-                  for a in _bilinear_axis_weights(src_w, dst_w))
+    r0, r1, wr = _axis_tables(src_h, dst_h, img.device)
+    c0, c1, wc = _axis_tables(src_w, dst_w, img.device)
     rows = img[..., r0, :] * (1.0 - wr)[:, None] + img[..., r1, :] * wr[:, None]
     return rows[..., :, c0] * (1.0 - wc) + rows[..., :, c1] * wc
 

@@ -2,15 +2,20 @@
 and the sequence scan.
 
 Mirrors `spsvo_tpu.parallel.sharding` without a mesh (multi-GPU sharding is
-not ported): `build_online_hybrid`, `build_batch_vo` (every pair solved
+not ported): `build_online_hybrid` with its two classic forms
+`build_orb_hybrid` (a device-resident classic front end in place of the
+CNN, binary descriptors) and `build_feature_hybrid` (pre-extracted
+keypoints in place of images), `build_batch_vo` (every pair solved
 from the identity prior in one batched solve, the gates re-applied by a
 scalar pass, `_gate_scan`) and `build_sequence_scan` (the per-frame step in
 an on-device loop). In the online hybrid every prior-independent stage runs
 once over the whole sequence of N stereo frames:
 
-  1. frontend: CNN trunk + detector postprocess over all 2N images;
+  1. frontend: CNN trunk + detector postprocess (or the classic front end,
+     ops/orb.py) over all 2N images;
   2. matching: stereo (N pairs) and inter-frame (N-1 pairs) matches in one
-     batched call of the fused matcher, B = 2N-1;
+     batched call of the fused matcher, B = 2N-1 (binary descriptors: one
+     batched Hamming product, outside the kernel);
   3. chain filter, compaction + triangulation, RANSAC hypotheses and the
      solver kernel's point tile, batched over the N-1 frame pairs;
 
@@ -36,7 +41,8 @@ graph.
 from __future__ import annotations
 
 import collections
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import functools
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,7 +54,7 @@ from spsvo_tpu_torch.ops import matching, pnp, solver, solver_cuda
 from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched, match_scratch
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
 from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, check_supported,
-                                      init_state)
+                                      init_state, matcher_gate, vo_step)
 
 # scan branches, chosen from the configuration alone
 LANDMARK_KERNEL = "landmark_kernel"   # flagship: hoisted tile + fused solve
@@ -86,16 +92,28 @@ def frontend_batch(model, images: torch.Tensor, cfg: VOConfig) -> Keypoints:
     return Keypoints(*(torch.cat(f)[:n] for f in zip(*parts)))
 
 
-def stereo_frontend(model, images: torch.Tensor, cfg: VOConfig
-                    ) -> Tuple[Keypoints, Keypoints]:
-    """`frontend_batch` over the 2N images of (N, 2, H, W) stereo frames ->
-    (left, right) Keypoints with leading N."""
-    n = images.shape[0]
-    kps = frontend_batch(model, images.reshape(
-        (2 * n,) + tuple(images.shape[2:])), cfg)
-    kp = Keypoints(*(a.reshape((n, 2) + a.shape[1:]) for a in kps))
+def split_stereo(kp: Keypoints) -> Tuple[Keypoints, Keypoints]:
+    """Keypoints with leading (N, 2) -> (left, right) with leading N."""
     return (Keypoints(*(a[:, 0] for a in kp)),
             Keypoints(*(a[:, 1] for a in kp)))
+
+
+def stereo_keypoints(images: torch.Tensor, batch_fn: Callable
+                     ) -> Tuple[Keypoints, Keypoints]:
+    """`batch_fn` ((M, H, W) images -> Keypoints with leading M) over the
+    2N images of (N, 2, H, W) stereo frames -> (left, right) Keypoints with
+    leading N."""
+    n = images.shape[0]
+    kps = batch_fn(images.reshape((2 * n,) + tuple(images.shape[2:])))
+    return split_stereo(
+        Keypoints(*(a.reshape((n, 2) + a.shape[1:]) for a in kps)))
+
+
+def stereo_frontend(model, images: torch.Tensor, cfg: VOConfig
+                    ) -> Tuple[Keypoints, Keypoints]:
+    """`frontend_batch` (the CNN front end) as `stereo_keypoints`."""
+    return stereo_keypoints(images,
+                            functools.partial(frontend_batch, model, cfg=cfg))
 
 
 def draw_pair_gumbel(cfg: VOConfig, n_frames: int,
@@ -107,40 +125,40 @@ def draw_pair_gumbel(cfg: VOConfig, n_frames: int,
                             generator, device)
 
 
-def matcher_gate(cfg: VOConfig) -> bool:
-    """`pipeline.match_stage`'s gate: the fused matcher computes NN with
-    cross-check."""
-    return bool(cfg.use_pallas_matcher and cfg.selector_type == SelectorType.NN
-                and cfg.cross_check)
-
-
-def match_batch(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig
+def match_batch(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig,
+                binary_desc: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
     """The 2N-1 matching entries of a sequence, each with its own query:
     queries [l_0..l_{N-1}, l_1..l_{N-1}] against targets [r_0..r_{N-1},
     l_0..l_{N-2}]. Returns (queries, query valid, targets, target valid)."""
-    dl, dr = _mdesc(kp_l.desc, cfg), _mdesc(kp_r.desc, cfg)
+    dl = _mdesc(kp_l.desc, cfg, binary_desc)
+    dr = _mdesc(kp_r.desc, cfg, binary_desc)
     return (torch.cat([dl, dl[1:]]), torch.cat([kp_l.valid, kp_l.valid[1:]]),
             torch.cat([dr, dl[:-1]]), torch.cat([kp_r.valid, kp_l.valid[:-1]]))
 
 
 def match_pairs(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig,
-                scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                binary_desc: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stereo matches of every frame and inter-frame matches of every pair
     over `match_batch`'s 2N-1 entries. Under `matcher_gate` one call of the
     fused matcher (its kernel on CUDA, its plain version on the CPU; a
-    CUDA graph passes the kernel `scratch` it owns); otherwise the distance
-    + selection route per entry. Returns (stereo (N, K), inter (N-1, K))
-    int32 maps, -1 for no match."""
+    CUDA graph passes the kernel `scratch` it owns); `binary_desc` bit
+    vectors never reach it: one batched Hamming product and selection;
+    otherwise the distance + selection route per entry. Returns (stereo
+    (N, K), inter (N-1, K)) int32 maps, -1 for no match."""
     n = kp_l.desc.shape[0]
-    q, vq, t, vt = match_batch(kp_l, kp_r, cfg)
-    if matcher_gate(cfg):
+    q, vq, t, vt = match_batch(kp_l, kp_r, cfg, binary_desc)
+    sel_kw = dict(use_ratio_test=(cfg.selector_type == SelectorType.KNN),
+                  cross_check=cfg.cross_check, ratio=cfg.knn_threshold)
+    if matcher_gate(cfg, binary_desc):
         idx, _ = match_nn_batched(q, vq, t, vt, scratch=scratch)
+    elif binary_desc:
+        idx = matching.select_matches(matching.hamming_distance(q, t), vq,
+                                      vt, squared=False, **sel_kw).idx
     else:
-        sel_kw = dict(use_ratio_test=(cfg.selector_type == SelectorType.KNN),
-                      cross_check=cfg.cross_check, ratio=cfg.knn_threshold)
         idx = torch.stack([
             matching.select_matches(matching.l2_distance_sq(q[b], t[b]),
                                     vq[b], vt[b], **sel_kw).idx
@@ -244,8 +262,9 @@ def chain_poses(qs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
 
 class _Captured(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
-    scratch: Tuple[torch.Tensor, torch.Tensor]  # kernel 1's, graph-owned
-    inputs: Tuple[torch.Tensor, ...]
+    # kernel 1's scratch, graph-owned; None where the kernel is not used
+    scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]
+    inputs: tuple                   # (images or Keypoints, P_l, P_r, gumbel)
     outputs: Tuple[torch.Tensor, Dict[str, torch.Tensor]]
     recorded: collections.Counter   # the kernel launches the graph holds
 
@@ -255,12 +274,25 @@ class OnlineHybrid:
     (N, 4, 4), diag)`. `images` (N, 2, H, W) are preprocessed frames in
     [0, 1] on the device, P_l/P_r the updated 3x4 projections. `gumbel` is
     the (N-1, *solver.gumbel_shape(cfg)) RANSAC noise, one slab per pair;
-    None draws it from `generator`. `diag` holds per-pair (N-1,) tensors."""
+    None draws it from `generator`. `diag` holds per-pair (N-1,) tensors.
 
-    def __init__(self, cfg: VOConfig, model, device):
+    `frontend_batch_fn` ((M, H, W) images -> Keypoints with leading M)
+    replaces the CNN front end. With `feature_input` there is no front end:
+    the first argument is a `Keypoints` with leading (N, 2) (frame, left /
+    right), its binary descriptors either {0,1} floats or packed uint8
+    bytes, which are unpacked on the device. `binary_desc` matches by
+    Hamming distance."""
+
+    def __init__(self, cfg: VOConfig, model, device, *,
+                 feature_input: bool = False, binary_desc: bool = False,
+                 frontend_batch_fn: Optional[Callable] = None):
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
+        self.feature_input = feature_input
+        self.binary_desc = binary_desc
+        self.frontend_batch_fn = frontend_batch_fn or functools.partial(
+            frontend_batch, model, cfg=cfg)
         kernel = solver.pallas_solver_config(cfg)
         if cfg.landmark_fusion:
             self.branch = LANDMARK_KERNEL if kernel else LANDMARK
@@ -271,8 +303,20 @@ class OnlineHybrid:
         self._graphs: Dict[tuple, _Captured] = {}
 
     # -- the phases -------------------------------------------------------
-    def frontend(self, images: torch.Tensor) -> Tuple[Keypoints, Keypoints]:
-        return stereo_frontend(self.model, images, self.cfg)
+    def frontend(self, images) -> Tuple[Keypoints, Keypoints]:
+        """(left, right) Keypoints with leading N of the frames, or of the
+        pre-extracted (N, 2) Keypoints with `feature_input`."""
+        if not self.feature_input:
+            return stereo_keypoints(images, self.frontend_batch_fn)
+        kp = Keypoints(*images)
+        if kp.desc.dtype == torch.uint8:
+            from spsvo_tpu_torch.frontend_classic import unpack_binary_desc
+            kp = kp._replace(desc=unpack_binary_desc(kp.desc))
+        return split_stereo(kp)
+
+    def match(self, kp_l: Keypoints, kp_r: Keypoints, scratch=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return match_pairs(kp_l, kp_r, self.cfg, scratch, self.binary_desc)
 
     def prepare(self, kp_l: Keypoints, kp_r: Keypoints, stereo: torch.Tensor,
                 inter: torch.Tensor, P_l: torch.Tensor, P_r: torch.Tensor,
@@ -316,14 +360,17 @@ class OnlineHybrid:
 
     # -- the program ------------------------------------------------------
     def match_scratch(self, n_frames: int
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
         """A kernel-1 scratch for the 2N-1 matching entries of N frames,
-        for a CUDA graph to own."""
+        for a CUDA graph to own; None where the matching does not go
+        through the kernel."""
+        if not matcher_gate(self.cfg, self.binary_desc):
+            return None
         k = self.cfg.max_keypoints
         return match_scratch(self.device, 2 * n_frames - 1, k, k)
 
     @torch.no_grad()
-    def eager(self, images: torch.Tensor, P_l: torch.Tensor,
+    def eager(self, images, P_l: torch.Tensor,
               P_r: torch.Tensor, gumbel: torch.Tensor,
               scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -332,7 +379,7 @@ class OnlineHybrid:
         P_l = P_l.to(self.device, torch.float32)
         P_r = P_r.to(self.device, torch.float32)
         kp_l, kp_r = self.frontend(images)
-        stereo, inter = match_pairs(kp_l, kp_r, self.cfg, scratch)
+        stereo, inter = self.match(kp_l, kp_r, scratch)
         xs, counts = self.prepare(kp_l, kp_r, stereo, inter, P_l, P_r,
                                   gumbel)
         qs, ts, diag = self.scan(xs, P_l, P_r)
@@ -343,37 +390,43 @@ class OnlineHybrid:
                     ) -> torch.Tensor:
         return draw_pair_gumbel(self.cfg, n_frames, generator, self.device)
 
-    def __call__(self, images: torch.Tensor, P_l: torch.Tensor,
+    def __call__(self, images, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if images.shape[0] < 2:
+        leaves = tuple(images) if self.feature_input else (images,)
+        n = leaves[0].shape[0]
+        if n < 2:
             raise ValueError("the online hybrid needs at least 2 frames")
         if gumbel is None:
-            gumbel = self.draw_gumbel(images.shape[0], generator)
+            gumbel = self.draw_gumbel(n, generator)
         if self.device.type != "cuda":
             return self.eager(images, P_l, P_r, gumbel)
-        key = (tuple(images.shape), images.dtype)
+        key = tuple((tuple(t.shape), t.dtype) for t in leaves)
         rec = self._graphs.get(key)
         if rec is None:
-            rec = self._graphs[key] = self._capture(images, P_l, P_r, gumbel)
-        for dst, src in zip(rec.inputs, (images, P_l, P_r, gumbel)):
+            rec = self._graphs[key] = self._capture(leaves, P_l, P_r, gumbel)
+        static = rec.inputs[0] if self.feature_input else (rec.inputs[0],)
+        for dst, src in zip((*static, *rec.inputs[1:]),
+                            (*leaves, P_l, P_r, gumbel)):
             dst.copy_(src)
         rec.graph.replay()
         _build.count_replay(rec.recorded)
         world, diag = rec.outputs
         return world.clone(), {k: v.clone() for k, v in diag.items()}
 
-    def _capture(self, images: torch.Tensor, P_l: torch.Tensor,
+    def _capture(self, leaves: Tuple[torch.Tensor, ...], P_l: torch.Tensor,
                  P_r: torch.Tensor, gumbel: torch.Tensor) -> _Captured:
-        """One eager run on a side stream (it builds the kernels), then the
-        CUDA graph of `eager` captured on that stream with static input
-        buffers and a kernel-1 scratch that the graph alone owns."""
+        """One eager run on a side stream (it builds the kernels and
+        uploads the front end's tables), then the CUDA graph of `eager`
+        captured on that stream with static input buffers and a kernel-1
+        scratch that the graph alone owns."""
         dev = self.device
-        static = (images.to(dev).clone(),
+        first = [t.to(dev).clone() for t in leaves]
+        static = (Keypoints(*first) if self.feature_input else first[0],
                   P_l.to(dev, torch.float32).clone(),
                   P_r.to(dev, torch.float32).clone(), gumbel.to(dev).clone())
-        scratch = self.match_scratch(images.shape[0])
+        scratch = self.match_scratch(leaves[0].shape[0])
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
@@ -388,14 +441,19 @@ class OnlineHybrid:
                          _build.captured_since(before))
 
 
-def _resolve(cfg: VOConfig, model, device, who: str):
-    """Check the configuration and the device, load the model if needed."""
+def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True):
+    """Check the configuration and the device; with `cnn`, load the model
+    if needed."""
     check_supported(cfg)
+    if cnn and cfg.is_classic:
+        raise ValueError(f"{who} runs the CNN front end; a classic "
+                         "configuration runs through build_orb_hybrid or "
+                         "build_feature_hybrid")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' to run "
                            "on the CPU)")
-    if model is None:
+    if cnn and model is None:
         dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
                  else torch.float32)
         model = zoo.load_model(cfg.model_name_prefix, dtype, device)
@@ -406,15 +464,44 @@ def build_online_hybrid(cfg: VOConfig, model=None, device="cuda", *,
                         feature_input: bool = False, binary_desc: bool = False,
                         frontend_batch_fn=None) -> OnlineHybrid:
     """The online hybrid for `cfg` on `device` (see `OnlineHybrid`). `model`
-    None loads `cfg.model_name_prefix` at the configured precision."""
-    if feature_input or binary_desc or frontend_batch_fn is not None:
-        raise NotImplementedError(
-            "not ported yet: the classic or feature input (feature_input, "
-            "binary_desc, frontend_batch_fn)")
+    None loads `cfg.model_name_prefix` at the configured precision, unless
+    `feature_input` or `frontend_batch_fn` replaces the CNN front end."""
     if cfg.speculative_solve:
         raise NotImplementedError("speculative_solve is not ported")
-    model, device = _resolve(cfg, model, device, "build_online_hybrid")
-    return OnlineHybrid(cfg, model, device)
+    cnn = not feature_input and frontend_batch_fn is None
+    model, device = _resolve(cfg, model, device, "build_online_hybrid", cnn)
+    return OnlineHybrid(cfg, model, device, feature_input=feature_input,
+                        binary_desc=binary_desc,
+                        frontend_batch_fn=frontend_batch_fn)
+
+
+def build_feature_hybrid(cfg: VOConfig, binary_desc: bool = False,
+                         device="cuda") -> OnlineHybrid:
+    """The online hybrid over pre-extracted features: `hybrid(kp_stack, P_l,
+    P_r, *, gumbel=None, generator=None)` with `kp_stack` a `Keypoints` of
+    leading dimensions (N, 2) (frame, left/right). Matching, chain filter,
+    triangulation, RANSAC, LM and gates run as one device program with
+    exact online semantics; binary descriptors may travel as packed uint8
+    bytes (`frontend_classic._pack_features_np(packed=True)`)."""
+    return build_online_hybrid(cfg, device=device, feature_input=True,
+                               binary_desc=binary_desc)
+
+
+def build_orb_hybrid(cfg: VOConfig, device="cuda") -> OnlineHybrid:
+    """The fully device-resident classic mode: the classic front end the
+    configuration names (ops/orb.py, ops/akaze.py: FAST or Shi-Tomasi or
+    AKAZE detection, steered-BRIEF, BRISK or M-LDB bits) in place of the
+    CNN, Hamming matching, and the same chain filter, solve and gates, as
+    one device program. `hybrid(images (N, 2, H, W) float in [0, 1], P_l,
+    P_r, *, gumbel=None, generator=None)`."""
+    from spsvo_tpu_torch.ops.orb import frontend_kwargs, orb_frontend_batch
+    check_supported(cfg)       # a host-classic configuration names OpenCV
+    if not cfg.device_classic:
+        raise ValueError("build_orb_hybrid requires cfg.device_classic=True")
+    return build_online_hybrid(
+        cfg, device=device, binary_desc=True,
+        frontend_batch_fn=functools.partial(orb_frontend_batch,
+                                            **frontend_kwargs(cfg)))
 
 
 # --------------------------------------------------------------------------
@@ -548,8 +635,8 @@ class SequenceScan:
         prog = self._programs.get(key)
         if prog is None:
             prog = self._programs[key] = StepProgram(
-                self.model, self.cfg, self.device, key[0], key[1],
-                graph=graph)
+                functools.partial(vo_step, self.model, cfg=self.cfg),
+                self.cfg, self.device, key[0], key[1], graph=graph)
         prog.set_projections(P_l.to(self.device, torch.float32),
                              P_r.to(self.device, torch.float32))
         prog.load_state(init_state(self.cfg, self.device))

@@ -7,9 +7,12 @@ Mirrors `spsvo_tpu.pipeline`'s per-frame online path:
     triangulation -> landmark substitution -> RANSAC + refit + polish ->
     gates -> LM -> GLS LM -> landmark fusion -> pose
 
-On a CUDA device the matching runs as one launch of the fused matcher
-kernel (both pairs batched) and the prior-dependent solve as one launch of
-the fused solver kernel; everything else is PyTorch ops. State (the
+On a CUDA device the matching of float descriptors runs as one launch of the
+fused matcher kernel (both pairs batched) and the prior-dependent solve as
+one launch of the fused solver kernel; everything else is PyTorch ops.
+Binary descriptors (the classic front ends, frontend_classic.py) are matched
+by Hamming distance as a matrix product, outside the matcher kernel, as in
+the JAX package. State (the
 previous frame's keypoints and stereo map, the motion prior, the frame
 counter, the fused landmarks) is an explicit `VOState` of device tensors.
 
@@ -18,16 +21,20 @@ Randomness: the RANSAC sampling noise of each frame is a Gumbel tensor of
 `torch.Generator` unless the caller passes it (`process(..., gumbel=...)`),
 which is how tests inject the JAX package's draws.
 
-`StepProgram` is `vo_step` on static buffers, the body of the on-device
-frame loops (`VisualOdometry.process_stream`, `parallel.sharding.
-build_sequence_scan`): on a CUDA device it is captured once as a CUDA graph
-and replayed per frame, the counterpart of the JAX package's jitted scan.
+`StepProgram` is a step function (`vo_step`, or the classic front end's
+step) on static buffers, the body of the on-device frame loops
+(`VisualOdometry.process_stream`, `ClassicVisualOdometry.process_stream`,
+`parallel.sharding.build_sequence_scan`): on a CUDA device it is captured
+once as a CUDA graph and replayed per frame, the counterpart of the JAX
+package's jitted scan.
 """
 
 from __future__ import annotations
 
+import functools
 import time
-from typing import Any, Dict, Iterable, List, NamedTuple, Optional, Tuple
+from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -73,11 +80,13 @@ def _empty_keypoints(k: int, device, d: int = 256) -> Keypoints:
         desc=torch.zeros((k, d), device=device))
 
 
-def init_state(cfg: VOConfig, device="cuda") -> VOState:
+def init_state(cfg: VOConfig, device="cuda", desc_dim: int = 256) -> VOState:
+    """The state before the first frame; `desc_dim` is the descriptor width
+    (256 for SuperPoint, the bit count of a binary descriptor)."""
     k = cfg.max_keypoints
     return VOState(
-        prev_left=_empty_keypoints(k, device),
-        prev_right=_empty_keypoints(k, device),
+        prev_left=_empty_keypoints(k, device, desc_dim),
+        prev_right=_empty_keypoints(k, device, desc_dim),
         prev_stereo_map=torch.full((k,), -1, dtype=torch.int32, device=device),
         q_pred=torch.tensor([0.0, 0.0, 0.0, 1.0], device=device),
         t_pred=torch.zeros((3,), device=device),
@@ -107,21 +116,32 @@ def superpoint_frontend(model, images: torch.Tensor, cfg: VOConfig
             Keypoints(kps.xy[1], kps.score[1], kps.valid[1], kps.desc[1]))
 
 
-def _mdesc(desc: torch.Tensor, cfg: VOConfig) -> torch.Tensor:
-    """bf16 descriptors for the distance product when cfg.matcher_bf16."""
-    return desc.to(torch.bfloat16) if cfg.matcher_bf16 else desc
+def _mdesc(desc: torch.Tensor, cfg: VOConfig, binary: bool = False
+           ) -> torch.Tensor:
+    """bf16 descriptors for the distance product when cfg.matcher_bf16
+    (float descriptors only: Hamming counts stay exact in fp32)."""
+    return (desc.to(torch.bfloat16) if cfg.matcher_bf16 and not binary
+            else desc)
+
+
+def matcher_gate(cfg: VOConfig, binary: bool = False) -> bool:
+    """Whether the fused matcher computes this configuration's matches: NN
+    with cross-check on float descriptors. Binary descriptors never reach
+    it, as in the JAX package."""
+    return bool(cfg.use_pallas_matcher and not binary
+                and cfg.selector_type == SelectorType.NN and cfg.cross_check)
 
 
 def match_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints, *,
-                cfg: VOConfig, scratch=None
+                cfg: VOConfig, binary_desc: bool = False, scratch=None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stereo + inter-frame matching. Both pairs share the current-left
     query: on CUDA one launch of the fused matcher matches it against both
     targets (B=2, the query broadcast; a CUDA graph passes the kernel
-    `scratch` it owns); otherwise one (K, 2K) distance product feeds both
+    `scratch` it owns); otherwise, and always for `binary_desc` {0,1} bit
+    vectors (Hamming distance), one (K, 2K) distance product feeds both
     selections."""
-    if (cfg.use_pallas_matcher and cfg.selector_type == SelectorType.NN
-            and cfg.cross_check and kp_l.desc.device.type == "cuda"):
+    if matcher_gate(cfg, binary_desc) and kp_l.desc.device.type == "cuda":
         from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched
         k = kp_l.desc.shape[0]
         q = _mdesc(kp_l.desc, cfg)
@@ -134,11 +154,15 @@ def match_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints, *,
         stereo_idx, inter_idx = idx[0], idx[1]
     else:
         k = kp_r.desc.shape[0]
-        dist = matching.l2_distance_sq(
-            _mdesc(kp_l.desc, cfg),
-            _mdesc(torch.cat([kp_r.desc, state.prev_left.desc]), cfg))
+        distance = (matching.hamming_distance if binary_desc
+                    else matching.l2_distance_sq)
+        dist = distance(
+            _mdesc(kp_l.desc, cfg, binary_desc),
+            _mdesc(torch.cat([kp_r.desc, state.prev_left.desc]), cfg,
+                   binary_desc))
         sel_kw = dict(use_ratio_test=(cfg.selector_type == SelectorType.KNN),
-                      cross_check=cfg.cross_check, ratio=cfg.knn_threshold)
+                      cross_check=cfg.cross_check, ratio=cfg.knn_threshold,
+                      squared=not binary_desc)
         stereo_idx = matching.select_matches(dist[:, :k], kp_l.valid,
                                              kp_r.valid, **sel_kw).idx
         inter_idx = matching.select_matches(dist[:, k:], kp_l.valid,
@@ -216,11 +240,14 @@ def solve_stage(state: VOState, kp_l: Keypoints, kp_r: Keypoints,
 
 def features_step(state: VOState, kp_l: Keypoints, kp_r: Keypoints,
                   P_l: torch.Tensor, P_r: torch.Tensor, *, cfg: VOConfig,
+                  binary_desc: bool = False,
                   gumbel: Optional[torch.Tensor] = None,
                   generator: Optional[torch.Generator] = None, scratch=None
                   ) -> Tuple[VOState, VOStepOutput]:
-    """Matching + geometry for one frame given extracted features."""
+    """Matching + geometry for one frame given extracted features (float
+    descriptors, or `binary_desc` {0,1} bit vectors)."""
     stereo_idx, inter_idx = match_stage(state, kp_l, kp_r, cfg=cfg,
+                                        binary_desc=binary_desc,
                                         scratch=scratch)
     return solve_stage(state, kp_l, kp_r, stereo_idx, inter_idx, P_l, P_r,
                        cfg=cfg, gumbel=gumbel, generator=generator)
@@ -243,8 +270,13 @@ def state_leaves(state: VOState) -> List[torch.Tensor]:
 
 
 class StepProgram:
-    """`vo_step` on static buffers: `step(images, gumbel, real)` runs one
-    frame from the carried state and returns (T_curr_prev, diagnostics).
+    """A step function on static buffers: `step(images, gumbel, real)` runs
+    one frame from the carried state and returns (T_curr_prev,
+    diagnostics). `step_fn(state, images, P_l, P_r, gumbel=, scratch=) ->
+    (state, VOStepOutput)` is `vo_step` with its model and configuration
+    bound, or the classic front end's step; `desc_dim` is the width of the
+    descriptors it carries and `binary_desc` says that they are bit vectors
+    (which the matcher kernel, and so its scratch, never sees).
 
     With `graph` (the default on a CUDA device) the step is captured once
     as a CUDA graph that owns the matcher kernel's scratch, and every call
@@ -254,9 +286,10 @@ class StepProgram:
     `torch.where`, inside the program. uint8 frames are normalised on the
     device."""
 
-    def __init__(self, model, cfg: VOConfig, device, frame_shape,
-                 frame_dtype=torch.float32, graph: Optional[bool] = None):
-        self.model, self.cfg = model, cfg
+    def __init__(self, step_fn: Callable, cfg: VOConfig, device, frame_shape,
+                 frame_dtype=torch.float32, graph: Optional[bool] = None,
+                 desc_dim: int = 256, binary_desc: bool = False):
+        self.step_fn, self.cfg = step_fn, cfg
         self.device = dev = torch.device(device)
         self.use_graph = dev.type == "cuda" if graph is None else graph
         self.images = torch.zeros(tuple(frame_shape), dtype=frame_dtype,
@@ -265,9 +298,10 @@ class StepProgram:
         self.real = torch.ones((), dtype=torch.bool, device=dev)
         self.P_l = torch.zeros((3, 4), device=dev)
         self.P_r = torch.zeros((3, 4), device=dev)
-        self.state = init_state(cfg, dev)
+        self.state = init_state(cfg, dev, desc_dim)
         self.scratch = None
-        if dev.type == "cuda" and cfg.matcher_bf16:
+        if (dev.type == "cuda" and cfg.matcher_bf16
+                and matcher_gate(cfg, binary_desc)):
             from spsvo_tpu_torch.ops.matching_cuda import match_scratch
             k = cfg.max_keypoints
             self.scratch = match_scratch(dev, 2, k, k)
@@ -292,9 +326,8 @@ class StepProgram:
         imgs = self.images
         if imgs.dtype == torch.uint8:
             imgs = imgs.to(torch.float32) / 255.0
-        new, out = vo_step(self.model, self.state, imgs, self.P_l, self.P_r,
-                           cfg=self.cfg, gumbel=self.gumbel,
-                           scratch=self.scratch)
+        new, out = self.step_fn(self.state, imgs, self.P_l, self.P_r,
+                                gumbel=self.gumbel, scratch=self.scratch)
         for dst, src in zip(state_leaves(self.state), state_leaves(new)):
             dst.copy_(torch.where(self.real, src, dst))
         return out.T_curr_prev, out.diagnostics
@@ -334,6 +367,75 @@ class StepProgram:
         return T.clone(), {k: v.clone() for k, v in diag.items()}
 
 
+def stream_frames(vo, new_program: Callable, frames, P_l: np.ndarray,
+                  P_r: np.ndarray, chunk: int,
+                  gumbel: Optional[Iterable[np.ndarray]]):
+    """The chunked frame loop behind `process_stream` of `VisualOdometry`
+    and `frontend_classic.ClassicVisualOdometry` (`vo`: its cfg, device,
+    generator, state, pose bookkeeping and `_programs` cache are used).
+    `new_program(frame_shape, frame_dtype)` builds the `StepProgram` of a
+    new frame shape. A generator of (frame_idx, T_curr_prev)."""
+    cfg, dev = vo.cfg, vo.device
+    Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
+    Pr = torch.as_tensor(np.asarray(P_r), dtype=torch.float32).to(dev)
+    noise = None if gumbel is None else iter(gumbel)
+    buf: List[Tuple[int, np.ndarray]] = []
+
+    @torch.no_grad()
+    def flush():
+        idxs = [i for i, _ in buf]
+        imgs = torch.as_tensor(np.stack([f for _, f in buf])).to(dev)
+        if noise is None:
+            g = pnp.gumbel_noise((chunk,) + solver.gumbel_shape(cfg),
+                                 vo.generator, dev)
+        else:
+            g = torch.as_tensor(np.asarray(next(noise), np.float32)
+                                ).to(dev)
+            if tuple(g.shape) != (chunk,) + solver.gumbel_shape(cfg):
+                raise ValueError(
+                    "process_stream: each noise slab must be "
+                    f"{(chunk,) + solver.gumbel_shape(cfg)}, got "
+                    f"{tuple(g.shape)}")
+        key = (tuple(imgs.shape[1:]), imgs.dtype)
+        prog = vo._programs.get(key)
+        if prog is None:
+            prog = vo._programs[key] = new_program(*key)
+        prog.set_projections(Pl, Pr)
+        prog.load_state(vo.state)
+        Ts = [prog.step(imgs[j], g[j], idxs[j] >= 0)[0]
+              for j in range(len(buf))]
+        vo.state = prog.state_copy()
+        T_seq = torch.stack(Ts).cpu().numpy().astype(np.float64)
+        buf.clear()
+        return [(i, apply_pose_update(vo, T))
+                for i, T in zip(idxs, T_seq) if i >= 0]
+
+    next_idx = 0
+    for item in frames:
+        if isinstance(item, tuple):
+            idx, frame = item
+        else:
+            idx, frame = next_idx, item
+        next_idx = idx + 1
+        frame = np.asarray(frame)
+        if cfg.image_height > 0 and frame.shape[-2:] != (
+                cfg.image_height, cfg.image_width):
+            raise ValueError(
+                "process_stream expects frames preprocessed to the "
+                f"config resolution {cfg.image_height}x{cfg.image_width}"
+                f", got {frame.shape[-2:]}; use ops.image."
+                "preprocess_image_np + update_projection_matrix_np")
+        if frame.dtype != np.uint8:
+            frame = frame.astype(np.float32)
+        buf.append((idx, frame))
+        if len(buf) == chunk:
+            yield from flush()
+    if buf:
+        while len(buf) < chunk:
+            buf.append((-1, buf[-1][1]))
+        yield from flush()
+
+
 def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
     """Velocity sanity gate + world-pose integration on the host in
     float64: an implausible per-frame translation reuses the last valid
@@ -348,10 +450,13 @@ def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
 
 
 def check_supported(cfg: VOConfig) -> None:
-    """Reject configurations whose code paths are not ported yet."""
+    """Reject configurations whose code paths are not ported yet. A classic
+    configuration runs when its front end is device-resident
+    (`device_classic`, frontend_classic.py)."""
     missing = []
-    if cfg.is_classic:
-        missing.append("the classic front ends (is_classic)")
+    if cfg.is_classic and not cfg.device_classic:
+        missing.append("the host classic front ends (is_classic without "
+                       "device_classic: detection by OpenCV)")
     if cfg.precision == Precision.INT8:
         missing.append("the int8 trunk")
     if cfg.landmark_refine:
@@ -374,6 +479,10 @@ class VisualOdometry:
     def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0,
                  model=None):
         check_supported(cfg)
+        if cfg.is_classic:
+            raise ValueError(
+                "a classic configuration runs through frontend_classic."
+                "ClassicVisualOdometry")
         self.cfg = cfg
         self.device = torch.device(device)
         if model is None:
@@ -483,63 +592,8 @@ class VisualOdometry:
         last chunk is padded to `chunk` frames whose state update is
         reverted on the device and whose outputs are dropped, so the state
         afterwards is the state after the last real frame."""
-        cfg, dev = self.cfg, self.device
-        Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
-        Pr = torch.as_tensor(np.asarray(P_r), dtype=torch.float32).to(dev)
-        noise = None if gumbel is None else iter(gumbel)
-        buf: List[Tuple[int, np.ndarray]] = []
-
-        @torch.no_grad()
-        def flush():
-            idxs = [i for i, _ in buf]
-            imgs = torch.as_tensor(np.stack([f for _, f in buf])).to(dev)
-            if noise is None:
-                g = pnp.gumbel_noise((chunk,) + solver.gumbel_shape(cfg),
-                                     self.generator, dev)
-            else:
-                g = torch.as_tensor(np.asarray(next(noise), np.float32)
-                                    ).to(dev)
-                if tuple(g.shape) != (chunk,) + solver.gumbel_shape(cfg):
-                    raise ValueError(
-                        "process_stream: each noise slab must be "
-                        f"{(chunk,) + solver.gumbel_shape(cfg)}, got "
-                        f"{tuple(g.shape)}")
-            key = (tuple(imgs.shape[1:]), imgs.dtype)
-            prog = self._programs.get(key)
-            if prog is None:
-                prog = self._programs[key] = StepProgram(
-                    self.model, cfg, dev, *key)
-            prog.set_projections(Pl, Pr)
-            prog.load_state(self.state)
-            Ts = [prog.step(imgs[j], g[j], idxs[j] >= 0)[0]
-                  for j in range(len(buf))]
-            self.state = prog.state_copy()
-            T_seq = torch.stack(Ts).cpu().numpy().astype(np.float64)
-            buf.clear()
-            return [(i, apply_pose_update(self, T))
-                    for i, T in zip(idxs, T_seq) if i >= 0]
-
-        next_idx = 0
-        for item in frames:
-            if isinstance(item, tuple):
-                idx, frame = item
-            else:
-                idx, frame = next_idx, item
-            next_idx = idx + 1
-            frame = np.asarray(frame)
-            if cfg.image_height > 0 and frame.shape[-2:] != (
-                    cfg.image_height, cfg.image_width):
-                raise ValueError(
-                    "process_stream expects frames preprocessed to the "
-                    f"config resolution {cfg.image_height}x{cfg.image_width}"
-                    f", got {frame.shape[-2:]}; use ops.image."
-                    "preprocess_image_np + update_projection_matrix_np")
-            if frame.dtype != np.uint8:
-                frame = frame.astype(np.float32)
-            buf.append((idx, frame))
-            if len(buf) == chunk:
-                yield from flush()
-        if buf:
-            while len(buf) < chunk:
-                buf.append((-1, buf[-1][1]))
-            yield from flush()
+        return stream_frames(
+            self, lambda shape, dtype: StepProgram(
+                functools.partial(vo_step, self.model, cfg=self.cfg),
+                self.cfg, self.device, shape, dtype),
+            frames, P_l, P_r, chunk, gumbel)

@@ -19,6 +19,14 @@ import json
 import sys
 
 
+def _build_vo(cfg, device):
+    if cfg.is_classic:
+        from spsvo_tpu_torch.frontend_classic import ClassicVisualOdometry
+        return ClassicVisualOdometry(cfg, device=device)
+    from spsvo_tpu_torch.pipeline import VisualOdometry
+    return VisualOdometry(cfg, device=device)
+
+
 def cmd_eval(args) -> int:
     from spsvo_tpu_torch.eval import harness
     from spsvo_tpu_torch.presets import PRESETS
@@ -31,6 +39,9 @@ def cmd_eval(args) -> int:
         print("need --kitti-root or --sample-images", file=sys.stderr)
         return 2
     if args.mode == "orb":
+        # the device-resident classic mode: any preset opts in. Detector
+        # and descriptor are set unless the preset already picked a
+        # device-supported classic detector (SHI_TOMASI keeps GFTT)
         from spsvo_tpu_torch.config import DescriptorType, DetectorType
         det = (cfg.detector_type
                if cfg.is_classic and cfg.detector_type in
@@ -68,11 +79,7 @@ def cmd_eval(args) -> int:
               file=sys.stderr)
         return 2
     # fused modes build their own device program from cfg
-    if args.mode == "frame":
-        from spsvo_tpu_torch.pipeline import VisualOdometry
-        vo = VisualOdometry(cfg, device=args.device)
-    else:
-        vo = cfg
+    vo = _build_vo(cfg, args.device) if args.mode == "frame" else cfg
     res = harness.run_eval_id(
         vo, args.kitti_root, args.eval_id, results_dir=args.results_dir,
         latency_dir=args.latency_dir, description=args.description,
@@ -156,7 +163,9 @@ def main(argv=None) -> int:
                    help="execution mode: per-frame online API (per-frame "
                         "latency CSV), 'hybrid' = whole-sequence on-device "
                         "with exact online semantics, 'batch' = offline "
-                        "throughput mode; 'classic'/'orb' are not ported")
+                        "throughput mode, 'orb' = the hybrid with the "
+                        "device-resident ORB front end; 'classic' (OpenCV "
+                        "on the host) is not ported")
     p.add_argument("--landmark-fusion", action="store_true",
                    help="carry fused 3D landmarks across frames instead of "
                         "re-triangulating every frame")

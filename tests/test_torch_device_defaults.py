@@ -8,7 +8,7 @@ import numpy as np
 import pytest
 import torch
 
-from spsvo_tpu_torch import pipeline, run
+from spsvo_tpu_torch import config, frontend_classic, pipeline, run
 from spsvo_tpu_torch.eval import harness, synthetic
 from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.parallel import sharding
@@ -22,12 +22,18 @@ from spsvo_tpu_torch.presets import flagship_tpu
                                 sharding.build_batch_vo,
                                 sharding.build_sequence_scan,
                                 harness.run_sequence_fused,
-                                harness.run_eval_id, harness.run_sweep],
+                                harness.run_eval_id, harness.run_sweep,
+                                frontend_classic.ClassicVisualOdometry.__init__,
+                                frontend_classic.init_state_with_dim,
+                                sharding.build_orb_hybrid,
+                                sharding.build_feature_hybrid],
                          ids=["VisualOdometry", "init_state", "load_model",
                               "prepared_from_frame", "build_online_hybrid",
                               "build_batch_vo", "build_sequence_scan",
                               "run_sequence_fused", "run_eval_id",
-                              "run_sweep"])
+                              "run_sweep", "ClassicVisualOdometry",
+                              "init_state_with_dim", "build_orb_hybrid",
+                              "build_feature_hybrid"])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -50,6 +56,21 @@ def test_default_device_raises_without_cuda():
     frames = [(np.zeros((32, 96), np.uint8),) * 2] * 2
     with pytest.raises((RuntimeError, AssertionError)):
         harness.run_sequence_fused(cfg, frames, np.eye(3, 4), np.eye(3, 4))
+    classic = dataclasses.replace(
+        cfg, is_classic=True, device_classic=True,
+        detector_type=config.DetectorType.ORB,
+        descriptor_type=config.DescriptorType.ORB)
+    with pytest.raises((RuntimeError, AssertionError)):
+        frontend_classic.ClassicVisualOdometry(classic)
+    with pytest.raises((RuntimeError, AssertionError)):
+        frontend_classic.init_state_with_dim(classic, 256)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sharding.build_orb_hybrid(classic)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sharding.build_feature_hybrid(classic, binary_desc=True)
+    with pytest.raises((RuntimeError, AssertionError)):
+        harness.run_sequence_fused(classic, frames, np.eye(3, 4),
+                                   np.eye(3, 4), mode="orb")
 
 
 def test_cli_defaults_to_cuda(tmp_path, monkeypatch):

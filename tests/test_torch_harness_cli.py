@@ -146,7 +146,8 @@ def test_harness_artefacts_equal_the_jax_package(tree, tmp_path, monkeypatch,
 
 def test_harness_verbose_guards_and_unported_modes(tree):
     """`verbose` records per-frame diagnostics and feeds the guards; the
-    classic modes and `viz_dir` say what is missing."""
+    host classic mode and `viz_dir` say what is missing, and `mode="orb"`
+    takes only a device-classic configuration."""
     root, _ = tree
     seq = tkitti.KittiOdometrySequence(root, "00")
     # seed 1: with 64 hypotheses at this size an unlucky draw (seed 0) finds
@@ -161,10 +162,15 @@ def test_harness_verbose_guards_and_unported_modes(tree):
     assert res.fps > 0
     with pytest.raises(NotImplementedError, match="viz"):
         tharness.run_sequence(vo, iter(seq), seq.P_l, seq.P_r, viz_dir="x")
-    for mode in ("classic", "orb"):
-        with pytest.raises(NotImplementedError, match="classic"):
-            tharness.run_sequence_fused(_tcfg(), list(seq), seq.P_l, seq.P_r,
-                                        mode=mode, device="cpu")
+    with pytest.raises(NotImplementedError, match="OpenCV"):
+        tharness.run_sequence_fused(_tcfg(), list(seq), seq.P_l, seq.P_r,
+                                    mode="classic", device="cpu")
+    with pytest.raises(NotImplementedError, match="OpenCV"):
+        tharness.run_sequence_fused(TCfg(is_classic=True), list(seq), seq.P_l,
+                                    seq.P_r, mode="orb", device="cpu")
+    with pytest.raises(ValueError, match="device-classic"):
+        tharness.run_sequence_fused(_tcfg(), list(seq), seq.P_l, seq.P_r,
+                                    mode="orb", device="cpu")
     with pytest.raises(ValueError, match="unknown fused mode"):
         tharness.run_sequence_fused(_tcfg(), list(seq), seq.P_l, seq.P_r,
                                     mode="scan", device="cpu")

@@ -327,16 +327,17 @@ def test_hybrid_reference_solve_matches_jax_xla(change, branch):
 
 @pytest.mark.parametrize("change", [
     dict(speculative_solve=True), dict(landmark_refine=True),
-    dict(feature_input=True), dict(binary_desc=True),
-    dict(frontend_batch_fn=print)])
+    dict(precision=TPrecision.INT8), dict(is_classic=True)],
+    ids=["speculative_solve", "landmark_refine", "int8", "host_classic"])
 def test_unported_configurations_raise(change):
-    cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL)
-    kw = {k: v for k, v in change.items()
-          if k in ("feature_input", "binary_desc", "frontend_batch_fn")}
-    cfg = dataclasses.replace(cfg, **{k: v for k, v in change.items()
-                                      if k not in kw})
-    with pytest.raises(NotImplementedError):
-        tsh.build_online_hybrid(cfg, device="cpu", **kw)
+    """What is still missing raises, whichever way the hybrid is built (a
+    host-classic configuration names OpenCV); the device-classic ones run
+    (tests/test_torch_classic.py)."""
+    cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL, **change)
+    match = "OpenCV" if "is_classic" in change else None
+    for kw in (dict(), dict(feature_input=True, binary_desc=True)):
+        with pytest.raises(NotImplementedError, match=match):
+            tsh.build_online_hybrid(cfg, device="cpu", **kw)
 
 
 @pytest.mark.parametrize("branch,branch_cfg", [

@@ -22,7 +22,8 @@ from spsvo_tpu_torch.ops import solver as tsolver
 from spsvo_tpu_torch.ops.image import (preprocess_image_np,
                                        update_projection_matrix_np)
 from spsvo_tpu_torch.parallel import sharding as tsh
-from spsvo_tpu_torch.pipeline import StepProgram, VisualOdometry
+from spsvo_tpu_torch.pipeline import (StepProgram, VisualOdometry,
+                                      vo_step)
 
 SEED = 12
 SMALL = dict(model_name_prefix="superpoint_pretrained", image_height=96,
@@ -159,7 +160,8 @@ def test_process_stream_padding_and_shape_check():
     assert [i for i, _ in got] == [0, 1, 2]
     assert int(vo.state.frame_count) == n and len(vo.trajectory) == n
     # the same frames one by one through the step program, no padding
-    prog = StepProgram(vo.model, cfg, "cpu", imgs.shape[1:])
+    prog = StepProgram(functools.partial(vo_step, vo.model, cfg=cfg), cfg,
+                       "cpu", imgs.shape[1:])
     prog.set_projections(torch.as_tensor(P_l2), torch.as_tensor(P_r2))
     flat = np.concatenate(slabs)
     for j in range(n):
