@@ -62,7 +62,21 @@ limit, then the result line:
         `process_stream` on equal noise; d. mode "orb" through the harness over phase 7's tree (8b's
         trajectory), the CLI's `--preset classic_orb --mode orb` on 8
         frames, and `build_feature_hybrid` fed with 8b's keypoints packed
-        to bytes (8b's trajectory bit for bit).
+        to bytes (8b's trajectory bit for bit);
+  9. the int8 trunk (models/quantize.py: an exact int8 im2col GEMM through
+     `torch._int_mm`, no kernel of its own) on superpoint_pretrained at the
+     flagship's 120x392: b. the static scales calibrated at the 99.9 |x|
+     percentile on the corridor's frames [::8], left and right, on the
+     card and on the CPU (equal to 1e-6 relative); a. every conv of the
+     trunk, dynamic and static, fed the card's own input activation: the
+     quantized input, the int32 accumulators and the dequantized output
+     equal on the card and the CPU, bit for bit; c. the online hybrid with
+     `precision=INT8` and 9b's model, with all of phase 6's checks, its
+     front end and trunk beside this run's bf16 ones, and peak memory;
+     d. `VisualOdometry.process` with `precision=INT8` (dynamic scales) on
+     8 frames; e. whether the bundled ONNX families' files are present
+     (`zoo.reference_models_dir()`), and if `sp_mbv1`'s is, 9c's hybrid on
+     it.
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -78,8 +92,9 @@ tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
 "hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
-"stream", and phase 8's "orb_hybrid_*", "classic_process",
-"classic_stream", "harness_orb", "feature_hybrid"), each counted from zero
+"stream", phase 8's "orb_hybrid_*", "classic_process",
+"classic_stream", "harness_orb", "feature_hybrid", and phase 9's
+"int8_hybrid", "int8_per_frame"), each counted from zero
 over that path's run; "launches" is their sum. Every path must launch both
 kernels, but for the classic ones, which must launch kernel 1 never: binary
 descriptors are matched by a Hamming matrix product outside it, as in the
@@ -467,8 +482,10 @@ def flagship_cfg():
                                model_name_prefix="superpoint_pretrained")
 
 
-def phase_main_path(dev, corridor):
-    """32-frame corridor drive through VisualOdometry.process."""
+def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
+                    drift_limit=5.0):
+    """The corridor drive (its first `n` frames) through
+    VisualOdometry.process; `cfg` defaults to the flagship composition."""
     import torch
 
     from spsvo_tpu_torch import _build
@@ -476,8 +493,9 @@ def phase_main_path(dev, corridor):
     from spsvo_tpu_torch.pipeline import VisualOdometry
 
     frames, gt, P_l, P_r, render_s = corridor
-    n = len(frames)
-    vo = VisualOdometry(flagship_cfg(), device=dev, seed=0)
+    n = n or len(frames)
+    frames, gt = frames[:n], gt[:n]
+    vo = VisualOdometry(cfg or flagship_cfg(), device=dev, seed=0)
     torch.cuda.synchronize()
     _build.reset_launches()
     infos = []
@@ -492,26 +510,27 @@ def phase_main_path(dev, corridor):
     inl = [i["num_inliers"] for i in infos[1:]]
     lat_ms = [i["latency_s"] * 1e3 for i in infos[4:]]
     score = score_trajectory(vo.trajectory, gt)
-    say("phase5", frames=n, render_s=render_s,
+    say(phase, frames=n, render_s=render_s,
         median_keypoints=float(np.median(kps)),
         median_inliers=float(np.median(inl)),
         drift_percent=score["final_drift_percent"], ate_m=score["ate_m"],
         median_process_ms=float(np.median(lat_ms)),
         launches=launches)
     if not all(np.isfinite(T).all() for T in vo.trajectory):
-        fail("non-finite trajectory")
+        fail(f"{phase}: non-finite trajectory")
     if not np.median(kps) > 200:
-        fail(f"median keypoints {np.median(kps)} <= 200")
+        fail(f"{phase}: median keypoints {np.median(kps)} <= 200")
     if not np.median(inl) > 30:
-        fail(f"median inliers {np.median(inl)} <= 30")
-    if not score["final_drift_percent"] < 5.0:
-        fail(f"drift {score['final_drift_percent']:.3f}% >= 5%")
+        fail(f"{phase}: median inliers {np.median(inl)} <= 30")
+    if not score["final_drift_percent"] < drift_limit:
+        fail(f"{phase}: drift {score['final_drift_percent']:.3f}% >= "
+             f"{drift_limit}%")
     if launches.get("match_nn", 0) != n:
-        fail(f"match_nn launched {launches.get('match_nn', 0)} times, "
-             f"expected {n}")
+        fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} "
+             f"times, expected {n}")
     if launches.get("fused_solve", 0) < n - 1:
-        fail(f"fused_solve launched {launches.get('fused_solve', 0)} times, "
-             f"expected >= {n - 1}")
+        fail(f"{phase}: fused_solve launched "
+             f"{launches.get('fused_solve', 0)} times, expected >= {n - 1}")
     return launches, float(np.median(lat_ms))
 
 
@@ -621,11 +640,14 @@ def check_scan_steps(phase, hybrid, xs, P_l, P_r, n):
     return worst, k2
 
 
-def phase_hybrid(dev, corridor):
-    """The online hybrid over the corridor: launches, kernels against their
-    plain versions on the run's own inputs, graph replay against eager,
-    accuracy, and times. Returns (launches, kernel 2's weighted timing,
-    kernel 1's and kernel 2's largest error against the plain version)."""
+def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
+                 drift_limit=5.0):
+    """The online hybrid over the corridor (`cfg` defaults to the flagship
+    composition, `model` to the one it loads): launches, kernels against
+    their plain versions on the run's own inputs, graph replay against
+    eager, accuracy, times and peak memory. Returns (launches, kernel 2's
+    weighted timing, kernel 1's and kernel 2's largest error against the
+    plain version, {sequence ms eager and replayed, per-phase ms})."""
     import torch
 
     from spsvo_tpu_torch import _build
@@ -638,8 +660,9 @@ def phase_hybrid(dev, corridor):
 
     frames, gt, P_l_np, P_r_np, _ = corridor
     n = len(frames)
-    cfg = flagship_cfg()
-    hybrid = build_online_hybrid(cfg, device=dev)
+    cfg = cfg or flagship_cfg()
+    torch.cuda.reset_peak_memory_stats(dev)
+    hybrid = build_online_hybrid(cfg, model=model, device=dev)
     if hybrid.branch != LANDMARK_KERNEL:
         fail(f"hybrid branch {hybrid.branch}, expected {LANDMARK_KERNEL}")
     raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
@@ -668,14 +691,14 @@ def phase_hybrid(dev, corridor):
         if i == 0:
             launches = dict(_build.launches)
             shapes = dict(_build.shapes)
-    say("phase6", frames=n, preprocess_ms=preprocess_ms, launches=launches,
+    say(phase, frames=n, preprocess_ms=preprocess_ms, launches=launches,
         shapes={k: list(v) for k, v in shapes.items()})
     if launches.get("match_nn", 0) != 1 or shapes["match_nn"][0] != 2 * n - 1:
-        fail(f"hybrid: match_nn launched {launches.get('match_nn', 0)} times "
+        fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} times "
              f"at {shapes.get('match_nn')}, expected once at B={2 * n - 1}")
     if (launches.get("fused_solve", 0) != n - 1
             or shapes["fused_solve"][3] != 1):
-        fail(f"hybrid: fused_solve launched {launches.get('fused_solve', 0)} "
+        fail(f"{phase}: fused_solve launched {launches.get('fused_solve', 0)} "
              f"times at {shapes.get('fused_solve')}, expected {n - 1} with "
              "the GLS pass in the kernel")
 
@@ -684,14 +707,14 @@ def phase_hybrid(dev, corridor):
     q, vq, t, vt = match_batch(kp_l, kp_r, cfg)
     m_err, m_bad, m_matches = check_matcher("hybrid", q, vq, t, vt,
                                             say_phase=False)
-    say("phase6", check="match_nn vs plain", B=q.shape[0], matches=m_matches,
+    say(phase, check="match_nn vs plain", B=q.shape[0], matches=m_matches,
         idx_mismatch_near_ties=m_bad, max_abs_err_dist2=m_err)
 
     # kernel 2: every scan step's body against the body with the plain
     # version, from the same (the kernel's) carry
     stereo, inter = match_pairs(kp_l, kp_r, cfg)
     xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
-    worst, k2 = check_scan_steps("phase6", hybrid, xs, P_l, P_r, n)
+    worst, k2 = check_scan_steps(phase, hybrid, xs, P_l, P_r, n)
 
     # the CUDA graph: first call captures, later calls replay
     t0 = time.perf_counter()
@@ -707,32 +730,34 @@ def phase_hybrid(dev, corridor):
     same = torch.equal(world_g, world_e) and all(
         torch.equal(diag_g[k], v) for k, v in diag_e.items())
     max_diff = (world_g - world_e).abs().max().item()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
     split = phase_split_ms(hybrid, imgs, P_l, P_r, gumbel)
     seq_ms = float(np.median(replay_ms))
-    say("phase6", graph_equals_eager_bitwise=same, graph_max_abs_diff=max_diff,
+    say(phase, graph_equals_eager_bitwise=same, graph_max_abs_diff=max_diff,
         capture_s=capture_s, eager_ms=float(np.median(eager_ms)),
         replay_ms=seq_ms, replay_ms_min=float(np.min(replay_ms)),
         frames_per_s=n / seq_ms * 1e3, phase_ms=split,
-        phase_ms_sum=sum(split.values()))
+        phase_ms_sum=sum(split.values()), peak_memory_gb=peak_gb)
     if not same:
-        fail(f"hybrid: graph replay differs from eager (max {max_diff})")
+        fail(f"{phase}: graph replay differs from eager (max {max_diff})")
 
     world = [T.astype(np.float64) for T in world_e.cpu().numpy()]
     score = score_trajectory(world, gt)
     kps = diag_e["num_keypoints_left"].cpu().numpy()
     inl = diag_e["num_inliers"].cpu().numpy()
-    say("phase6", median_keypoints=float(np.median(kps)),
+    say(phase, median_keypoints=float(np.median(kps)),
         median_inliers=float(np.median(inl)),
         drift_percent=score["final_drift_percent"], ate_m=score["ate_m"],
         pnp_success=int(diag_e["pnp_success"].sum().item()))
     if not all(np.isfinite(T).all() for T in world):
-        fail("hybrid: non-finite trajectory")
+        fail(f"{phase}: non-finite trajectory")
     if not np.median(kps) > 200:
-        fail(f"hybrid: median keypoints {np.median(kps)} <= 200")
+        fail(f"{phase}: median keypoints {np.median(kps)} <= 200")
     if not np.median(inl) > 30:
-        fail(f"hybrid: median inliers {np.median(inl)} <= 30")
-    if not score["final_drift_percent"] < 5.0:
-        fail(f"hybrid: drift {score['final_drift_percent']:.3f}% >= 5%")
+        fail(f"{phase}: median inliers {np.median(inl)} <= 30")
+    if not score["final_drift_percent"] < drift_limit:
+        fail(f"{phase}: drift {score['final_drift_percent']:.3f}% >= "
+             f"{drift_limit}%")
 
     # kernel 2 at the weighted (GLS in the kernel) shape of a real step
     p = solver_cuda.solve_params(cfg, weighted_lm=True)
@@ -742,9 +767,11 @@ def phase_hybrid(dev, corridor):
     k2_t = {"ms_weighted": graph_ms(fn, 100), "bound_ms_weighted": b_ms,
             "bound_by_weighted": b_by, "plain_ms_weighted": time_ms(
                 lambda: solver_cuda.fused_solve_plain(*k2, p), 20)}
-    say("phase6", result="pass", frames_per_s=n / seq_ms * 1e3,
+    say(phase, result="pass", frames_per_s=n / seq_ms * 1e3,
         sequence_ms=seq_ms, **k2_t)
-    return launches, k2_t, m_err, max(worst["q"], worst["t"])
+    timing = {"eager_ms": float(np.median(eager_ms)), "replay_ms": seq_ms,
+              "phase_ms": split, "peak_memory_gb": peak_gb}
+    return launches, k2_t, m_err, max(worst["q"], worst["t"]), timing
 
 
 def write_kitti_tree(root: str, corridor) -> str:
@@ -1578,6 +1605,168 @@ def phase_classic(dev, corridor, tmp, gt_file):
     return by_path, err
 
 
+# The int8 trunk's drift limits on the corridor, from its spread over 16
+# noise seeds on the card (tools/torch_int8_drift.py; PERF.md section 2):
+# the hybrid with static scales 0.36-4.76% on 32 frames (dynamic
+# 0.32-1.08%, bf16 0.36-2.34%), `process` with dynamic scales 0.73-10.98%
+# on 8 frames (2.45 m of path, where one pair's error is a large share).
+INT8_HYBRID_DRIFT_LIMIT = 7.5
+INT8_PROCESS_DRIFT_LIMIT = 15.0
+INT8_SCALE_RTOL = 1e-6
+
+
+def int8_models(dev, corridor):
+    """Phase 9b: superpoint_pretrained quantized to int8 on the card and on
+    the CPU, dynamic, and static with scales calibrated at the 99.9 |x|
+    percentile on the corridor's frames [::8], left and right, at the
+    flagship's 120x392; the `#ascale` values of the two devices agree to
+    INT8_SCALE_RTOL. Returns ({"dynamic" | "static": the card's model},
+    the frames at 120x392 on the card)."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops import image as image_ops
+    frames = corridor[0]
+    cfg = flagship_cfg()
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    cal = imgs[::8].reshape(-1, cfg.image_height, cfg.image_width)[..., None]
+    models = {"dynamic": zoo.load_model(cfg.model_name_prefix, device=dev,
+                                        int8=True)}
+    static, seconds = [], []
+    for d in (dev, "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        static.append(zoo.load_model(
+            cfg.model_name_prefix, device=d, int8=True,
+            int8_calibration=cal.to(d), int8_percentile=99.9))
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    models["static"] = static[0]
+    card, cpu = (dict(m.state_dict()) for m in static)
+    keys = sorted(k for k in card if k.endswith("#ascale"))
+    rel = {k: abs(card[k].item() - cpu[k].item()) / cpu[k].item()
+           for k in keys}
+    worst = max(rel.values())
+    say("phase9b", check="calibrated #ascale, card vs CPU",
+        calibration_images=list(cal.shape), scales=len(keys),
+        max_rel_diff=worst, rtol=INT8_SCALE_RTOL, card_s=seconds[0],
+        cpu_s=seconds[1],
+        ascale={k.split(".")[0]: card[k].item() for k in keys})
+    if len(keys) != 12 or not worst <= INT8_SCALE_RTOL:
+        fail(f"phase9b: {len(keys)} scales, card vs CPU relative difference "
+             f"{worst} > {INT8_SCALE_RTOL}")
+    return models, imgs
+
+
+def phase_int8_convs(dev, models, imgs):
+    """Phase 9a: every int8 conv of the trunk at the flagship's 120x392,
+    B=2 (corridor frame 0, left and right), dynamic and static: each conv
+    fed the card's own input activation (teacher-forced), quantized, its
+    int32 accumulators and its dequantized output computed on the card and
+    on the CPU from the same values and the same parameters (the card
+    model's, copied): equal bit for bit."""
+    import torch
+
+    from spsvo_tpu_torch.models import quantize, zoo
+    from spsvo_tpu_torch.models.graph import OnnxGraph, conv_weight_names
+    x = imgs[0][..., None]                              # (2, H, W, 1)
+    out = {}
+    for mode, card in models.items():
+        graph = card.graph
+        cpu = zoo.model_from_state(
+            graph, {k: v.cpu() for k, v in card.state_dict().items()},
+            device="cpu")
+        convs = [n for n in graph.nodes if n.op == "Conv"]
+        names = list(dict.fromkeys([n.inputs[0] for n in convs]))
+        probe = zoo.model_from_state(
+            OnnxGraph(graph.nodes, {}, graph.input_names, names),
+            card.state_dict(), device=dev)
+        with torch.no_grad():
+            acts = probe(x)
+        bad, n_vals = [], 0
+        for node in convs:
+            w = node.inputs[1]
+            pads = [int(p) for p in node.attr("pads")]
+            xin = acts[node.inputs[0]].permute(0, 3, 1, 2)
+            res = []
+            for m, xi in ((card, xin), (cpu, xin.cpu())):
+                a = (m.get_buffer(f"{w}#ascale") if mode == "static" else
+                     torch.clamp(xi.abs().amax(), min=1e-12) / 127.0)
+                xq = quantize.quantize_activation(xi, a)
+                acc = quantize.conv_int32(xq, m.get_buffer(w), (1, 1), pads,
+                                          (1, 1), 1)
+                y = quantize.int8_conv(xi, m.get_buffer(w),
+                                       m.get_buffer(f"{w}#scale"), (1, 1),
+                                       pads, (1, 1), 1,
+                                       a if mode == "static" else None)
+                res.append([t.cpu() for t in (xq, acc, y)])
+            n_vals += res[0][1].numel()
+            if not all(torch.equal(c, p) for c, p in zip(*res)):
+                bad.append(w)
+        out[mode] = {"convs": len(convs), "accumulators": n_vals,
+                     "differing_convs": bad}
+        if len(convs) != len(conv_weight_names(graph)) or bad:
+            fail(f"phase9a {mode}: card and CPU differ at {bad}")
+    say("phase9a", check="int8 convs card vs CPU, bit for bit",
+        shape=list(x.shape), **out)
+
+
+def trunk_ms(model, x) -> float:
+    """Device time of one trunk call on `x`, from a CUDA graph."""
+    import torch
+    with torch.no_grad():
+        return graph_ms(lambda: model(x), 3)
+
+
+def phase_int8(dev, corridor, bf16_timing):
+    """Phase 9. Returns ({path: launches}, kernel 1's and kernel 2's worst
+    error against their plain versions on the int8 paths)."""
+    import torch
+
+    from spsvo_tpu_torch.config import Precision
+    from spsvo_tpu_torch.models import zoo
+    models, imgs = int8_models(dev, corridor)
+    phase_int8_convs(dev, models, imgs)
+    cfg = dataclasses.replace(flagship_cfg(), precision=Precision.INT8)
+    launches, _, m_err, s_err, timing = phase_hybrid(
+        dev, corridor, "phase9c", cfg, models["static"],
+        INT8_HYBRID_DRIFT_LIMIT)
+    x = imgs.reshape(-1, *imgs.shape[2:])[..., None]        # 2N images
+    bf16 = zoo.load_model(cfg.model_name_prefix, torch.bfloat16, dev)
+    say("phase9c", check="int8 hybrid against this run's bf16 hybrid",
+        frontend_ms_int8_static=timing["phase_ms"]["frontend"],
+        frontend_ms_bf16=bf16_timing["phase_ms"]["frontend"],
+        replay_ms_int8=timing["replay_ms"],
+        replay_ms_bf16=bf16_timing["replay_ms"],
+        eager_ms_int8=timing["eager_ms"],
+        peak_memory_gb_int8=timing["peak_memory_gb"],
+        peak_memory_gb_bf16=bf16_timing["peak_memory_gb"],
+        trunk_images=x.shape[0],
+        trunk_ms={"int8_static": trunk_ms(models["static"], x),
+                  "int8_dynamic": trunk_ms(models["dynamic"], x),
+                  "bf16": trunk_ms(bf16, x)})
+    if launches.get("match_nn", 0) != 1 or launches.get("fused_solve") != 31:
+        fail(f"phase9c: launches {launches}")
+    p_launches, p_ms = phase_main_path(dev, corridor, "phase9d", cfg, 8,
+                                       INT8_PROCESS_DRIFT_LIMIT)
+    check_counts("9d", p_launches, {"match_nn": 8, "fused_solve": 8})
+    say("phase9d", result="pass", median_process_ms=p_ms)
+    d = zoo.reference_models_dir()
+    present = {p: os.path.exists(os.path.join(d, f"{p}_b1.onnx"))
+               for p in sorted(zoo.BUNDLED_ONNX)}
+    say("phase9e", models_dir=d, bundled_onnx_present=present)
+    by_path = {"int8_hybrid": launches, "int8_per_frame": p_launches}
+    if present["sp_mbv1"]:
+        mb_launches, _, e1, e2, _ = phase_hybrid(
+            dev, corridor, "phase9e", dataclasses.replace(
+                cfg, model_name_prefix="sp_mbv1"), None,
+            INT8_HYBRID_DRIFT_LIMIT)
+        by_path["int8_hybrid_sp_mbv1"] = mb_launches
+        m_err, s_err = max(m_err, e1), max(s_err, e2)
+    return by_path, m_err, s_err
+
+
 def main() -> None:
     try:
         import torch
@@ -1630,7 +1819,8 @@ def main() -> None:
     corridor = render_corridor()
     launches, median_ms = phase_main_path(dev, corridor)
     say("phase5", result="pass", median_process_ms=median_ms, gpu=gpu)
-    h_launches, k2_t, h_m_err, h_s_err = phase_hybrid(dev, corridor)
+    h_launches, k2_t, h_m_err, h_s_err, h_timing = phase_hybrid(dev,
+                                                                 corridor)
     m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
     say("phase6", gpu=gpu)
     with tempfile.TemporaryDirectory() as tmp:
@@ -1639,6 +1829,9 @@ def main() -> None:
         b_launches, b_s_err = phase_classic(dev, corridor, tmp, gt_file)
     s_err = max(s_err, c_s_err, b_s_err)
     say("phase8", result="pass", gpu=gpu)
+    q_launches, q_m_err, q_s_err = phase_int8(dev, corridor, h_timing)
+    m_err, s_err = max(m_err, q_m_err), max(s_err, q_s_err)
+    say("phase9", result="pass", gpu=gpu)
     if "jax" in sys.modules or "cv2" in sys.modules:
         fail("jax or cv2 was imported")
 
@@ -1649,7 +1842,8 @@ def main() -> None:
         # binary descriptors never reach kernel 1, as in the JAX package
         by_path = {"per_frame": launches.get(name, 0),
                    "hybrid": h_launches.get(name, 0),
-                   **{path: c.get(name, 0) for path, c in c_launches.items()}}
+                   **{path: c.get(name, 0) for path, c in c_launches.items()},
+                   **{path: c.get(name, 0) for path, c in q_launches.items()}}
         classic = {path: c.get(name, 0) for path, c in b_launches.items()}
         missing = [path for path, count in by_path.items() if count == 0]
         if name == "match_nn":

@@ -5,19 +5,22 @@ graph IR and run by `graph.GraphModule`.
 Weights come from `weights/<prefix>.npz`, the JAX package's parameter dict
 (numpy, conv weights HWIO); `params_from_jax` carries it over to the port's
 layout (OIHW), name for name. The families whose weights ship as ONNX files
-(`sp_mbv1`, `sp_mbv2`, `sp_squeeze`) need the wire-format parser, which is
-not ported yet.
+(`sp_mbv1`, `sp_mbv2`, `sp_squeeze`) are parsed from
+`<models dir>/<prefix>_b1.onnx` (`models/onnx_import.py`); the directory is
+`reference_models_dir()` unless the caller names one. `load_model(...,
+int8=True)` quantizes any family (`models/quantize.py`).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from spsvo_tpu_torch.models.graph import GraphModule, OnnxGraph, OnnxNode
+from spsvo_tpu_torch.models.graph import (GraphModule, OnnxGraph, OnnxNode,
+                                          conv_weight_names)
 
 BUNDLED_ONNX = {"sp_mbv1", "sp_mbv2", "sp_squeeze"}
 ALL_PREFIXES = ("superpoint_pretrained", "sp_sparse", "sp_mbv1", "sp_mbv2",
@@ -197,40 +200,132 @@ def weights_dir() -> str:
     return os.path.abspath(d)
 
 
-def params_from_jax(np_params: Dict[str, np.ndarray]
-                    ) -> Dict[str, torch.Tensor]:
-    """The JAX package's parameter dict (numpy; conv weights HWIO) ->
-    this package's state dict (conv weights OIHW), name for name."""
+def reference_models_dir() -> str:
+    """Where the bundled ONNX exports are looked for: `SPSVO_MODELS_DIR`,
+    else `models/` at the repository's root."""
+    d = os.environ.get("SPSVO_MODELS_DIR",
+                       os.path.join(os.path.dirname(__file__), "..", "..",
+                                    "models"))
+    return os.path.abspath(d)
+
+
+def params_from_jax(np_params: Dict[str, np.ndarray],
+                    conv_weights: Iterable[str]) -> Dict[str, torch.Tensor]:
+    """The JAX package's parameter dict (numpy; conv weights HWIO) -> this
+    package's state dict, name for name: the arrays named in
+    `conv_weights` become OIHW; int8 arrays (quantized conv weights) stay
+    int8, everything else becomes float32, `<w>#scale` and `<w>#ascale`
+    included."""
+    conv_weights = set(conv_weights)
     out = {}
     for name, arr in np_params.items():
-        arr = np.array(arr, np.float32)      # a copy: never alias the caller
-        if arr.ndim == 4:
+        arr = np.asarray(arr)
+        dtype = np.int8 if arr.dtype == np.int8 else np.float32
+        arr = np.array(arr, dtype)           # a copy: never alias the caller
+        if name in conv_weights:
             arr = np.ascontiguousarray(np.transpose(arr, (3, 2, 0, 1)))
         out[name] = torch.from_numpy(arr)
     return out
 
 
+def params_to_jax(model: GraphModule) -> Dict[str, np.ndarray]:
+    """A model's parameters in the JAX package's layout (the inverse of
+    `params_from_jax`): what `spsvo_tpu`'s zoo reads from an npz."""
+    conv = conv_weight_names(model.graph)
+    out = {}
+    for name, t in model.state_dict().items():
+        arr = t.detach().cpu().numpy()
+        out[name] = (np.ascontiguousarray(np.transpose(arr, (2, 3, 1, 0)))
+                     if name in conv else arr)
+    return out
+
+
+def model_from_state(graph: OnnxGraph, state: Dict[str, torch.Tensor],
+                     bf16: bool = False, device="cuda") -> GraphModule:
+    """A `GraphModule` holding `state` (the port's layout, any dtypes)."""
+    conv = conv_weight_names(graph)
+    shapes = {k: (tuple(v.shape[2:]) + (v.shape[1], v.shape[0])
+                  if k in conv else tuple(v.shape))
+              for k, v in state.items()}
+    model = GraphModule(graph, shapes, bf16,
+                        {k: v.dtype for k, v in state.items()})
+    model.load_state_dict(state)
+    return model.to(device).eval()
+
+
+def model_from_params(graph: OnnxGraph, np_params: Dict[str, np.ndarray],
+                      bf16: bool = False, device="cuda") -> GraphModule:
+    """A `GraphModule` holding a JAX-layout parameter dict."""
+    return model_from_state(
+        graph, params_from_jax(np_params, conv_weight_names(graph)), bf16,
+        device)
+
+
 def load_model(prefix: str, dtype: torch.dtype = torch.float32,
-               device="cuda", seed: int = 0) -> GraphModule:
+               device="cuda", seed: int = 0,
+               models_dir: Optional[str] = None, int8: bool = False,
+               int8_calibration=None,
+               int8_percentile: Optional[float] = 99.9) -> GraphModule:
     """Load a model family by prefix. `dtype` bfloat16 selects the bf16
     trunk semantics. Families without a weights file are initialised from a
-    `torch.Generator` seeded with `seed`."""
+    `torch.Generator` seeded with `seed`; a bundled-ONNX family is parsed
+    from `<models_dir or reference_models_dir()>/<prefix>_b1.onnx` and
+    raises FileNotFoundError without it.
+
+    `int8=True` quantizes every conv weight per output channel to int8
+    (`quantize.quantize_weights`); activations then take a dynamic absmax
+    scale per conv input, unless `int8_calibration` ((N, H, W, 1) images in
+    [0, 1]) is given: the fp32 model runs over it on `device` and each
+    conv's static scale is stored as `<w>#ascale`, clipped at the
+    `int8_percentile` |x| quantile (None: the absmax). End-to-end drift
+    under the int8 trunk is chaotically sensitive to those scales (the JAX
+    package's records: one scale nudged 0.5% moved a drive's drift from
+    6.84% to 2.14%), so it is held stage by stage, not by drift."""
     if prefix in BUNDLED_ONNX:
-        raise NotImplementedError(
-            f"{prefix!r} loads from an ONNX file; the ONNX parser is not "
-            "ported yet (use superpoint_pretrained, sp_sparse or "
-            "sp_resnet18)")
-    if prefix not in _BUILDERS:
-        raise KeyError(f"unknown model prefix {prefix!r}; "
-                       f"known: {ALL_PREFIXES}")
-    builder = _BUILDERS[prefix]()
-    npz = os.path.join(weights_dir(), f"{prefix}.npz")
-    if os.path.exists(npz):
-        with np.load(npz) as data:
-            np_params = {k: data[k] for k in data.files}
+        from spsvo_tpu_torch.models.onnx_import import (build_params,
+                                                        parse_onnx)
+        graph = parse_onnx(os.path.join(models_dir or reference_models_dir(),
+                                        f"{prefix}_b1.onnx"))
+        np_params = build_params(graph)
     else:
-        np_params = builder.init_params(torch.Generator().manual_seed(seed))
-    model = GraphModule(builder.build(), builder.shapes,
-                        bf16=(dtype == torch.bfloat16))
-    model.load_state_dict(params_from_jax(np_params))
-    return model.to(device).eval()
+        if prefix not in _BUILDERS:
+            raise KeyError(f"unknown model prefix {prefix!r}; "
+                           f"known: {ALL_PREFIXES}")
+        builder = _BUILDERS[prefix]()
+        graph = builder.build()
+        npz = os.path.join(weights_dir(), f"{prefix}.npz")
+        if os.path.exists(npz):
+            with np.load(npz) as data:
+                np_params = {k: data[k] for k in data.files}
+        else:
+            np_params = builder.init_params(
+                torch.Generator().manual_seed(seed))
+    bf16 = dtype == torch.bfloat16
+    if not int8:
+        return model_from_params(graph, np_params, bf16, device)
+    from spsvo_tpu_torch.models.quantize import (calibrate_activation_scales,
+                                                 quantize_weights)
+    conv = conv_weight_names(graph)
+    state = params_from_jax(np_params, conv)
+    ascales = {}
+    if int8_calibration is not None:
+        images = torch.as_tensor(int8_calibration,
+                                 dtype=torch.float32).to(device)
+        ascales = calibrate_activation_scales(
+            model_from_state(graph, state, False, device), images,
+            percentile=int8_percentile)
+    state = quantize_weights(state, conv)
+    state.update({k: v.cpu() for k, v in ascales.items()})
+    return model_from_state(graph, state, bf16, device)
+
+
+def save_params(prefix: str, model: GraphModule) -> str:
+    """Write `<weights_dir>/<prefix>.npz` in the JAX package's layout."""
+    from spsvo_tpu_torch.utils.checkpoint import save_params_npz
+    return save_params_npz(os.path.join(weights_dir(), f"{prefix}.npz"),
+                           params_to_jax(model))
+
+
+def param_count(params) -> int:
+    """Elements in a parameter dict (numpy arrays or tensors)."""
+    return int(sum(np.prod(v.shape) for v in params.values()))

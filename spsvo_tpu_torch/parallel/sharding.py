@@ -456,7 +456,8 @@ def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True):
     if cnn and model is None:
         dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
                  else torch.float32)
-        model = zoo.load_model(cfg.model_name_prefix, dtype, device)
+        model = zoo.load_model(cfg.model_name_prefix, dtype, device,
+                               int8=(cfg.precision == Precision.INT8))
     return model, device
 
 

@@ -457,8 +457,6 @@ def check_supported(cfg: VOConfig) -> None:
     if cfg.is_classic and not cfg.device_classic:
         missing.append("the host classic front ends (is_classic without "
                        "device_classic: detection by OpenCV)")
-    if cfg.precision == Precision.INT8:
-        missing.append("the int8 trunk")
     if cfg.landmark_refine:
         missing.append("landmark_refine")
     if missing:
@@ -488,7 +486,8 @@ class VisualOdometry:
         if model is None:
             dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
                      else torch.float32)
-            model = zoo.load_model(cfg.model_name_prefix, dtype, self.device)
+            model = zoo.load_model(cfg.model_name_prefix, dtype, self.device,
+                                   int8=(cfg.precision == Precision.INT8))
         self.model = model
         self.seed = seed
         self.generator = torch.Generator(self.device)

@@ -237,3 +237,51 @@ def test_orb_hybrid_on_the_card(det, desc):
     np.testing.assert_allclose(world.cpu().numpy(), cpu_w.numpy(),
                                atol=2e-2 if det == "AKAZE" else WORLD_ATOL)
     assert torch.equal(diag["num_chain"].cpu(), cpu_d["num_chain"])
+
+
+FULL = dict(image_height=375, image_width=1242, orb_edge_threshold=31,
+            use_pallas_solver=False)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("det,desc", [("ORB", "ORB"), ("ORB", "BRISK"),
+                                      ("SHI_TOMASI", "ORB"),
+                                      ("AKAZE", "AKAZE")])
+def test_orb_hybrid_full_size_matches_jax(det, desc):
+    """At the card's size: both packages' `build_orb_hybrid` with the
+    flagship solve behind each device front end at the native 375x1242 (K=512,
+    8 levels, edge border 31, landmark fusion; the XLA branch, so the JAX
+    side runs no interpret-mode kernel) on the first 6 frames of the smoke
+    test's corridor (seed 42, the S-curve's first half), with JAX's noise:
+    per pair equal counts, inliers within 3, poses within 2e-3. This holds
+    the upper pyramid levels (integer corners times 1.2^l), which the small
+    sizes above do not reach, to the JAX package."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from spsvo_tpu import presets as jpresets
+    from spsvo_tpu.config import DescriptorType, DetectorType
+    from spsvo_tpu.parallel import sharding as jsh
+    from spsvo_tpu_torch import presets as tpresets
+    n = 6
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(42), n_frames=n, h=375, w=1242,
+        twists=[(np.array([0.0, 0.003, 0.0]), np.array([0.0, 0.0, 0.35]))]
+        * (n - 1))
+    imgs = np.stack([np.stack(f) for f in frames]).astype(np.float32) / 255.0
+    P_l, P_r = P_l.astype(np.float32), P_r.astype(np.float32)
+    jcfg = dataclasses.replace(
+        jpresets.flagship_tpu(), is_classic=True, device_classic=True,
+        detector_type=DetectorType[det], descriptor_type=DescriptorType[desc],
+        **FULL)
+    tcfg = dataclasses.replace(
+        tpresets.flagship_tpu(), is_classic=True, device_classic=True,
+        detector_type=TDet[det], descriptor_type=TDesc[desc], **FULL)
+    jw, jd = jsh.build_orb_hybrid(jcfg)(
+        None, jnp.asarray(imgs), jnp.asarray(P_l), jnp.asarray(P_r),
+        jax.random.PRNGKey(SEED))
+    hybrid = tsh.build_orb_hybrid(tcfg, device="cpu")
+    assert hybrid.branch == tsh.LANDMARK
+    tw, td = hybrid(_t(imgs), _t(P_l), _t(P_r), gumbel=_t(_pair_gumbel(
+        SEED, n, tsolver.gumbel_shape(tcfg))))
+    _assert_hybrid_matches(jw, jd, tw, td)

@@ -10,7 +10,7 @@ import torch
 
 from spsvo_tpu_torch import config, frontend_classic, pipeline, run
 from spsvo_tpu_torch.eval import harness, synthetic
-from spsvo_tpu_torch.models import zoo
+from spsvo_tpu_torch.models import onnx_import, zoo
 from spsvo_tpu_torch.parallel import sharding
 from spsvo_tpu_torch.presets import flagship_tpu
 
@@ -26,14 +26,17 @@ from spsvo_tpu_torch.presets import flagship_tpu
                                 frontend_classic.ClassicVisualOdometry.__init__,
                                 frontend_classic.init_state_with_dim,
                                 sharding.build_orb_hybrid,
-                                sharding.build_feature_hybrid],
+                                sharding.build_feature_hybrid,
+                                zoo.model_from_params, zoo.model_from_state,
+                                onnx_import.load_onnx_model],
                          ids=["VisualOdometry", "init_state", "load_model",
                               "prepared_from_frame", "build_online_hybrid",
                               "build_batch_vo", "build_sequence_scan",
                               "run_sequence_fused", "run_eval_id",
                               "run_sweep", "ClassicVisualOdometry",
                               "init_state_with_dim", "build_orb_hybrid",
-                              "build_feature_hybrid"])
+                              "build_feature_hybrid", "model_from_params",
+                              "model_from_state", "load_onnx_model"])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -53,6 +56,9 @@ def test_default_device_raises_without_cuda():
         sharding.build_batch_vo(cfg)
     with pytest.raises((RuntimeError, AssertionError)):
         sharding.build_sequence_scan(cfg)
+    with pytest.raises((RuntimeError, AssertionError)):
+        sharding.build_online_hybrid(dataclasses.replace(
+            cfg, precision=config.Precision.INT8))
     frames = [(np.zeros((32, 96), np.uint8),) * 2] * 2
     with pytest.raises((RuntimeError, AssertionError)):
         harness.run_sequence_fused(cfg, frames, np.eye(3, 4), np.eye(3, 4))

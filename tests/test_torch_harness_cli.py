@@ -182,9 +182,10 @@ def test_harness_verbose_guards_and_unported_modes(tree):
 
 
 def test_run_sweep_records_unported_rows_and_goes_on(tree, tmp_path):
-    """A classic row and an ONNX-family row land as error rows; the row
-    between them runs (hybrid, 4 timed repetitions) with accuracy columns;
-    the JSON on disk equals the returned rows."""
+    """A host-classic row and an ONNX-family row without its file land as
+    error rows, the latter naming the missing file; the row between them
+    runs (hybrid, 4 timed repetitions) with accuracy columns; the JSON on
+    disk equals the returned rows."""
     root, _ = tree
     seq = tkitti.KittiOdometrySequence(root, "00")
     frames = list(seq)
@@ -195,7 +196,8 @@ def test_run_sweep_records_unported_rows_and_goes_on(tree, tmp_path):
                               out_json=out_json, max_frames=3,
                               gt_poses=_drive()[1], device="cpu")
     assert [r["config"] for r in rows] == [c.config_string for c in cfgs]
-    assert "classic" in rows[0]["error"] and "ONNX" in rows[2]["error"]
+    assert "classic" in rows[0]["error"]
+    assert "sp_mbv1_b1.onnx" in rows[2]["error"]
     for k in ("fps", "mean_total_ms", "ate_m", "final_drift_percent",
               "rpe_trans_rmse_m"):
         assert np.isfinite(rows[1][k]), k
@@ -243,6 +245,7 @@ def test_cli_compile_sweep_filter(capsys):
     io = capsys.readouterr()
     assert rc == 1 and "0 compiled, 1 failed" in io.out
     assert "FAILED sp_mbv1_2_120_392_FP32" in io.err
+    assert "sp_mbv1_b1.onnx" in io.err          # the absent ONNX file
     rc = trun.main(["--compile-sweep", "--filter", "sp_resnet18_2_120_392_FP32",
                     "--device", "cpu"])
     assert rc == 0 and "1 compiled, 0 failed" in capsys.readouterr().out

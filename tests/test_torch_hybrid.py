@@ -327,17 +327,93 @@ def test_hybrid_reference_solve_matches_jax_xla(change, branch):
 
 @pytest.mark.parametrize("change", [
     dict(speculative_solve=True), dict(landmark_refine=True),
-    dict(precision=TPrecision.INT8), dict(is_classic=True)],
-    ids=["speculative_solve", "landmark_refine", "int8", "host_classic"])
+    dict(is_classic=True)],
+    ids=["speculative_solve", "landmark_refine", "host_classic"])
 def test_unported_configurations_raise(change):
     """What is still missing raises, whichever way the hybrid is built (a
     host-classic configuration names OpenCV); the device-classic ones run
-    (tests/test_torch_classic.py)."""
+    (tests/test_torch_classic.py), and so does int8 (below)."""
     cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL, **change)
     match = "OpenCV" if "is_classic" in change else None
     for kw in (dict(), dict(feature_input=True, binary_desc=True)):
         with pytest.raises(NotImplementedError, match=match):
             tsh.build_online_hybrid(cfg, device="cpu", **kw)
+
+
+def test_int8_hybrid_builds_and_runs_on_the_cpu():
+    """`precision=INT8` loads the family with int8 conv weights and dynamic
+    activation scales, as the JAX package's hybrid does, and the hybrid
+    follows the corridor."""
+    from spsvo_tpu_torch.eval import synthetic as tsyn
+    n = 3
+    cfg = dataclasses.replace(_tcfg(), precision=TPrecision.INT8)
+    hybrid = tsh.build_online_hybrid(cfg, device="cpu")
+    assert hybrid.model.get_buffer("conv1b.weight").dtype == torch.int8
+    assert not hybrid.model._requant          # no static scales
+    imgs, P_l, P_r, gt = _corridor(n, tsyn)
+    world, diag = hybrid(torch.as_tensor(imgs), torch.as_tensor(P_l),
+                         torch.as_tensor(P_r),
+                         generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(world).all()
+    assert (diag["num_inliers"] > 30).all(), diag["num_inliers"]
+    assert np.abs(world[:, :3, 3].numpy() - gt).max() < 0.25
+
+
+def test_int8_hybrid_matches_jax_on_the_jax_trunk_outputs():
+    """The int8 online hybrid, slice level: the JAX package's int8
+    superpoint_pretrained (dynamic scales) carried across by
+    `params_from_jax` gives trunk outputs within 10% of each output's range
+    at most and 0.5% on average (the jitted JAX trunk differs from its own
+    op-by-op run by up to 3.3% of the descriptors' range, and the port's
+    equals that op-by-op run but for the last ulp of the L2 norm, so the
+    rare flips at .5 compound; at this size one descriptor entry moves by
+    5.0% of the range); those flips move a keypoint count by one, so
+    both hybrids then run on the JAX trunk's outputs, injected, with JAX's
+    noise: that file's counts and WORLD_ATOL, over 4 frames on the XLA
+    branch (`use_pallas_solver=False`)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from spsvo_tpu.eval import synthetic as jsyn
+    from spsvo_tpu.models import zoo as jzoo
+    from spsvo_tpu.parallel import sharding as jsh
+    from spsvo_tpu_torch.models import zoo as tzoo
+    n = 4
+    jcfg, tcfg = _cfgs(use_pallas_solver=False)
+    jcfg = dataclasses.replace(jcfg, precision=type(jcfg.precision).INT8)
+    tcfg = dataclasses.replace(tcfg, precision=TPrecision.INT8)
+    imgs, P_l, P_r, gt = _corridor(n, jsyn)
+    apply_fn, params = jzoo.load_model("superpoint_pretrained", jnp.float32,
+                                       int8=True)
+    x = imgs.reshape(2 * n, 96, 320)[..., None]
+    ref = {k: np.array(v) for k, v in
+           jax.jit(apply_fn)(params, jnp.asarray(x)).items()}
+    model = tzoo.model_from_params(
+        tzoo.build_superpoint_vgg().build(),
+        {k: np.asarray(v) for k, v in params.items()}, device="cpu")
+    with torch.no_grad():
+        own = model(torch.as_tensor(x))
+    for k, r in ref.items():       # measured: max 5.0%, mean 0.02%
+        d = np.abs(own[k].numpy() - r)
+        assert d.max() <= 1e-1 * np.abs(r).max(), (k, d.max())
+        assert d.mean() <= 5e-3 * np.abs(r).max(), (k, d.mean())
+
+    def injected(images):
+        assert images.shape == (2 * n, 96, 320, 1)
+        return {k: torch.as_tensor(v) for k, v in ref.items()}
+
+    jw, jd = jsh.build_online_hybrid(lambda p, _: p, jcfg)(
+        {k: jnp.asarray(v) for k, v in ref.items()}, jnp.asarray(imgs),
+        jnp.asarray(P_l), jnp.asarray(P_r), jax.random.PRNGKey(SEED))
+    hybrid = tsh.build_online_hybrid(tcfg, model=injected, device="cpu")
+    assert hybrid.branch == tsh.LANDMARK
+    tw, td = hybrid(torch.as_tensor(imgs), torch.as_tensor(P_l),
+                    torch.as_tensor(P_r),
+                    gumbel=torch.as_tensor(_pair_gumbel(SEED, n)))
+    _assert_hybrid_matches(np.asarray(jw),
+                           {k: np.asarray(v) for k, v in jd.items()},
+                           tw.numpy(), {k: v.numpy() for k, v in td.items()},
+                           gt)
 
 
 @pytest.mark.parametrize("branch,branch_cfg", [

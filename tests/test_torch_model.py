@@ -108,7 +108,8 @@ def test_seeded_sp_resnet18_with_batchnorm_matches_jax(rng):
                                        ).astype(np.float32)
     apply_fn = jonnx.make_apply(builder.build(), jnp.float32)
     model = tgraph.GraphModule(builder.build(), builder.shapes)
-    model.load_state_dict(tzoo.params_from_jax(params))
+    model.load_state_dict(tzoo.params_from_jax(
+        params, tgraph.conv_weight_names(builder.build())))
     x = rng.random((2, 64, 128, 1)).astype(np.float32)
     ref = apply_fn({k: jnp.asarray(v) for k, v in params.items()},
                    jnp.asarray(x))
@@ -124,7 +125,8 @@ def test_params_from_jax_layout_and_names():
     data = np.load(tzoo.os.path.join(tzoo.weights_dir(),
                                      "superpoint_pretrained.npz"))
     jax_params = {k: data[k] for k in data.files}
-    sd = tzoo.params_from_jax(jax_params)
+    sd = tzoo.params_from_jax(jax_params, tgraph.conv_weight_names(
+        tzoo.build_superpoint_vgg().build()))
     assert set(sd) == set(jax_params)
     w = jax_params["conv1b.weight"]                  # HWIO
     assert tuple(sd["conv1b.weight"].shape) == (w.shape[3], w.shape[2],
@@ -144,7 +146,8 @@ def test_graph_fuses_l2_normalize_and_clamps_bn_variance(rng):
     np_params = g.init_params(torch.Generator().manual_seed(3))
     np_params["stem.bn.running_var"][:] = -1.0
     model = tgraph.GraphModule(g.build(), g.shapes)
-    model.load_state_dict(tzoo.params_from_jax(np_params))
+    model.load_state_dict(tzoo.params_from_jax(
+        np_params, tgraph.conv_weight_names(g.build())))
     with torch.no_grad():
         out = model(torch.as_tensor(rng.random((1, 32, 32, 1),
                                                dtype=np.float32)))

@@ -99,7 +99,8 @@ def test_sweep_enumerations_equal_field_for_field(name, rows):
 
 def test_default_config_builds_a_pipeline():
     """`VOConfig()`'s solver defaults (adaptive RANSAC, while-loop LM) are
-    supported; what is still missing names itself."""
+    supported, and so is int8; what is still missing names itself, and
+    `VOConfig()`'s own family, `sp_mbv1`, names its absent ONNX file."""
     from spsvo_tpu_torch.pipeline import VisualOdometry, check_supported
     cfg = tconfig.VOConfig(model_name_prefix="superpoint_pretrained",
                            image_height=48, image_width=160,
@@ -111,12 +112,13 @@ def test_default_config_builds_a_pipeline():
     T, _ = vo.process(img, img, P, P)
     np.testing.assert_array_equal(T, np.eye(4))
     check_supported(dataclasses.replace(cfg, subpixel_refine="quad"))
+    check_supported(dataclasses.replace(cfg,
+                                        precision=tconfig.Precision.INT8))
     for change, word in ((dict(is_classic=True), "classic"),
-                         (dict(precision=tconfig.Precision.INT8), "int8"),
                          (dict(landmark_refine=True), "landmark_refine")):
         with pytest.raises(NotImplementedError, match=word):
             check_supported(dataclasses.replace(cfg, **change))
-    with pytest.raises(NotImplementedError, match="ONNX"):
+    with pytest.raises(FileNotFoundError, match="sp_mbv1_b1.onnx"):
         VisualOdometry(tconfig.VOConfig(), device="cpu")     # sp_mbv1
 
 
