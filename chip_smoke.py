@@ -76,7 +76,22 @@ limit, then the result line:
      d. `VisualOdometry.process` with `precision=INT8` (dynamic scales) on
      8 frames; e. whether the bundled ONNX families' files are present
      (`zoo.reference_models_dir()`), and if `sp_mbv1`'s is, 9c's hybrid on
-     it.
+     it;
+ 10. training and distillation (training.py, distill.py, io/homography.py:
+     PyTorch ops and cuDNN in fp32, no kernel of their own): a.
+     `distill.distill` with the recipe of tools/distill_families.py
+     (sp_resnet18 from He initialisation, teacher superpoint_pretrained,
+     the three DEFAULT_RESOLUTIONS cycled, lr 1e-3 cosine, clean_prob 0.25,
+     select_best) on the corridor's 32 frames, 4 held out, 60 steps: loss
+     below half, parameters finite, BN statistics bit-unchanged, conv
+     weights moved, ms per step per resolution, peak memory, keypoint
+     agreement before and after; b. the homographic fine-tune of
+     tools/finetune_homography.py (superpoint_pretrained at 120x392, batch
+     8, lr 1e-4, its own detections as pseudo-labels), 30 `train_step`s:
+     loss down, ms per step, peak memory; c. one `train_step` and one
+     distillation step at 120x392, batch 2, on the card and on the CPU from
+     equal parameters and draws: loss, gradients, updated parameters;
+     d. neither kernel launched in phase 10.
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -1767,6 +1782,283 @@ def phase_int8(dev, corridor, bf16_timing):
     return by_path, m_err, s_err
 
 
+# ---- phase 10: training and distillation (no kernel of their own) ----
+
+DISTILL_STEPS = 60
+FINETUNE_STEPS = 30
+FINETUNE_LR = 1e-4
+CARD_CPU_LR = 1e-3
+CARD_CPU_LOSS_RTOL = 1e-5
+CARD_CPU_GRAD_TOL = 1e-2
+CARD_CPU_MOVED_BEYOND = 1e-3
+
+
+def _training_frames(corridor):
+    """The corridor's left frames as (N, 375, 1242) float32 in [0, 1]."""
+    return np.stack([il for il, _ in corridor[0]]).astype(np.float32) / 255.0
+
+
+def _step_ms(history, resolutions):
+    """Milliseconds per step for each resolution from a `distill` history
+    with a row per step: differences of `elapsed_s`, leaving out each
+    resolution's first step and every validated step (its `elapsed_s`
+    includes the validation)."""
+    out = {}
+    for j, (h, w, b) in enumerate(resolutions):
+        ms = [1e3 * (history[i]["elapsed_s"] - history[i - 1]["elapsed_s"])
+              for i in range(len(resolutions) + j, len(history),
+                             len(resolutions))
+              if "precision" not in history[i]]
+        out[f"{h}x{w}_b{b}"] = float(np.median(ms)) if ms else None
+    return out
+
+
+def phase_distill(dev, corridor):
+    """10a: `distill.distill` as `tools/distill_families.py` runs it
+    (sp_resnet18 from He initialisation, the three DEFAULT_RESOLUTIONS
+    cycled, lr 1e-3 on the cosine schedule, clean_prob 0.25, peak_weight 4,
+    select_best), teacher superpoint_pretrained (fp32), the corridor's 32
+    frames with 4 held out, DISTILL_STEPS steps."""
+    import torch
+
+    from spsvo_tpu_torch import distill as td
+    from spsvo_tpu_torch import training as tt
+    from spsvo_tpu_torch.models import zoo
+    frames = _training_frames(corridor)
+    student = zoo.init_student("sp_resnet18", 0, device=dev)
+    init = {k: v.clone() for k, v in student.state_dict().items()}
+    teacher = zoo.load_model("superpoint_pretrained", device=dev)
+    t_fn, t_params = zoo.apply_fn(teacher), dict(teacher.state_dict())
+    s_fn = zoo.apply_fn(student)
+    before = td.keypoint_agreement(s_fn, init, t_fn, t_params, frames[-4:],
+                                   120, 392)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, hist = td.distill(
+        "sp_resnet18", teacher_prefix="superpoint_pretrained",
+        steps=DISTILL_STEPS, lr=1e-3, holdout=4, log_every=1, frames=frames,
+        resolutions=td.DEFAULT_RESOLUTIONS, use_synthetic=False,
+        clean_prob=0.25, peak_weight=4.0, select_best=True,
+        log=lambda *_: None, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = td.keypoint_agreement(s_fn, params, t_fn, t_params, frames[-4:],
+                                  120, 392)
+    finite = all(bool(torch.isfinite(v).all()) for v in params.values())
+    buffers_same = all(torch.equal(params[k], init[k]) for k in params
+                       if tt._is_buffer(k))
+    convs = [k for k in params
+             if k.endswith(".weight") and params[k].ndim == 4]
+    unmoved = [k for k in convs if torch.equal(params[k], init[k])]
+    first, last = hist[0]["loss"], hist[-1]["loss"]
+    say("phase10a", student="sp_resnet18", teacher="superpoint_pretrained",
+        steps=DISTILL_STEPS, resolutions=[list(r) for r in
+                                           td.DEFAULT_RESOLUTIONS],
+        loss_first=first, loss_last=last,
+        loss_by_step=[round(r["loss"], 4) for r in hist],
+        best_step=hist[-1].get("best_step"),
+        best_score=hist[-1].get("best_score"),
+        agreement_before=before, agreement_after=after,
+        ms_per_step=_step_ms(hist, td.DEFAULT_RESOLUTIONS),
+        wall_s=wall_s, peak_memory_gb=peak_gb, params_finite=finite,
+        bn_buffers_bit_unchanged=buffers_same, conv_weights=len(convs),
+        conv_weights_unmoved=unmoved)
+    if not last < 0.5 * first:
+        fail(f"phase10a: loss {first} -> {last}, not below half")
+    if not (finite and buffers_same and not unmoved):
+        fail(f"phase10a: finite {finite}, BN buffers unchanged "
+             f"{buffers_same}, unmoved conv weights {unmoved}")
+    if "best_step" not in hist[-1]:
+        fail("phase10a: select_best recorded no best_step")
+    return peak_gb
+
+
+def finetune_batch_source(dev, corridor):
+    """`tools/finetune_homography.py`'s data on the corridor: the frames at
+    120x392 (the last 4 held out) and pseudo-labels from
+    superpoint_pretrained's own detections (`extract_keypoints`, K=512,
+    confidence 0.015, NMS radius 4, border 4), all on `dev`."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops.image import preprocess_image_np
+    from spsvo_tpu_torch.ops.postprocess import extract_keypoints
+    pre = np.stack([preprocess_image_np(il, 120, 392)
+                    for il, _ in corridor[0]])
+    x = torch.as_tensor(pre[:-4], device=dev)[..., None]
+    labeller = zoo.load_model("superpoint_pretrained", device=dev)
+    with torch.no_grad():
+        out = labeller(x)
+        kp = extract_keypoints(out["output_det"], out["output_desc"], k=512,
+                               conf_thresh=0.015, nms_radius=4, border=4)
+    return x, kp.xy, kp.valid
+
+
+def phase_finetune(dev, corridor):
+    """10b: the homographic fine-tune of `tools/finetune_homography.py`:
+    superpoint_pretrained at 120x392, batch 8, lr 1e-4, FINETUNE_STEPS
+    `train_step`s on `make_homographic_batch` of its own pseudo-labels."""
+    import torch
+
+    from spsvo_tpu_torch import training as tt
+    from spsvo_tpu_torch.io.homography import make_homographic_batch
+    from spsvo_tpu_torch.models import zoo
+    x, xy, valid = finetune_batch_source(dev, corridor)
+    model = zoo.load_model("superpoint_pretrained", device=dev)
+    apply_fn = zoo.apply_fn(model)
+    state = tt.init_train_state(apply_fn, dict(model.state_dict()),
+                                lr=FINETUNE_LR)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(FINETUNE_STEPS):
+        t0 = time.perf_counter()
+        idx = torch.randint(0, x.shape[0], (8,), generator=gen, device=dev)
+        batch = make_homographic_batch(x[idx], xy[idx], valid[idx],
+                                       generator=gen)
+        state, metrics = tt.train_step(state, batch, apply_fn=apply_fn,
+                                       lr=FINETUNE_LR)
+        losses.append(float(metrics["loss"]))      # waits for the step
+        ms.append(1e3 * (time.perf_counter() - t0))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in state.params.values())
+    say("phase10b", model="superpoint_pretrained", steps=FINETUNE_STEPS,
+        batch=8, lr=FINETUNE_LR, loss_first=losses[0], loss_last=losses[-1],
+        loss_by_step=[round(v, 4) for v in losses],
+        median_ms_per_step=float(np.median(ms[1:])), first_step_ms=ms[0],
+        peak_memory_gb=peak_gb, params_finite=finite)
+    if not (losses[-1] < losses[0] and finite):
+        fail(f"phase10b: loss {losses[0]} -> {losses[-1]}, finite {finite}")
+    return peak_gb
+
+
+def _compare_step(tag, g_cpu, g_card, p_cpu, p_card, lr):
+    """Card against CPU after one step from equal parameters: gradients
+    within CARD_CPU_GRAD_TOL of each tensor's largest |g| (a max-pool
+    window tied to the last bits flips between cuDNN's and the CPU's
+    rounding and moves a whole contribution); parameters within 1e-6 where
+    |g| >= 1e-5 and the two gradients agree to |g| / 10, within 2 lr
+    elsewhere (Adam's first step is lr times the sign of g), at most
+    CARD_CPU_MOVED_BEYOND of the |g| >= 1e-5 elements outside the first
+    bound. Returns (worst gradient error, worst held parameter
+    difference)."""
+    g_err, p_err, n_big, n_out = 0.0, 0.0, 0, 0
+    for k, g in g_cpu.items():
+        gc = g_card[k].cpu()
+        scale = max(float(g.abs().max()), 1e-30)
+        g_err = max(g_err, float((gc - g).abs().max()) / scale)
+        d = (p_card[k].cpu() - p_cpu[k]).abs()
+        big = g.abs() >= 1e-5
+        held = big & ((gc - g).abs() < g.abs() / 10)
+        if float(d.max()) > 2 * lr * (1 + 1e-3):
+            fail(f"phase10c {tag}: {k} moved {float(d.max())} apart > 2 lr")
+        if held.any():
+            p_err = max(p_err, float(d[held].max()))
+        n_big += int(big.sum())
+        n_out += int((big & ~held & (d > 1e-6)).sum())
+    if g_err > CARD_CPU_GRAD_TOL or p_err > 1e-6 or \
+            n_out > CARD_CPU_MOVED_BEYOND * n_big:
+        fail(f"phase10c {tag}: gradient error {g_err}, parameter error "
+             f"{p_err}, {n_out} of {n_big} moved apart")
+    return g_err, p_err, n_out, n_big
+
+
+def phase_card_vs_cpu(dev, corridor):
+    """10c: one `train_step` (superpoint_pretrained, a homographic batch) and
+    one distillation step (sp_resnet18 from He initialisation, teacher
+    superpoint_pretrained, clean_prob 0.25) at 120x392, batch 2, on the
+    card and on the CPU from equal parameters and equal draws (made on the
+    CPU)."""
+    import torch
+
+    from spsvo_tpu_torch import distill as td
+    from spsvo_tpu_torch import training as tt
+    from spsvo_tpu_torch.io.homography import make_homographic_batch
+    from spsvo_tpu_torch.models import zoo
+    lr = CARD_CPU_LR
+    x, xy, valid = finetune_batch_source(dev, corridor)
+    batch = make_homographic_batch(
+        x[:2].cpu(), xy[:2].cpu(), valid[:2].cpu(),
+        generator=torch.Generator().manual_seed(1))
+    res = []
+    for d in ("cpu", dev):
+        model = zoo.load_model("superpoint_pretrained", device=d)
+        apply_fn = zoo.apply_fn(model)
+        b = {k: v.to(d) for k, v in batch.items()}
+        params = dict(model.state_dict())
+        (loss, _), grads = tt.value_and_grad(
+            lambda p: tt.total_loss(apply_fn, p, b), params)
+        state, _ = tt.train_step(tt.init_train_state(apply_fn, params, lr),
+                                 b, apply_fn=apply_fn, lr=lr)
+        res.append((float(loss), grads, state.params))
+    (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = res
+    train_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    if train_rel > CARD_CPU_LOSS_RTOL:
+        fail(f"phase10c train_step: loss {l_card} vs {l_cpu}")
+    train = _compare_step("train_step", g_cpu, g_card, p_cpu, p_card, lr)
+
+    frames = _training_frames(corridor)[:-4]
+    sched = tt.cosine_decay_schedule(lr, DISTILL_STEPS, alpha=0.05)
+    draws = td.draw_augment(len(frames), *frames.shape[1:], 2, 120, 392,
+                            torch.Generator().manual_seed(2), clean_prob=0.25)
+    res = []
+    for d in ("cpu", dev):
+        student = zoo.init_student("sp_resnet18", 0, device=d)
+        teacher = zoo.load_model("superpoint_pretrained", device=d)
+        s_fn, t_fn = zoo.apply_fn(student), zoo.apply_fn(teacher)
+        t_params = dict(teacher.state_dict())
+        fr = torch.as_tensor(frames, device=d)
+        dd = td.AugmentDraws(*[
+            type(v)(*[u.to(d) for u in v]) if isinstance(v, tuple)
+            else v.to(d) for v in draws])
+        p0 = {k: v.clone() for k, v in student.state_dict().items()}
+        images = td.augment_batch(fr, 2, 120, 392, draws=dd)
+        with torch.no_grad():
+            t_out = t_fn(t_params, images)
+        _, grads = tt.value_and_grad(
+            lambda p: td.distill_loss(s_fn, p, t_out["output_det"],
+                                      t_out["output_desc"], images), p0)
+        step = td.build_distill_step(s_fn, t_fn, t_params, fr, 2, 120, 392,
+                                     sched, clean_prob=0.25)
+        (params, _, _), aux = step((p0, tt.Adam(sched).init(p0),
+                                    {k: v.clone() for k, v in p0.items()}),
+                                   draws=dd)
+        res.append((float(aux["loss"]), grads, params))
+    (dl_cpu, dg_cpu, dp_cpu), (dl_card, dg_card, dp_card) = res
+    distill_rel = abs(dl_card - dl_cpu) / abs(dl_cpu)
+    if distill_rel > CARD_CPU_LOSS_RTOL:
+        fail(f"phase10c distill step: loss {dl_card} vs {dl_cpu}")
+    dist = _compare_step("distill", dg_cpu, dg_card, dp_cpu, dp_card, lr)
+    say("phase10c", check="one step card vs CPU, 120x392, batch 2",
+        train_step={"loss_rel_diff": train_rel, "grad_err": train[0],
+                    "param_err_held": train[1], "moved_apart": train[2],
+                    "elements_g_ge_1e-5": train[3]},
+        distill_step={"loss_rel_diff": distill_rel, "grad_err": dist[0],
+                      "param_err_held": dist[1], "moved_apart": dist[2],
+                      "elements_g_ge_1e-5": dist[3]},
+        loss_rtol=CARD_CPU_LOSS_RTOL, grad_tol=CARD_CPU_GRAD_TOL)
+
+
+def phase_training(dev, corridor):
+    """Phase 10; 10d: neither hand-written kernel launches on the way."""
+    from spsvo_tpu_torch import _build
+    before = (dict(_build.launches), dict(_build.captured))
+    t0 = time.perf_counter()
+    distill_gb = phase_distill(dev, corridor)
+    finetune_gb = phase_finetune(dev, corridor)
+    phase_card_vs_cpu(dev, corridor)
+    after = (dict(_build.launches), dict(_build.captured))
+    say("phase10d", launches_before=before[0], launches_after=after[0],
+        unchanged=before == after, phase10_s=time.perf_counter() - t0,
+        peak_memory_gb={"distill": distill_gb, "finetune": finetune_gb})
+    if before != after:
+        fail(f"phase10d: kernel launches changed {before} -> {after}")
+
+
 def main() -> None:
     try:
         import torch
@@ -1832,6 +2124,8 @@ def main() -> None:
     q_launches, q_m_err, q_s_err = phase_int8(dev, corridor, h_timing)
     m_err, s_err = max(m_err, q_m_err), max(s_err, q_s_err)
     say("phase9", result="pass", gpu=gpu)
+    phase_training(dev, corridor)
+    say("phase10", result="pass", gpu=gpu)
     if "jax" in sys.modules or "cv2" in sys.modules:
         fail("jax or cv2 was imported")
 

@@ -11,7 +11,11 @@ Layouts: the public contract is the JAX one, input (B, H, W, 1) in [0, 1]
 and outputs `output_det` (B, Hc, Wc, 65) / `output_desc` (B, Hc, Wc, 256),
 NHWC. Internally the trunk runs NCHW and permutes once at its outputs.
 Parameters are buffers named exactly as the JAX parameter dict
-("conv1a.weight", ...), with conv weights in OIHW. The interpreter computes
+("conv1a.weight", ...), with conv weights in OIHW. Training
+(`spsvo_tpu_torch/training.py`) runs this same forward through
+`torch.func.functional_call` with a dict of tensors that require grad in
+place of the buffers (`zoo.apply_fn`); BatchNorm then still uses the running
+statistics, as the JAX package does. The interpreter computes
 what the JAX package's NHWC interpreter computes: a 4-D activation is the
 NCHW view of its NHWC tensor, and the ops that take axes or broadcast a
 parameter (Add, Sub, Mul, Div, Concat, ReduceL2) run on the NHWC view with
@@ -261,7 +265,12 @@ class GraphModule(nn.Module):
                 y = _conv(xin, get(w_name), b, node, self.bf16,
                           param(f"{w_name}#scale"), a_scale, x_q=x_q)
             elif op == "Relu":
-                y = torch.relu(get(node.inputs[0]))
+                xin = get(node.inputs[0])
+                # with gradients on, max(x, 0) as the JAX package computes
+                # it: its gradient at exactly 0 is 1/2 (torch.maximum splits
+                # ties too); torch.relu's is 0
+                y = (torch.maximum(xin, xin.new_zeros(()))
+                     if xin.requires_grad else torch.relu(xin))
             elif op == "Clip":
                 y = torch.clamp(get(node.inputs[0]),
                                 node.attr("min", float("-inf")),

@@ -8,7 +8,9 @@ layout (OIHW), name for name. The families whose weights ship as ONNX files
 (`sp_mbv1`, `sp_mbv2`, `sp_squeeze`) are parsed from
 `<models dir>/<prefix>_b1.onnx` (`models/onnx_import.py`); the directory is
 `reference_models_dir()` unless the caller names one. `load_model(...,
-int8=True)` quantizes any family (`models/quantize.py`).
+int8=True)` quantizes any family (`models/quantize.py`). `init_student`
+gives a family fresh weights and `apply_fn` its forward over a parameter
+dict, for training (`spsvo_tpu_torch/training.py`, `distill.py`).
 """
 
 from __future__ import annotations
@@ -259,6 +261,30 @@ def model_from_params(graph: OnnxGraph, np_params: Dict[str, np.ndarray],
     return model_from_state(
         graph, params_from_jax(np_params, conv_weight_names(graph)), bf16,
         device)
+
+
+def init_student(prefix: str, seed: int = 0, device="cuda") -> GraphModule:
+    """A hand-defined family with fresh weights (He-normal convs, standard
+    BN; `GraphBuilder.init_params` from a `torch.Generator` seeded with
+    `seed`), whatever its weights file holds: a student to train from
+    scratch, as `spsvo_tpu.distill` builds one."""
+    if prefix not in _BUILDERS:
+        raise KeyError(f"no hand-defined architecture for {prefix!r}; "
+                       f"known: {tuple(_BUILDERS)}")
+    builder = _BUILDERS[prefix]()
+    return model_from_params(builder.build(), builder.init_params(
+        torch.Generator().manual_seed(seed)), device=device)
+
+
+def apply_fn(model: GraphModule) -> Callable:
+    """`apply(params, x) -> {output: tensor}`, the JAX package's
+    `apply_fn(params, x)`: `model`'s forward with `params` (name -> tensor
+    in the port's layout, e.g. copies of `model.state_dict()`) in place of
+    its buffers. Gradients reach every tensor of `params` that requires
+    one."""
+    def apply(params: Dict[str, torch.Tensor], x: torch.Tensor):
+        return torch.func.functional_call(model, params, (x,))
+    return apply
 
 
 def load_model(prefix: str, dtype: torch.dtype = torch.float32,

@@ -8,11 +8,13 @@ import numpy as np
 import pytest
 import torch
 
-from spsvo_tpu_torch import config, frontend_classic, pipeline, run
+from spsvo_tpu_torch import (config, distill, frontend_classic, pipeline,
+                             run, training)
 from spsvo_tpu_torch.eval import harness, synthetic
 from spsvo_tpu_torch.models import onnx_import, zoo
 from spsvo_tpu_torch.parallel import sharding
 from spsvo_tpu_torch.presets import flagship_tpu
+from spsvo_tpu_torch.utils import checkpoint
 
 
 @pytest.mark.parametrize("fn", [pipeline.VisualOdometry.__init__,
@@ -28,7 +30,11 @@ from spsvo_tpu_torch.presets import flagship_tpu
                                 sharding.build_orb_hybrid,
                                 sharding.build_feature_hybrid,
                                 zoo.model_from_params, zoo.model_from_state,
-                                onnx_import.load_onnx_model],
+                                onnx_import.load_onnx_model,
+                                zoo.init_student, distill.distill,
+                                training.synthetic_batch,
+                                checkpoint.restore_train_state,
+                                checkpoint.train_state_from_jax],
                          ids=["VisualOdometry", "init_state", "load_model",
                               "prepared_from_frame", "build_online_hybrid",
                               "build_batch_vo", "build_sequence_scan",
@@ -36,7 +42,10 @@ from spsvo_tpu_torch.presets import flagship_tpu
                               "run_sweep", "ClassicVisualOdometry",
                               "init_state_with_dim", "build_orb_hybrid",
                               "build_feature_hybrid", "model_from_params",
-                              "model_from_state", "load_onnx_model"])
+                              "model_from_state", "load_onnx_model",
+                              "init_student", "distill", "synthetic_batch",
+                              "restore_train_state",
+                              "train_state_from_jax"])
 def test_entry_point_defaults_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
 
@@ -77,6 +86,34 @@ def test_default_device_raises_without_cuda():
     with pytest.raises((RuntimeError, AssertionError)):
         harness.run_sequence_fused(classic, frames, np.eye(3, 4),
                                    np.eye(3, 4), mode="orb")
+
+
+def test_training_entry_points_raise_without_cuda(tmp_path):
+    """The training paths: a student, a distillation run, a synthetic batch
+    and a train state read back or carried across all default to the card
+    and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default works")
+    with pytest.raises((RuntimeError, AssertionError)):
+        zoo.init_student("sp_resnet18")
+    frames = np.zeros((3, 40, 100), np.float32)
+    with pytest.raises((RuntimeError, AssertionError)):
+        distill.distill("sp_resnet18", teacher_prefix="superpoint_pretrained",
+                        frames=frames, steps=1, batch=1, h=32, w=96,
+                        holdout=1, use_synthetic=False)
+    with pytest.raises((RuntimeError, AssertionError)):
+        training.synthetic_batch(1, 16, 16,
+                                 generator=torch.Generator().manual_seed(0))
+    model = zoo.init_student("sp_resnet18", device="cpu")
+    state = training.init_train_state(zoo.apply_fn(model),
+                                      dict(model.state_dict()))
+    path = checkpoint.save_train_state(str(tmp_path / "s.pt"), state)
+    with pytest.raises((RuntimeError, AssertionError)):
+        checkpoint.restore_train_state(path)
+    np_params = {"a.weight": np.zeros((3, 3, 1, 2), np.float32)}
+    with pytest.raises((RuntimeError, AssertionError)):
+        checkpoint.train_state_from_jax(np_params, np_params, np_params, 0, 0,
+                                        ["a.weight"])
 
 
 def test_cli_defaults_to_cuda(tmp_path, monkeypatch):
