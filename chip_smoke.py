@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (`spsvo_tpu_torch`) on one GPU.
+"""Smoke test of the PyTorch/CUDA port (`spsvo_tpu_torch`) on one GPU (or
+more: phase 11 shards over every card it finds, up to four).
 
     python3 chip_smoke.py
 
@@ -91,7 +92,35 @@ limit, then the result line:
      loss down, ms per step, peak memory; c. one `train_step` and one
      distillation step at 120x392, batch 2, on the card and on the CPU from
      equal parameters and draws: loss, gradients, updated parameters;
-     d. neither kernel launched in phase 10.
+     d. neither kernel launched in phase 10;
+ 11. frame sharding over a device mesh (parallel/mesh.py, one process per
+     GPU on torch.distributed) on phase 5's corridor at the flagship's
+     width: a. no process group left by the earlier phases; the hybrid on
+     a mesh of one over an NCCL group of one in this process against the
+     run without a mesh bit for bit, its CUDA graph against its eager run,
+     and its launches; the front end in the ranks' batches against the
+     whole batch, by keypoint agreement, with cuDNN (it picks algorithms by
+     batch) and without it (the witness: about 1.0); b-f in ranks started
+     by `mesh.spawn`: NCCL over min(4, cards) cards where there are two or
+     more, else two gloo ranks sharing this card (a correctness run, not a
+     scaling one). b. the feature-input hybrid with landmark fusion on and
+     off fed the unsharded front end's keypoints, equal to the unsharded
+     run bit for bit; the CNN hybrid end to end: its keypoints and result
+     bit for bit those of the unsharded program fed the front end run here
+     in the ranks' batches, its keypoint agreement with the whole batch,
+     phase 6's drift, keypoint and inlier bounds, kernel 1 against its
+     plain version at the rank's B, every scan step against the plain
+     body, graphs (one per stretch between collectives) against eager;
+     c. the batch mode (bit for bit as the CNN hybrid, 7d's bounds, one
+     launch of each kernel per rank, kernel 2 at the rank's F against its
+     plain version); d. the ORB hybrid of 8b, bit for bit (its drift
+     bound, scan steps, graphs); e. `build_sharded_train_step`
+     (sp_resnet18, batch 8 at 120x392) against one `train_step` on the
+     whole batch: loss rtol 1e-5, averaged gradients, parameters by
+     tests/test_torch_training.py's rule at 1e-4 (see SHARDED_TRAIN's
+     note), BN statistics bit-unchanged; f. ms per sequence, per step, and
+     peak memory per rank.
+     (`python3 chip_smoke.py --phase11-only` runs phases 1, 2 and 11.)
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -108,8 +137,9 @@ the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
 "hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
 "stream", phase 8's "orb_hybrid_*", "classic_process",
-"classic_stream", "harness_orb", "feature_hybrid", and phase 9's
-"int8_hybrid", "int8_per_frame"), each counted from zero
+"classic_stream", "harness_orb", "feature_hybrid", phase 9's
+"int8_hybrid", "int8_per_frame", and phase 11's "sharded_*" per rank
+"_rN"), each counted from zero
 over that path's run; "launches" is their sum. Every path must launch both
 kernels, but for the classic ones, which must launch kernel 1 never: binary
 descriptors are matched by a Hamming matrix product outside it, as in the
@@ -123,6 +153,7 @@ CUDA device; imports neither jax nor the JAX package.
 
 import csv
 import dataclasses
+import datetime
 import json
 import os
 import subprocess
@@ -2059,6 +2090,588 @@ def phase_training(dev, corridor):
         fail(f"phase10d: kernel launches changed {before} -> {after}")
 
 
+# ---- phase 11: frame sharding over a device mesh ----
+
+# 11e: the sharded train step against one train_step on the whole batch.
+# Loss within 1e-5 relative and the averaged gradients within 1e-4 of each
+# tensor's largest (two half-batch cuDNN passes and a sum against one pass:
+# another order of float sums). Parameters by tests/test_torch_training.py's
+# rule at the JAX package's 1e-4 (tests/test_parallel.py): within 1e-4
+# where the gradient's sign is settled (|g| >= 1e-5 and the two gradients
+# agree to |g| / 10), and of the |g| >= 1e-5 elements at most
+# SHARDED_MOVED_BEYOND beyond 1e-4. Adam's first step is lr times sign(g):
+# where g is rounding noise around 0 the two orders of summation pick
+# either sign. Readings on one card, world 2: 1,581-1,724 elements beyond
+# 1e-4 of all ~1.3 million, every one with |g| < 1e-5 (0 of the 1,319,894
+# with |g| >= 1e-5). 2 lr on every element is a sanity bound only (a
+# first Adam step cannot exceed it).
+# The CNN front end on a rank's 2N/w images against the unsharded 2N: cuDNN
+# picks its convolution algorithms by batch, and the bf16 trunk rounds
+# every conv input to bf16, so a last-bit difference can flip a rounding
+# and move keypoints. The CNN paths are held bit for bit to the unsharded
+# program fed the front end run on this card in the ranks' batches
+# (`sharded_references`), and by keypoint agreement with the 2N batch at
+# SHARDED_KP_AGREEMENT (readings 0.9996 at 32 images per rank, 0.818-0.867
+# at 16). The witness that the difference is cuDNN's choice: with cuDNN
+# off (PyTorch's own convolution, one GEMM per image) the ranks' batches
+# agree with the 2N batch to at least NO_CUDNN_KP_AGREEMENT.
+SHARDED_TRAIN = dict(prefix="sp_resnet18", batch=8, h=120, w=392, lr=1e-3)
+SHARDED_MOVED_BEYOND = 1e-4
+SHARDED_KP_AGREEMENT = 0.75
+NO_CUDNN_KP_AGREEMENT = 0.999
+
+
+def _bitwise(got, ref) -> bool:
+    """(world, diag) equal to `ref` (on the CPU) bit for bit."""
+    import torch
+    w, d = got
+    rw, rd = ref
+    return (torch.equal(w.cpu(), rw) and set(d) == set(rd)
+            and all(torch.equal(d[k].cpu(), v) for k, v in rd.items()))
+
+
+def _kp_agreement(kp_l, kp_r, ref_kp, a: int) -> float:
+    """The share of the reference's valid keypoints (frames a.., left and
+    right) found at the same place."""
+    import torch
+    same = total = 0
+    for side, kp in enumerate((kp_l, kp_r)):
+        ref_xy = ref_kp[0][a:a + kp.xy.shape[0], side].to(kp.xy.device)
+        ref_valid = ref_kp[2][a:a + kp.xy.shape[0], side].to(kp.xy.device)
+        hit = (kp.xy == ref_xy).all(-1) & kp.valid & ref_valid
+        same += int(hit.sum())
+        total += int(ref_valid.sum())
+    return same / max(1, total)
+
+
+def sharded_references(dev, corridor, world: int) -> dict:
+    """The unsharded runs phase 11 holds the sharded ones to, on this card,
+    as CPU tensors: the corridor preprocessed as phase 6 does it, its noise
+    (seed 0), the CNN hybrid's eager result and keypoints, the feature
+    hybrid's on those keypoints with landmark fusion on and off, the batch
+    mode's, and the ORB hybrid's (8b's configuration); and the keypoints of
+    the front end run in the batches of a world-`world` mesh's ranks with
+    the unsharded feature hybrid's and batch mode's results on them."""
+    import torch
+
+    from spsvo_tpu_torch.ops import image as image_ops
+    from spsvo_tpu_torch.parallel import sharding
+    from spsvo_tpu_torch.parallel.mesh import shard_bounds
+    from spsvo_tpu_torch.parallel.sharding import (build_batch_vo,
+                                                   build_online_hybrid,
+                                                   build_orb_hybrid)
+    frames, gt, P_l_np, P_r_np, _ = corridor
+    n = len(frames)
+    cfg = flagship_cfg()
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    h0, w0 = raw.shape[-2:]
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    P_l, P_r = (image_ops.update_projection_matrix(
+        torch.as_tensor(P, dtype=torch.float32, device=dev), h0, w0,
+        cfg.image_height, cfg.image_width) for P in (P_l_np, P_r_np))
+    hybrid = build_online_hybrid(cfg, device=dev)
+    gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+
+    def cpu(out):
+        return out[0].cpu(), {k: v.cpu() for k, v in out[1].items()}
+
+    refs = {"imgs": imgs.cpu(), "P_l": P_l.cpu(), "P_r": P_r.cpu(),
+            "gumbel": gumbel.cpu(), "raw": raw.cpu(),
+            "gt": torch.as_tensor(np.stack(gt)),
+            "cnn": cpu(hybrid.eager(imgs, P_l, P_r, gumbel))}
+    with torch.no_grad():
+        kp_l, kp_r = hybrid.frontend(imgs)
+    kp = [torch.stack([a, b], 1) for a, b in zip(kp_l, kp_r)]
+    refs["kp"] = [t.cpu() for t in kp]
+    for lm in (True, False):
+        fh = build_online_hybrid(dataclasses.replace(cfg, landmark_fusion=lm),
+                                 device=dev, feature_input=True)
+        refs[f"feature_lm{int(lm)}"] = cpu(fh.eager(kp, P_l, P_r, gumbel))
+    bcfg = dataclasses.replace(cfg, landmark_fusion=False)
+    batch = build_batch_vo(bcfg, model=hybrid.model, device=dev)
+    refs["batch"] = cpu(batch(imgs, P_l, P_r, gumbel=gumbel))
+
+    # the front end in the batches of world-w ranks against the whole
+    # batch, with cuDNN and without it (the witness)
+    agreement = {}
+    for w in sorted({world, 4}):
+        for tag, on in (("cudnn", True), ("no_cudnn", False)):
+            torch.backends.cudnn.enabled = on
+            try:
+                with torch.no_grad():
+                    whole = hybrid.frontend(imgs)
+                    parts = [hybrid.frontend(imgs[a:b])
+                             for a, b in shard_bounds(n, w)]
+            finally:
+                torch.backends.cudnn.enabled = True
+            p_l, p_r = (type(kp_l)(*(torch.cat(f) for f in zip(*side)))
+                        for side in zip(*parts))
+            w_kp = [torch.stack([a, b], 1) for a, b in zip(*whole)]
+            agreement[f"w{w}_{tag}"] = _kp_agreement(p_l, p_r, w_kp, 0)
+    refs["kp_agreement"] = agreement
+
+    # the front end in the ranks' batches, and the unsharded programs on it
+    with torch.no_grad():
+        parts = [hybrid.frontend(imgs[a:b]) for a, b in shard_bounds(n, world)]
+        s_l, s_r = (type(kp_l)(*(torch.cat(f) for f in zip(*side)))
+                    for side in zip(*parts))
+        refs["kp_shard"] = [torch.stack([a, b], 1).cpu()
+                            for a, b in zip(s_l, s_r)]
+        refs["cnn_shard"] = cpu(build_online_hybrid(
+            cfg, device=dev, feature_input=True).eager(
+                [torch.stack([a, b], 1) for a, b in zip(s_l, s_r)], P_l, P_r,
+                gumbel))
+        stereo, inter = sharding.match_pairs(s_l, s_r, bcfg)
+        chains, counts = sharding.pair_chains(s_l, s_r, stereo, inter, bcfg)
+        solved, diag = sharding._pair_solve(chains, P_l, P_r, bcfg, gumbel)
+        q_out, t_out, gated = sharding._gate_scan(*solved, bcfg)
+        refs["batch_shard"] = cpu((sharding.chain_poses(q_out, t_out),
+                                   dict(diag, **counts, gated=gated)))
+    orb = build_orb_hybrid(classic_cfg(), device=dev)
+    orb_imgs = raw.float() / 255.0
+    P_l0, P_r0 = (torch.as_tensor(P, dtype=torch.float32, device=dev)
+                  for P in (P_l_np, P_r_np))
+    orb_gumbel = orb.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    refs["orb"] = cpu(orb.eager(orb_imgs, P_l0, P_r0, orb_gumbel))
+    with torch.no_grad():
+        o_l, o_r = orb.frontend(orb_imgs)
+    refs["orb_kp"] = [torch.stack([a, b], 1).cpu() for a, b in zip(o_l, o_r)]
+    refs.update(orb_gumbel=orb_gumbel.cpu(), P_l0=P_l0.cpu(),
+                P_r0=P_r0.cpu())
+    torch.cuda.synchronize()
+    return refs
+
+
+def _counted(fn):
+    """(fn(), the launches and shapes it counted from zero)."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, dict(_build.launches), {k: list(v)
+                                        for k, v in _build.shapes.items()}
+
+
+def _timed_ms(fn, reps: int) -> float:
+    import torch
+    ms = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(ms))
+
+
+def _graph_vs_eager(hybrid, inputs, P_l, P_r, gumbel, eager_out):
+    """The hybrid's CUDA graphs against its eager result: (bitwise, the
+    launches one replay counts, replay ms)."""
+    hybrid(inputs, P_l, P_r, gumbel=gumbel)             # builds the graphs
+    got, launches, _ = _counted(
+        lambda: hybrid(inputs, P_l, P_r, gumbel=gumbel))
+    same = _bitwise(got, (eager_out[0].cpu(),
+                          {k: v.cpu() for k, v in eager_out[1].items()}))
+    return same, launches, _timed_ms(
+        lambda: hybrid(inputs, P_l, P_r, gumbel=gumbel), 5)
+
+
+def sharded_rank(mesh, ref_path):
+    """Phases 11b-f on one rank (`mesh.spawn`): every sharded path on this
+    rank's frames, checked here against the references and the kernels'
+    plain versions; returns what the parent reports and holds."""
+    import torch
+
+    from spsvo_tpu_torch import training as tt
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops import solver, solver_cuda
+    from spsvo_tpu_torch.ops.postprocess import Keypoints
+    from spsvo_tpu_torch.parallel.sharding import (
+        build_batch_vo, build_online_hybrid, build_orb_hybrid, match_batch,
+        match_pairs, pair_chains)
+    refs = torch.load(ref_path)
+    dev, r = mesh.device, mesh.rank
+    tag = f"phase11 rank {r}"
+    torch.cuda.reset_peak_memory_stats(dev)
+    imgs, P_l, P_r, gumbel = (refs[k].to(dev)
+                              for k in ("imgs", "P_l", "P_r", "gumbel"))
+    n = imgs.shape[0]
+    cfg = flagship_cfg()
+    gt = list(refs["gt"].numpy())
+    out = {"rank": r, "size": mesh.size, "backend": mesh.backend,
+           "device": str(dev), "tf32": [torch.backends.cuda.matmul.allow_tf32,
+                                        torch.backends.cudnn.allow_tf32],
+           "launches": {}, "shapes": {}}
+
+    # b: the feature hybrid from the unsharded keypoints, both branches
+    kp = Keypoints(*(t.to(dev) for t in refs["kp"]))
+    for lm in (1, 0):
+        fh = build_online_hybrid(
+            dataclasses.replace(cfg, landmark_fusion=bool(lm)), device=dev,
+            feature_input=True, mesh=mesh)
+        fh.eager(kp, P_l, P_r, gumbel)                     # warm-up
+        got, launches, shapes = _counted(lambda: fh.eager(kp, P_l, P_r,
+                                                          gumbel))
+        path = f"sharded_feature_lm{lm}_r{r}"
+        out["launches"][path], out["shapes"][path] = launches, shapes
+        same_g, rep, rep_ms = _graph_vs_eager(fh, kp, P_l, P_r, gumbel, got)
+        out[f"feature_lm{lm}"] = {
+            "bitwise_vs_unsharded": _bitwise(got, refs[f"feature_lm{lm}"]),
+            "graph_equals_eager_bitwise": same_g, "replay_launches": rep,
+            "replay_ms": rep_ms}
+
+    # b: the CNN hybrid end to end
+    hybrid = build_online_hybrid(cfg, device=dev, mesh=mesh)
+    shard = hybrid.shard(n)
+    hybrid.eager(imgs, P_l, P_r, gumbel)                   # warm-up
+    eager_ms = _timed_ms(lambda: hybrid.eager(imgs, P_l, P_r, gumbel), 3)
+    (world, diag), launches, shapes = _counted(
+        lambda: hybrid.eager(imgs, P_l, P_r, gumbel))
+    out["launches"][f"sharded_hybrid_r{r}"] = launches
+    out["shapes"][f"sharded_hybrid_r{r}"] = shapes
+    state = hybrid.run(imgs, P_l, P_r, gumbel)
+    ext = shard.extend(*state["frontend"], state["halo_kp"])
+    q, vq, t, vt = match_batch(*ext, cfg, n_stereo=shard.frames)
+    m_err, m_bad, m_matches = check_matcher(tag, q, vq, t, vt,
+                                            say_phase=False)
+    xs, _ = hybrid.gathered(state)
+    worst, _ = check_scan_steps(f"phase11b rank {r}", hybrid, xs, P_l, P_r,
+                                n)
+    same_g, rep, rep_ms = _graph_vs_eager(hybrid, imgs, P_l, P_r, gumbel,
+                                          (world, diag))
+    step_ms: dict = {}
+    for _ in range(5):
+        hybrid(imgs, P_l, P_r, gumbel=gumbel, step_ms=step_ms)
+    step_ms = {k: v / 5 for k, v in step_ms.items()}
+    score = score_trajectory([T.astype(np.float64)
+                              for T in world.cpu().numpy()], gt)
+    out["cnn"] = {
+        "frames": shard.frames, "pairs": shard.pairs,
+        "kernel1_B": q.shape[0], "kernel1_matches": m_matches,
+        "kernel1_idx_mismatch_near_ties": m_bad, "kernel1_max_abs_err": m_err,
+        "scan_max_err_q": worst["q"], "scan_max_err_t": worst["t"],
+        "scan_max_inlier_lanes": worst["lanes"],
+        "keypoint_agreement": _kp_agreement(*state["frontend"], refs["kp"],
+                                            shard.a),
+        "keypoints_equal_same_batch": all(
+            torch.equal(torch.stack([a, b], 1).cpu(), ref[shard.a:shard.b])
+            for a, b, ref in zip(*state["frontend"], refs["kp_shard"])),
+        "bitwise_vs_same_batch": _bitwise((world, diag), refs["cnn_shard"]),
+        "bitwise_vs_unsharded": _bitwise((world, diag), refs["cnn"]),
+        "max_abs_diff_vs_unsharded": (world.cpu() - refs["cnn"][0]).abs()
+        .max().item(),
+        "graph_equals_eager_bitwise": same_g, "replay_launches": rep,
+        "eager_ms": eager_ms, "replay_ms": rep_ms,
+        "replay_step_ms": step_ms,
+        "drift_percent": score["final_drift_percent"],
+        "median_keypoints": float(diag["num_keypoints_left"].float()
+                                  .median()),
+        "median_inliers": float(diag["num_inliers"].float().median()),
+        "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    # c: the batch mode, and kernel 2 at this rank's F against its plain
+    # version on this rank's tiles
+    bcfg = dataclasses.replace(cfg, landmark_fusion=False)
+    batch = build_batch_vo(bcfg, model=hybrid.model, device=dev, mesh=mesh)
+    batch(imgs, P_l, P_r, gumbel=gumbel)                   # warm-up
+    (bw, bd), launches, shapes = _counted(
+        lambda: batch(imgs, P_l, P_r, gumbel=gumbel))
+    out["launches"][f"sharded_batch_r{r}"] = launches
+    out["shapes"][f"sharded_batch_r{r}"] = shapes
+    with torch.no_grad():
+        kl, kr = shard.extend(*state["frontend"], state["halo_kp"])
+        stereo, inter = match_pairs(kl, kr, bcfg, n_stereo=shard.frames)
+        stereo = shard.extend_stereo(stereo, state["halo_st"])
+        chains, _ = pair_chains(kl, kr, stereo, inter, bcfg)
+        preps = solver.prepare_solve(chains, P_l, P_r, bcfg)
+        g = gumbel[shard.a:shard.a + shard.pairs]
+        hyp = solver_cuda.precompute_hypotheses(preps, bcfg, gumbel=g)
+        pts = solver_cuda.pack_points(preps)
+        scal = solver_cuda.pack_scalars(
+            torch.eye(4, device=dev)[3], torch.zeros(3, device=dev),
+            torch.zeros((), device=dev), P_l, P_r,
+            (shard.pairs,)).contiguous()
+        p = solver_cuda.solve_params(bcfg)
+        o_k, i_k = solver_cuda.fused_solve_packed(pts, hyp, scal, p)
+        o_p, i_p = solver_cuda.fused_solve_plain(pts, hyp, scal, p)
+    torch.cuda.synchronize()
+    b_score = score_trajectory([T.astype(np.float64)
+                                for T in bw.cpu().numpy()], gt)
+    out["batch"] = {
+        "bitwise_vs_same_batch": _bitwise((bw, bd), refs["batch_shard"]),
+        "bitwise_vs_unsharded": _bitwise((bw, bd), refs["batch"]),
+        "max_abs_diff_vs_unsharded": (bw.cpu() - refs["batch"][0]).abs()
+        .max().item(),
+        "ms": _timed_ms(lambda: batch(imgs, P_l, P_r, gumbel=gumbel), 3),
+        "drift_percent": b_score["final_drift_percent"],
+        "median_pair_err_m": float(np.median(pair_errors_m(
+            [T.astype(np.float64) for T in bw.cpu().numpy()], gt))),
+        "kernel2_F": shard.pairs,
+        "kernel2_err_q": (o_k[:, 0:4] - o_p[:, 0:4]).abs().max().item(),
+        "kernel2_err_t": (o_k[:, 4:7] - o_p[:, 4:7]).abs().max().item(),
+        "kernel2_inlier_lanes": int(((i_k > 0) != (i_p > 0)).sum(-1).max()),
+        "kernel2_flags_equal": bool((o_k[:, 15:17] == o_p[:, 15:17]).all())}
+
+    # d: the ORB hybrid (8b's configuration) over the raw frames
+    orb = build_orb_hybrid(classic_cfg(), device=dev, mesh=mesh)
+    o_imgs = refs["raw"].to(dev).float() / 255.0
+    P_l0, P_r0, og = (refs[k].to(dev) for k in ("P_l0", "P_r0", "orb_gumbel"))
+    orb.eager(o_imgs, P_l0, P_r0, og)                       # warm-up
+    (ow, od), launches, shapes = _counted(
+        lambda: orb.eager(o_imgs, P_l0, P_r0, og))
+    out["launches"][f"sharded_orb_r{r}"] = launches
+    out["shapes"][f"sharded_orb_r{r}"] = shapes
+    o_state = orb.run(o_imgs, P_l0, P_r0, og)
+    o_worst, _ = check_scan_steps(f"phase11d rank {r}", orb,
+                                  orb.gathered(o_state)[0], P_l0, P_r0, n)
+    same_g, rep, rep_ms = _graph_vs_eager(orb, o_imgs, P_l0, P_r0, og,
+                                          (ow, od))
+    o_score = score_trajectory([T.astype(np.float64)
+                                for T in ow.cpu().numpy()], gt)
+    out["orb"] = {
+        "keypoint_agreement": _kp_agreement(*o_state["frontend"],
+                                            refs["orb_kp"], shard.a),
+        "bitwise_vs_unsharded": _bitwise((ow, od), refs["orb"]),
+        "max_abs_diff_vs_unsharded": (ow.cpu() - refs["orb"][0]).abs()
+        .max().item(),
+        "scan_max_err_q": o_worst["q"], "scan_max_err_t": o_worst["t"],
+        "graph_equals_eager_bitwise": same_g, "replay_launches": rep,
+        "replay_ms": rep_ms, "drift_percent": o_score["final_drift_percent"]}
+
+    # e: the data-parallel train step against one train_step on the batch
+    st = SHARDED_TRAIN
+    batch_t = tt.synthetic_batch(st["batch"], st["h"], st["w"], device=dev,
+                                 generator=torch.Generator().manual_seed(0))
+    model = zoo.load_model(st["prefix"], device=dev)
+    apply_fn = zoo.apply_fn(model)
+    p0 = {k: v.clone() for k, v in model.state_dict().items()}
+    want, m_want = tt.train_step(tt.init_train_state(apply_fn, p0, st["lr"]),
+                                 batch_t, apply_fn=apply_fn, lr=st["lr"])
+    mine = p0 if r == 0 else {k: (v + 1 if v.is_floating_point() else v)
+                              for k, v in p0.items()}
+    step = tt.build_sharded_train_step(apply_fn, mesh, st["lr"])
+    state_t = tt.init_train_state(apply_fn, mine, st["lr"])
+    got, m_got = step(state_t, batch_t)
+    # the gradients the step averaged, against the whole batch's
+    _, g_full = tt.value_and_grad(
+        lambda q: tt.total_loss(apply_fn, q, batch_t), p0)
+    _, g_mesh = step.metrics_and_grads(p0, batch_t)
+    torch.cuda.synchronize()
+    t_ms = _timed_ms(lambda: step(got, batch_t), 3)
+    loss_rel = abs(float(m_got["loss"]) / float(m_want["loss"]) - 1)
+    g_err = held_err = blanket = 0.0
+    beyond = n_held = n_big = n_out = 0
+    for k, g in g_full.items():
+        g_err = max(g_err, float((g_mesh[k] - g).abs().max())
+                    / max(float(g.abs().max()), 1e-30))
+        d = (got.params[k] - want.params[k]).abs()
+        blanket = max(blanket, float(d.max()))
+        big = g.abs() >= 1e-5
+        agree = (g_mesh[k] - g).abs() < g.abs() / 10
+        held = big & agree
+        if held.any():
+            held_err = max(held_err, float(d[held].max()))
+        n_held += int(held.sum())
+        n_big += int(big.sum())
+        n_out += int((big & ~agree & (d > 1e-4)).sum())
+        beyond += int((d > 1e-4).sum())
+    bn = [k for k in p0 if tt._is_buffer(k)]
+    out["train"] = {
+        "model": st["prefix"], "batch": st["batch"], "hw": [st["h"], st["w"]],
+        "lr": st["lr"], "loss_rel_diff": loss_rel, "grad_err": g_err,
+        "param_max_abs_diff_held": held_err, "elements_held": n_held,
+        "elements_big": n_big, "elements_big_unsettled_beyond_1e-4": n_out,
+        "param_max_abs_diff_all": blanket, "elements_beyond_1e-4": beyond,
+        "bn_buffers": len(bn), "bn_buffers_bit_unchanged": all(
+            torch.equal(got.params[k], p0[k]) for k in bn),
+        "ms_per_step": t_ms}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    return out
+
+
+def phase_sharded(dev, corridor):
+    """Phase 11. a: no earlier phase left a process group (the harness's
+    batch mode runs on a mesh of one without one); the hybrid on a mesh of
+    one over an NCCL group of one in this process against the run without
+    a mesh, bit for bit, and its graph against its eager run; the cuDNN
+    witness and the keypoint agreement of the front end in the ranks'
+    batches (`sharded_references`). b-f: `sharded_rank` on `mesh.spawn`
+    ranks: NCCL over min(4, cards) cards where there are two or more, else
+    two gloo ranks sharing this card (a correctness run, not a scaling
+    one).
+    Returns {path: launches} for the kernel report and the kernels' worst
+    errors against their plain versions."""
+    import torch
+    import torch.distributed as dist
+
+    from spsvo_tpu_torch.parallel import mesh as mesh_mod
+    from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
+    t_start = time.perf_counter()
+    cfg = flagship_cfg()
+    count = torch.cuda.device_count()
+    world, device, backend = ((min(4, count), "cuda", "nccl") if count >= 2
+                              else (2, "cuda:0", "gloo"))
+    refs = sharded_references(dev, corridor, world)
+    n = refs["imgs"].shape[0]
+    imgs, P_l, P_r, gumbel = (refs[k].to(dev)
+                              for k in ("imgs", "P_l", "P_r", "gumbel"))
+
+    if dist.is_initialized():
+        fail("phase11a: an earlier phase left a process group initialised")
+    # make_mesh alone makes no group: an NCCL group of one made here, which
+    # make_mesh then takes
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            timeout=datetime.timedelta(seconds=300))
+    try:
+        mesh = mesh_mod.make_mesh(device=dev, backend="nccl")
+        probe = torch.ones(2, device=dev)
+        dist.all_reduce(probe)                 # NCCL itself runs
+        hybrid = build_online_hybrid(cfg, device=dev, mesh=mesh)
+        hybrid.eager(imgs, P_l, P_r, gumbel)
+        got, launches, shapes = _counted(lambda: hybrid.eager(imgs, P_l, P_r,
+                                                              gumbel))
+        same = _bitwise(got, refs["cnn"])
+        same_g, rep, rep_ms = _graph_vs_eager(hybrid, imgs, P_l, P_r, gumbel,
+                                              got)
+        say("phase11a", world=1, backend=mesh.backend,
+            group=mesh.group is not None, nccl_probe=probe.tolist(),
+            launches=launches, shapes=shapes, bitwise_vs_unsharded=same,
+            graph_equals_eager_bitwise=same_g, replay_launches=rep,
+            graphs=len(next(iter(hybrid._graphs.values())).stretches),
+            replay_ms=rep_ms)
+    finally:
+        dist.destroy_process_group()
+    if not (same and same_g and mesh.group is not None):
+        fail("phase11a: the sharded hybrid on a mesh of one differs from the "
+             "unsharded run or from its own eager run")
+    if launches != {"match_nn": 1, "fused_solve": n - 1} or \
+            shapes["match_nn"][0] != 2 * n - 1 or rep != launches:
+        fail(f"phase11a: launches {launches} at {shapes}, replay {rep}")
+    by_path = {"sharded_hybrid_w1": launches}
+    agreement = refs["kp_agreement"]
+    say("phase11a", check="the front end in the batches of world-w ranks "
+        "against the whole batch, on this card, with cuDNN and without it",
+        keypoint_agreement=agreement)
+    low = {k: v for k, v in agreement.items() if v < (
+        NO_CUDNN_KP_AGREEMENT if k.endswith("no_cudnn")
+        else SHARDED_KP_AGREEMENT)}
+    if low:
+        fail(f"phase11a: keypoint agreement of the ranks' batches {low}")
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "refs.pt")
+        torch.save(refs, path)
+        t0 = time.perf_counter()
+        try:
+            ranks = mesh_mod.spawn(sharded_rank, world, device, backend,
+                                   args=(path,), timeout_s=600)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"phase11: {e}")
+        ranks_s = time.perf_counter() - t0
+    bounds = mesh_mod.shard_bounds(n, world)
+    counts = mesh_mod.pair_counts(n, world)
+    m_err = s_err = 0.0
+    for res in ranks:
+        r = res["rank"]
+        frames, pairs = bounds[r][1] - bounds[r][0], counts[r]
+        for part, sub in (("feature_lm1", "b"), ("feature_lm0", "b"),
+                          ("cnn", "b"), ("batch", "c"), ("orb", "d"),
+                          ("train", "e")):
+            say(f"phase11{sub}", rank=r, world=world,
+                backend=res["backend"], device=res["device"], path=part,
+                **res[part])
+        say("phase11f", rank=r, world=world, backend=res["backend"],
+            launches=res["launches"], shapes=res["shapes"],
+            cnn_replay_ms=res["cnn"]["replay_ms"],
+            cnn_eager_ms=res["cnn"]["eager_ms"],
+            orb_replay_ms=res["orb"]["replay_ms"],
+            batch_ms=res["batch"]["ms"],
+            train_ms_per_step=res["train"]["ms_per_step"],
+            peak_memory_gb=res["peak_memory_gb"],
+            one_card_shared=(backend == "gloo"))
+        tagr = f"phase11 rank {r}"
+        if res["tf32"] != [False, False]:
+            fail(f"{tagr}: TF32 is on {res['tf32']}")
+        for lm in (1, 0):
+            f = res[f"feature_lm{lm}"]
+            if not (f["bitwise_vs_unsharded"]
+                    and f["graph_equals_eager_bitwise"]):
+                fail(f"{tagr}: the feature hybrid (landmark fusion {lm}) "
+                     f"differs from the unsharded run from the same "
+                     f"keypoints, or its graphs from its eager run: {f}")
+        want_cnn = {"match_nn": 1, "fused_solve": n - 1}
+        for p in (f"sharded_feature_lm1_r{r}", f"sharded_feature_lm0_r{r}",
+                  f"sharded_hybrid_r{r}"):
+            got_l, got_s = res["launches"][p], res["shapes"][p]
+            gls = "lm0" in p or got_s["fused_solve"][3] == 1
+            if got_l != want_cnn or got_s["match_nn"][0] != frames + pairs \
+                    or not gls:
+                fail(f"{tagr}: {p} launched {got_l} at {got_s}, expected "
+                     f"{want_cnn} at B={frames + pairs}")
+        c = res["cnn"]
+        if c["kernel1_B"] != frames + pairs or c["replay_launches"] != \
+                want_cnn or not c["graph_equals_eager_bitwise"]:
+            fail(f"{tagr}: the CNN hybrid's kernel-1 B, replay launches or "
+                 f"graph check: {c}")
+        if not (c["keypoints_equal_same_batch"]
+                and c["bitwise_vs_same_batch"]
+                and c["keypoint_agreement"] >= SHARDED_KP_AGREEMENT
+                and c["drift_percent"] < 5.0 and c["median_keypoints"] > 200
+                and c["median_inliers"] > 30):
+            fail(f"{tagr}: the CNN hybrid end to end: {c}")
+        b = res["batch"]
+        bl, bs = res["launches"][f"sharded_batch_r{r}"], \
+            res["shapes"][f"sharded_batch_r{r}"]
+        if bl != {"match_nn": 1, "fused_solve": 1} or \
+                bs["match_nn"][0] != frames + pairs or \
+                bs["fused_solve"][0] != pairs:
+            fail(f"{tagr}: batch launched {bl} at {bs}, expected one each at "
+                 f"B={frames + pairs}, F={pairs}")
+        if not b["bitwise_vs_same_batch"]:
+            fail(f"{tagr}: batch mode differs from the unsharded program on "
+                 "the same keypoints")
+        if not (b["drift_percent"] < BATCH_DRIFT_LIMIT
+                and b["median_pair_err_m"] < BATCH_PAIR_ERR_LIMIT_M
+                and b["kernel2_err_q"] <= 1e-4 and b["kernel2_err_t"] <= 1e-3
+                and b["kernel2_inlier_lanes"] <= 3
+                and b["kernel2_flags_equal"]):
+            fail(f"{tagr}: batch mode: {b}")
+        o = res["orb"]
+        ol = res["launches"][f"sharded_orb_r{r}"]
+        if ol != {"fused_solve": n - 1} or o["replay_launches"] != ol \
+                or not o["graph_equals_eager_bitwise"]:
+            fail(f"{tagr}: the ORB hybrid launched {ol}, replay "
+                 f"{o['replay_launches']}, graph check {o}")
+        if not (o["bitwise_vs_unsharded"] and
+                o["drift_percent"] < CLASSIC_DRIFT_LIMIT["ORB/ORB"]):
+            fail(f"{tagr}: the ORB hybrid (its front end gives each image "
+                 f"the same bits at any batch): {o}")
+        tr = res["train"]
+        if not (tr["loss_rel_diff"] <= 1e-5 and tr["grad_err"] <= 1e-4
+                and tr["param_max_abs_diff_held"] <= 1e-4
+                and tr["elements_big_unsettled_beyond_1e-4"]
+                <= SHARDED_MOVED_BEYOND * tr["elements_big"]
+                # a sanity bound: a first Adam step moves less than lr
+                and tr["param_max_abs_diff_all"] <= 2 * tr["lr"] * (1 + 1e-3)
+                and tr["bn_buffers"] > 0 and tr["bn_buffers_bit_unchanged"]):
+            fail(f"{tagr}: the sharded train step: {tr}")
+        m_err = max(m_err, c["kernel1_max_abs_err"])
+        s_err = max(s_err, c["scan_max_err_q"], c["scan_max_err_t"],
+                    o["scan_max_err_q"], o["scan_max_err_t"],
+                    b["kernel2_err_q"], b["kernel2_err_t"])
+        for p, l in res["launches"].items():
+            by_path[p] = l
+    say("phase11", result="pass", world=world, backend=backend,
+        spawned_s=ranks_s, phase11_s=time.perf_counter() - t_start)
+    return by_path, m_err, s_err
+
+
 def main() -> None:
     try:
         import torch
@@ -2098,6 +2711,9 @@ def main() -> None:
         say("phase2", kernel=name, build_s=log["seconds"],
             cached=log["cached"], ptxas=regs)
 
+    if "--phase11-only" in sys.argv[1:]:     # a development aid
+        phase_sharded(dev, render_corridor())
+        return
     rng = np.random.default_rng(0)
     m_err, m_t = phase_matcher(dev, rng)
     w_err, w_t = phase_matcher_wide(dev, rng)
@@ -2126,6 +2742,9 @@ def main() -> None:
     say("phase9", result="pass", gpu=gpu)
     phase_training(dev, corridor)
     say("phase10", result="pass", gpu=gpu)
+    s_launches, s_m_err, s_s_err = phase_sharded(dev, corridor)
+    m_err, s_err = max(m_err, s_m_err), max(s_err, s_s_err)
+    say("phase11", gpu=gpu)
     if "jax" in sys.modules or "cv2" in sys.modules:
         fail("jax or cv2 was imported")
 
@@ -2137,8 +2756,12 @@ def main() -> None:
         by_path = {"per_frame": launches.get(name, 0),
                    "hybrid": h_launches.get(name, 0),
                    **{path: c.get(name, 0) for path, c in c_launches.items()},
-                   **{path: c.get(name, 0) for path, c in q_launches.items()}}
+                   **{path: c.get(name, 0) for path, c in q_launches.items()},
+                   **{path: c.get(name, 0) for path, c in s_launches.items()
+                      if "orb" not in path}}
         classic = {path: c.get(name, 0) for path, c in b_launches.items()}
+        classic.update({path: c.get(name, 0) for path, c in
+                        s_launches.items() if "orb" in path})
         missing = [path for path, count in by_path.items() if count == 0]
         if name == "match_nn":
             stray = [path for path, count in classic.items() if count]

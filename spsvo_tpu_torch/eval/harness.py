@@ -189,12 +189,22 @@ def run_sequence_fused(cfg: VOConfig,
     CSV needs `run_sequence`). After one untimed first run (kernel builds,
     graph capture), `timing_reps` runs are timed back to back, the window
     closed by a device synchronisation. The RANSAC noise comes from a
-    generator seeded with 0. Returns world poses (identity first)."""
+    generator seeded with 0. Returns world poses (identity first).
+
+    Several ranks (a job started by `torchrun`, or any initialised process
+    group) run the frame-sharded program on the job's mesh
+    (`parallel.mesh.make_mesh`); a process alone runs it on a mesh of one
+    without a process group, which is the unsharded program (the JAX
+    package's rule, a mesh in hybrid and orb mode only when there are
+    several devices, gives the same program). The frames are padded with
+    copies of the last to a multiple of the ranks (at least 2 each) and the
+    result trimmed; the time is amortised over the padded frames, which the
+    device did process. Only rank 0 writes the pose file."""
     import torch
 
     from spsvo_tpu_torch.ops.image import (preprocess_image_np,
                                            update_projection_matrix_np)
-    from spsvo_tpu_torch.parallel import sharding
+    from spsvo_tpu_torch.parallel import mesh as mesh_mod, sharding
     from spsvo_tpu_torch.utils.logging import RuntimeGuards
 
     if mode not in ("hybrid", "batch", "classic", "orb"):
@@ -221,15 +231,21 @@ def run_sequence_fused(cfg: VOConfig,
                                preprocess_image_np(ir, h, w)])
                      for il, ir in frames])
 
+    mesh = mesh_mod.make_mesh(device=device)
+    ranks = mesh.size
+    n_pad = max(2 * ranks, -(-n // ranks) * ranks)
+    if n_pad > n:           # frames shard over the mesh: pad, trim after
+        imgs = np.concatenate([imgs, np.repeat(imgs[-1:], n_pad - n, axis=0)])
     build = {"hybrid": sharding.build_online_hybrid,
              "batch": sharding.build_batch_vo,
              "orb": sharding.build_orb_hybrid}[mode]
-    fn = build(cfg, device=device)
+    fn = build(cfg, device=device, mesh=mesh)
     dev = fn.device
+    n_run = imgs.shape[0]
     args = (torch.as_tensor(imgs).to(dev),
             torch.as_tensor(P_l2, dtype=torch.float32).to(dev),
             torch.as_tensor(P_r2, dtype=torch.float32).to(dev))
-    gumbel = fn.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    gumbel = fn.draw_gumbel(n_run, torch.Generator(dev).manual_seed(0))
 
     def sync():
         if dev.type == "cuda":
@@ -243,8 +259,9 @@ def run_sequence_fused(cfg: VOConfig,
     sync()
     elapsed = (time.perf_counter() - t0) / max(1, timing_reps)
 
-    world = world.cpu().numpy().astype(np.float64)
-    per_frame_ms = elapsed / n * 1000.0
+    world = world[:n].cpu().numpy().astype(np.float64)
+    # amortised over the frames the device processed, the padding included
+    per_frame_ms = elapsed / n_run * 1000.0
     poses = [world[i] for i in range(n)]
     latencies = [{"detect": 0.0, "match": 0.0, "solve": 0.0,
                   "total": per_frame_ms} for _ in range(n)]
@@ -257,7 +274,7 @@ def run_sequence_fused(cfg: VOConfig,
         # are always real, so first_frame never applies here
         _feed_guards(guards, d, first_frame=False, frame=i + 1,
                      solve_slots=cfg.solve_slots)
-    if results_dir is not None:
+    if results_dir is not None and mesh.rank == 0:
         _write_pose_file(poses, results_dir, description, kitti_eval_id)
     return SequenceResult(poses, latencies, diag_rows, cfg.config_string,
                           guards_summary=guards.summary())

@@ -1,15 +1,14 @@
-"""Whole-sequence VO on one GPU: the online hybrid, the offline batch mode
-and the sequence scan.
+"""Whole-sequence VO: the online hybrid, the offline batch mode and the
+sequence scan, on one GPU or frame-sharded over a device mesh.
 
-Mirrors `spsvo_tpu.parallel.sharding` without a mesh (multi-GPU sharding is
-not ported): `build_online_hybrid` with its two classic forms
-`build_orb_hybrid` (a device-resident classic front end in place of the
-CNN, binary descriptors) and `build_feature_hybrid` (pre-extracted
-keypoints in place of images), `build_batch_vo` (every pair solved
-from the identity prior in one batched solve, the gates re-applied by a
-scalar pass, `_gate_scan`) and `build_sequence_scan` (the per-frame step in
-an on-device loop). In the online hybrid every prior-independent stage runs
-once over the whole sequence of N stereo frames:
+Mirrors `spsvo_tpu.parallel.sharding`: `build_online_hybrid` with its two
+classic forms `build_orb_hybrid` (a device-resident classic front end in
+place of the CNN, binary descriptors) and `build_feature_hybrid`
+(pre-extracted keypoints in place of images), `build_batch_vo` (every pair
+solved from the identity prior in one batched solve, the gates re-applied
+by a scalar pass, `_gate_scan`) and `build_sequence_scan` (the per-frame
+step in an on-device loop). In the online hybrid every prior-independent
+stage runs once over the whole sequence of N stereo frames:
 
   1. frontend: CNN trunk + detector postprocess (or the classic front end,
      ops/orb.py) over all 2N images;
@@ -31,18 +30,41 @@ Semantics are the per-frame path's (the reference's gates and prior
 seeding), except that the hoisted hypotheses sample the unsubstituted
 triangulations, as in the JAX package.
 
-On a CUDA device the whole program is captured as one CUDA graph per input
-shape at its first call (the counterpart of `jax.jit`); later calls copy
-their inputs into the graph's buffers and replay it. `OnlineHybrid.eager`
-runs the same code without a graph. The RANSAC noise is drawn outside the
-graph.
+With a `mesh` (parallel/mesh.py: one process per GPU) every rank is given
+the whole sequence and works on its shard of the frames, [r N / w,
+(r + 1) N / w): phases 1-3 for its frames and for the pairs whose first
+frame it holds. The next rank's first frame arrives as a halo
+(`Mesh.halo_next`), its keypoints before the matching (the boundary pair's
+inter-frame entry) and its stereo matches after it (the chain filter reads
+both frames of a pair), so every rank makes one matcher launch over its
+own stereo and inter-frame entries. One `Mesh.gather_frames` then gives
+every rank all pairs' scan inputs, and the scan and the pose chaining run
+replicated. The RANSAC noise of all pairs is drawn on every rank from the
+same generator, so every world size sees the unsharded run's noise, and
+the result equals the unsharded run's bit for bit where the front end's
+output does (the per-pair work is the same, batched differently). The batch
+mode shards the same way up to its batched solve (one solver launch per
+rank), gathers the solved pairs, and runs the gate pass replicated.
+
+Without a mesh the program is the same one on `Mesh.alone`, a mesh of one
+whose collectives are identities: one program, sharded or not.
+
+On a CUDA device the program is captured as CUDA graphs per input shape at
+its first call (the counterpart of `jax.jit`); later calls copy their
+inputs into the graphs' buffers and replay them. Alone it is one graph;
+on several ranks one graph per stretch between collectives, which run
+between the replays. `OnlineHybrid.eager` runs the same code without a
+graph. The RANSAC noise is drawn outside the graphs.
 """
 
 from __future__ import annotations
 
-import collections
 import functools
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+import gc
+import time
+import warnings
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -53,6 +75,8 @@ from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import matching, pnp, solver, solver_cuda
 from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched, match_scratch
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
+from spsvo_tpu_torch.parallel.mesh import (Mesh, build_kernels,
+                                           pair_counts, shard_bounds)
 from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, check_supported,
                                       init_state, matcher_gate, vo_step)
 
@@ -69,7 +93,8 @@ def frontend_batch(model, images: torch.Tensor, cfg: VOConfig) -> Keypoints:
     Chunks bound the trunk's activation memory, by the JAX package's rule
     (the activation budget of 16 images at 360x1176, a multiple of 8 within
     [8, 128]: 128 at 120x392, so up to 64 stereo frames run as one batch).
-    M is zero-padded to whole chunks."""
+    M is zero-padded to whole chunks. On a mesh each rank calls this on its
+    own images, so the chunk is already per device."""
     pixels = images.shape[1] * images.shape[2]
     chunk = min(128, max(8, (16 * 360 * 1176 // pixels) // 8 * 8))
 
@@ -117,40 +142,51 @@ def stereo_frontend(model, images: torch.Tensor, cfg: VOConfig
 
 
 def draw_pair_gumbel(cfg: VOConfig, n_frames: int,
-                     generator: Optional[torch.Generator], device
-                     ) -> torch.Tensor:
+                     generator: Optional[torch.Generator], device,
+                     mesh: Optional[Mesh] = None) -> torch.Tensor:
     """The RANSAC noise of a sequence's N-1 pairs, one
-    `solver.gumbel_shape(cfg)` slab each."""
-    return pnp.gumbel_noise((n_frames - 1,) + solver.gumbel_shape(cfg),
-                            generator, device)
+    `solver.gumbel_shape(cfg)` slab each. On a mesh every rank draws from
+    its own `generator` (seeded alike, it gives every rank the same noise);
+    without one rank 0's draw is sent to the others."""
+    g = pnp.gumbel_noise((n_frames - 1,) + solver.gumbel_shape(cfg),
+                         generator, device)
+    if mesh is not None and generator is None:
+        g = mesh.broadcast([g])[0]
+    return g
 
 
 def match_batch(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig,
-                binary_desc: bool = False
+                binary_desc: bool = False, n_stereo: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                            torch.Tensor]:
-    """The 2N-1 matching entries of a sequence, each with its own query:
-    queries [l_0..l_{N-1}, l_1..l_{N-1}] against targets [r_0..r_{N-1},
-    l_0..l_{N-2}]. Returns (queries, query valid, targets, target valid)."""
+    """The matching entries of N frames, each with its own query: the
+    stereo entries of the first `n_stereo` frames (default all N), then the
+    N-1 inter-frame entries: queries [l_0..l_{S-1}, l_1..l_{N-1}] against
+    targets [r_0..r_{S-1}, l_0..l_{N-2}]. Returns (queries, query valid,
+    targets, target valid)."""
+    s = kp_l.desc.shape[0] if n_stereo is None else n_stereo
     dl = _mdesc(kp_l.desc, cfg, binary_desc)
     dr = _mdesc(kp_r.desc, cfg, binary_desc)
-    return (torch.cat([dl, dl[1:]]), torch.cat([kp_l.valid, kp_l.valid[1:]]),
-            torch.cat([dr, dl[:-1]]), torch.cat([kp_r.valid, kp_l.valid[:-1]]))
+    return (torch.cat([dl[:s], dl[1:]]),
+            torch.cat([kp_l.valid[:s], kp_l.valid[1:]]),
+            torch.cat([dr[:s], dl[:-1]]),
+            torch.cat([kp_r.valid[:s], kp_l.valid[:-1]]))
 
 
 def match_pairs(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig,
                 scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                binary_desc: bool = False
+                binary_desc: bool = False, n_stereo: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Stereo matches of every frame and inter-frame matches of every pair
-    over `match_batch`'s 2N-1 entries. Under `matcher_gate` one call of the
-    fused matcher (its kernel on CUDA, its plain version on the CPU; a
-    CUDA graph passes the kernel `scratch` it owns); `binary_desc` bit
-    vectors never reach it: one batched Hamming product and selection;
-    otherwise the distance + selection route per entry. Returns (stereo
-    (N, K), inter (N-1, K)) int32 maps, -1 for no match."""
-    n = kp_l.desc.shape[0]
-    q, vq, t, vt = match_batch(kp_l, kp_r, cfg, binary_desc)
+    """Stereo matches of the first `n_stereo` frames (default all N) and
+    inter-frame matches of every pair over `match_batch`'s entries. Under
+    `matcher_gate` one call of the fused matcher (its kernel on CUDA, its
+    plain version on the CPU; a CUDA graph passes the kernel `scratch` it
+    owns); `binary_desc` bit vectors never reach it: one batched Hamming
+    product and selection; otherwise the distance + selection route per
+    entry. Returns (stereo (S, K), inter (N-1, K)) int32 maps, -1 for no
+    match."""
+    s = kp_l.desc.shape[0] if n_stereo is None else n_stereo
+    q, vq, t, vt = match_batch(kp_l, kp_r, cfg, binary_desc, s)
     sel_kw = dict(use_ratio_test=(cfg.selector_type == SelectorType.KNN),
                   cross_check=cfg.cross_check, ratio=cfg.knn_threshold)
     if matcher_gate(cfg, binary_desc):
@@ -163,7 +199,7 @@ def match_pairs(kp_l: Keypoints, kp_r: Keypoints, cfg: VOConfig,
             matching.select_matches(matching.l2_distance_sq(q[b], t[b]),
                                     vq[b], vt[b], **sel_kw).idx
             for b in range(q.shape[0])])
-    return idx[:n], idx[n:]
+    return idx[:s], idx[s:]
 
 
 def pair_chains(kp_l: Keypoints, kp_r: Keypoints, stereo: torch.Tensor,
@@ -260,13 +296,159 @@ def chain_poses(qs: torch.Tensor, ts: torch.Tensor) -> torch.Tensor:
     return torch.cat([torch.eye(4, dtype=T.dtype, device=T.device)[None], T])
 
 
-class _Captured(NamedTuple):
-    graph: "torch.cuda.CUDAGraph"
-    # kernel 1's scratch, graph-owned; None where the kernel is not used
-    scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]
-    inputs: tuple                   # (images or Keypoints, P_l, P_r, gumbel)
-    outputs: Tuple[torch.Tensor, Dict[str, torch.Tensor]]
-    recorded: collections.Counter   # the kernel launches the graph holds
+class _Shard(NamedTuple):
+    """This rank's part of an N-frame sequence on a mesh: frames [a, b) and
+    the pairs whose first frame it holds (`counts`: every rank's)."""
+
+    mesh: Mesh
+    a: int
+    b: int
+    counts: List[int]
+
+    @classmethod
+    def of(cls, mesh: Mesh, n: int) -> "_Shard":
+        if n < 2 * mesh.size:
+            raise ValueError(f"{n} frames over {mesh.size} ranks: every rank "
+                             "needs at least 2 frames")
+        a, b = shard_bounds(n, mesh.size)[mesh.rank]
+        return cls(mesh, a, b, pair_counts(n, mesh.size))
+
+    @property
+    def frames(self) -> int:
+        return self.b - self.a
+
+    @property
+    def pairs(self) -> int:
+        return self.counts[self.mesh.rank]
+
+    def local(self, leaves: Sequence[torch.Tensor], device
+              ) -> List[torch.Tensor]:
+        return [t[self.a:self.b].to(device) for t in leaves]
+
+    def halo_keypoints(self, kp_l: Keypoints, kp_r: Keypoints):
+        """The next rank's first frame's left and right keypoints (fields
+        in order, leading frame dimension dropped); None on the last
+        rank."""
+        return self.mesh.halo_next([f[0] for f in (*kp_l, *kp_r)])
+
+    @staticmethod
+    def extend(kp_l: Keypoints, kp_r: Keypoints, halo
+               ) -> Tuple[Keypoints, Keypoints]:
+        """This rank's frames and the halo frame after them."""
+        if halo is None:
+            return kp_l, kp_r
+        k = len(kp_l)
+        return tuple(Keypoints(*(torch.cat([f, h[None]])
+                                 for f, h in zip(kp, part)))
+                     for kp, part in ((kp_l, halo[:k]), (kp_r, halo[k:])))
+
+    @staticmethod
+    def extend_stereo(stereo: torch.Tensor, halo) -> torch.Tensor:
+        return stereo if halo is None else torch.cat([stereo, halo[0][None]])
+
+
+def _run_steps(steps, state: dict):
+    """Run ("graph" | "comm", name, fn(state)) steps in order, each result
+    stored under its name; returns the last."""
+    for _, name, fn in steps:
+        state[name] = fn(state)
+    return state[steps[-1][1]]
+
+
+def _stretches(steps) -> List[Tuple[str, list]]:
+    """The steps as stretches: each "comm" step alone, consecutive "graph"
+    steps together -> [(kind, [(name, fn), ...])]."""
+    out: List[Tuple[str, list]] = []
+    for kind, name, fn in steps:
+        if kind == "graph" and out and out[-1][0] == "graph":
+            out[-1][1].append((name, fn))
+        else:
+            out.append((kind, [(name, fn)]))
+    return out
+
+
+class _StepGraphs:
+    """A program of steps as one CUDA graph per stretch of "graph" steps,
+    the "comm" steps (collectives) run eagerly between the replays into
+    buffers the next graph reads; a program without collectives is one
+    graph. Built by one eager run on a side stream (it builds the kernels
+    and uploads the front end's tables), then the captures in order on that
+    stream (a collective runs on the not yet computed buffers then, every
+    rank alike, to size its results). Captures are in CUDA's global mode,
+    as the program alone needs, but thread-local where collectives run
+    between them (the backend's threads query CUDA events meanwhile).
+    Python's garbage collector is off while capturing: a collected CUDA
+    graph's destructor would end the capture. Only the collectives' step
+    functions are kept after the capture, so the graphs hold no reference
+    to the program that made them. `inputs` are the static buffers
+    state["in"] is made of, `scratch` kernel 1's that the graphs alone
+    own."""
+
+    def __init__(self, steps, state: dict, dev: torch.device,
+                 inputs: List[torch.Tensor],
+                 scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]):
+        self.state, self.inputs, self.scratch = state, inputs, scratch
+        self.last = steps[-1][1]
+        mode = ("thread_local" if any(kind == "comm" for kind, _, _ in steps)
+                else "global")
+        # per stretch: (its steps' names, the collective's function or
+        # None, its graph or None, the launches the graph holds)
+        self.stretches: List[tuple] = []
+        gc_on = gc.isenabled()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                _run_steps(steps, dict(state))
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            gc.disable()
+            try:
+                for kind, part in _stretches(steps):
+                    self.stretches.append(self._capture(kind, part, stream,
+                                                        mode))
+            finally:
+                if gc_on:
+                    gc.enable()
+
+    def _capture(self, kind: str, part, stream, mode: str) -> tuple:
+        names = tuple(name for name, _ in part)
+        if kind == "comm":
+            (name, fn), = part
+            self.state[name] = fn(self.state)
+            return names, fn, None, None
+        graph = torch.cuda.CUDAGraph()
+        before = _build.captured.copy()
+        # a step may launch nothing (the feature input's front end is views)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            with torch.cuda.graph(graph, stream=stream,
+                                  capture_error_mode=mode):
+                for name, fn in part:
+                    self.state[name] = fn(self.state)
+        return names, None, graph, _build.captured_since(before)
+
+    def replay(self, step_ms: Optional[Dict[str, float]] = None):
+        """Every stretch once; returns the last step's outputs. With
+        `step_ms` each stretch's time (host clock, the device synchronised
+        before and after it) is added to it under its steps' names joined
+        by "+"."""
+        for names, fn, graph, recorded in self.stretches:
+            if step_ms is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+            if graph is not None:
+                graph.replay()
+                _build.count_replay(recorded)
+            else:
+                got = fn(self.state)
+                for dst, src in zip(self.state[names[0]] or (), got or ()):
+                    dst.copy_(src)
+            if step_ms is not None:
+                torch.cuda.synchronize()
+                key = "+".join(names)
+                step_ms[key] = (step_ms.get(key, 0.0)
+                                + (time.perf_counter() - t0) * 1e3)
+        return self.state[self.last]
 
 
 class OnlineHybrid:
@@ -281,16 +463,24 @@ class OnlineHybrid:
     the first argument is a `Keypoints` with leading (N, 2) (frame, left /
     right), its binary descriptors either {0,1} floats or packed uint8
     bytes, which are unpacked on the device. `binary_desc` matches by
-    Hamming distance."""
+    Hamming distance.
+
+    With a `mesh` every rank calls the hybrid together on the whole
+    sequence (it may lie on the host: each rank moves its shard) and the
+    same noise; each rank returns the whole result. Without `gumbel` and
+    `generator` rank 0 draws the noise and sends it to the others. Without
+    a mesh the program runs on `Mesh.alone`."""
 
     def __init__(self, cfg: VOConfig, model, device, *,
                  feature_input: bool = False, binary_desc: bool = False,
-                 frontend_batch_fn: Optional[Callable] = None):
+                 frontend_batch_fn: Optional[Callable] = None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
         self.model = model
         self.device = torch.device(device)
         self.feature_input = feature_input
         self.binary_desc = binary_desc
+        self.mesh = mesh or Mesh.alone(self.device)
         self.frontend_batch_fn = frontend_batch_fn or functools.partial(
             frontend_batch, model, cfg=cfg)
         kernel = solver.pallas_solver_config(cfg)
@@ -300,7 +490,7 @@ class OnlineHybrid:
             self.branch = KERNEL if kernel else PLAIN
         k = cfg.max_keypoints
         self.lanes = min(cfg.solve_slots, k) if cfg.solve_slots else k
-        self._graphs: Dict[tuple, _Captured] = {}
+        self._graphs: Dict[tuple, _StepGraphs] = {}
 
     # -- the phases -------------------------------------------------------
     def frontend(self, images) -> Tuple[Keypoints, Keypoints]:
@@ -314,9 +504,11 @@ class OnlineHybrid:
             kp = kp._replace(desc=unpack_binary_desc(kp.desc))
         return split_stereo(kp)
 
-    def match(self, kp_l: Keypoints, kp_r: Keypoints, scratch=None
+    def match(self, kp_l: Keypoints, kp_r: Keypoints, scratch=None,
+              n_stereo: Optional[int] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return match_pairs(kp_l, kp_r, self.cfg, scratch, self.binary_desc)
+        return match_pairs(kp_l, kp_r, self.cfg, scratch, self.binary_desc,
+                           n_stereo)
 
     def prepare(self, kp_l: Keypoints, kp_r: Keypoints, stereo: torch.Tensor,
                 inter: torch.Tensor, P_l: torch.Tensor, P_r: torch.Tensor,
@@ -359,41 +551,127 @@ class OnlineHybrid:
         return torch.stack(qs), torch.stack(ts), diag
 
     # -- the program ------------------------------------------------------
-    def match_scratch(self, n_frames: int
-                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
-        """A kernel-1 scratch for the 2N-1 matching entries of N frames,
-        for a CUDA graph to own; None where the matching does not go
-        through the kernel."""
-        if not matcher_gate(self.cfg, self.binary_desc):
-            return None
-        k = self.cfg.max_keypoints
-        return match_scratch(self.device, 2 * n_frames - 1, k, k)
+    def shard(self, n_frames: int) -> _Shard:
+        """This rank's part of an `n_frames` sequence."""
+        return _Shard.of(self.mesh, n_frames)
+
+    def steps(self, shard: _Shard, scratch=None) -> list:
+        """The program as steps for `_run_steps` / `_StepGraphs`, on
+        state["in"] = (this rank's frames or Keypoints, P_l, P_r, the whole
+        sequence's noise): the front end, the keypoint halo, the matching,
+        the stereo halo, the pair preparation, the gather, and the
+        replicated scan with the pose chaining. On a mesh of one the
+        collectives are identities that touch no device, so they are
+        "graph" steps and the program is one graph."""
+        mesh, p0, m = shard.mesh, shard.a, shard.pairs
+        comm = "comm" if mesh.size > 1 else "graph"
+
+        def extended(s):
+            return shard.extend(*s["frontend"], s["halo_kp"])
+
+        def prepare(s):
+            _, P_l, P_r, gumbel = s["in"]
+            stereo, inter = s["match"]
+            return self.prepare(*extended(s), shard.extend_stereo(
+                stereo, s["halo_st"]), inter, P_l, P_r, gumbel[p0:p0 + m])
+
+        def gather(s):
+            xs, counts = s["prepare"]
+            leaves = [*xs.prep] + [t for t in (xs.hyp, xs.pts)
+                                   if t is not None] + list(counts.values())
+            return mesh.gather_frames(leaves, shard.counts)
+
+        def scan(s):
+            xs, counts = self.gathered(s)
+            _, P_l, P_r, _ = s["in"]
+            qs, ts, diag = self.scan(xs, P_l, P_r)
+            return chain_poses(qs, ts), dict(diag, **counts)
+
+        return [
+            ("graph", "frontend", lambda s: self.frontend(s["in"][0])),
+            (comm, "halo_kp", lambda s: shard.halo_keypoints(*s["frontend"])),
+            ("graph", "match", lambda s: self.match(
+                *extended(s), scratch, n_stereo=shard.frames)),
+            (comm, "halo_st", lambda s: mesh.halo_next([s["match"][0][0]])),
+            ("graph", "prepare", prepare),
+            (comm, "gather", gather),
+            ("graph", "scan", scan),
+        ]
+
+    @staticmethod
+    def gathered(state: dict) -> Tuple[ScanInputs, Dict[str, torch.Tensor]]:
+        """Every pair's scan inputs and counts, from a run's `state` once
+        its gather has run."""
+        xs, counts = state["prepare"]
+        leaves = iter(state["gather"])
+        prep = solver.PreparedSolve(*(next(leaves) for _ in xs.prep))
+        hyp = None if xs.hyp is None else next(leaves)
+        pts = None if xs.pts is None else next(leaves)
+        counts = {k: next(leaves) for k in counts}
+        return ScanInputs(prep, hyp, pts, state["in"][3]), counts
+
+    def _inputs(self, images, P_l, P_r, gumbel
+                ) -> Tuple[_Shard, List[torch.Tensor]]:
+        """This call's shard and its input tensors on the device: this
+        rank's frames (or Keypoints fields), P_l, P_r, the whole noise."""
+        leaves = tuple(images) if self.feature_input else (images,)
+        shard = self.shard(leaves[0].shape[0])
+        dev = self.device
+        return shard, [*shard.local(leaves, dev),
+                       P_l.to(dev, torch.float32), P_r.to(dev, torch.float32),
+                       gumbel.to(dev)]
+
+    def _state_in(self, ins: List[torch.Tensor]) -> tuple:
+        k = len(ins) - 3
+        first = Keypoints(*ins[:k]) if self.feature_input else ins[0]
+        return (first, *ins[k:])
 
     @torch.no_grad()
+    def run(self, images, P_l: torch.Tensor, P_r: torch.Tensor,
+            gumbel: torch.Tensor, scratch=None) -> dict:
+        """The program op by op on the whole sequence's inputs; returns
+        every step's result by name (`steps`; "scan" holds (world,
+        diag))."""
+        shard, ins = self._inputs(images, P_l, P_r, gumbel)
+        state = {"in": self._state_in(ins)}
+        _run_steps(self.steps(shard, scratch), state)
+        return state
+
     def eager(self, images, P_l: torch.Tensor,
               P_r: torch.Tensor, gumbel: torch.Tensor,
               scratch: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
               ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """The whole program, op by op (no graph). `scratch` is kernel 1's
-        (`match_scratch`); None uses the one kept for the current stream."""
-        P_l = P_l.to(self.device, torch.float32)
-        P_r = P_r.to(self.device, torch.float32)
-        kp_l, kp_r = self.frontend(images)
-        stereo, inter = self.match(kp_l, kp_r, scratch)
-        xs, counts = self.prepare(kp_l, kp_r, stereo, inter, P_l, P_r,
-                                  gumbel)
-        qs, ts, diag = self.scan(xs, P_l, P_r)
-        return chain_poses(qs, ts), dict(diag, **counts)
+        """The whole program, op by op (no graph) -> (world, diag).
+        `scratch` is kernel 1's (`match_scratch`); None uses the one kept
+        for the current stream."""
+        return self.run(images, P_l, P_r, gumbel, scratch)["scan"]
+
+    def match_scratch(self, n_frames: int
+                      ) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """A kernel-1 scratch for this rank's matching entries of an
+        N-frame sequence, for a CUDA graph to own; None where the matching
+        does not go through the kernel."""
+        if not matcher_gate(self.cfg, self.binary_desc):
+            return None
+        k = self.cfg.max_keypoints
+        shard = self.shard(n_frames)
+        return match_scratch(self.device, shard.frames + shard.pairs, k, k)
 
     def draw_gumbel(self, n_frames: int,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device)
+        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device,
+                                self.mesh)
 
+    @torch.no_grad()
     def __call__(self, images, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None
+                 generator: Optional[torch.Generator] = None,
+                 step_ms: Optional[Dict[str, float]] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """On CUDA the program's graphs (`_StepGraphs`, built at the first
+        call of each input shape) replayed on this call's inputs;
+        `step_ms` collects each stretch's time of the replay."""
         leaves = tuple(images) if self.feature_input else (images,)
         n = leaves[0].shape[0]
         if n < 2:
@@ -402,47 +680,25 @@ class OnlineHybrid:
             gumbel = self.draw_gumbel(n, generator)
         if self.device.type != "cuda":
             return self.eager(images, P_l, P_r, gumbel)
+        shard, ins = self._inputs(images, P_l, P_r, gumbel)
         key = tuple((tuple(t.shape), t.dtype) for t in leaves)
-        rec = self._graphs.get(key)
-        if rec is None:
-            rec = self._graphs[key] = self._capture(leaves, P_l, P_r, gumbel)
-        static = rec.inputs[0] if self.feature_input else (rec.inputs[0],)
-        for dst, src in zip((*static, *rec.inputs[1:]),
-                            (*leaves, P_l, P_r, gumbel)):
+        prog = self._graphs.get(key)
+        if prog is None:
+            static = [t.clone() for t in ins]
+            scratch = self.match_scratch(n)
+            prog = self._graphs[key] = _StepGraphs(
+                self.steps(shard, scratch), {"in": self._state_in(static)},
+                self.device, static, scratch)
+        for dst, src in zip(prog.inputs, ins):
             dst.copy_(src)
-        rec.graph.replay()
-        _build.count_replay(rec.recorded)
-        world, diag = rec.outputs
+        world, diag = prog.replay(step_ms)
         return world.clone(), {k: v.clone() for k, v in diag.items()}
 
-    def _capture(self, leaves: Tuple[torch.Tensor, ...], P_l: torch.Tensor,
-                 P_r: torch.Tensor, gumbel: torch.Tensor) -> _Captured:
-        """One eager run on a side stream (it builds the kernels and
-        uploads the front end's tables), then the CUDA graph of `eager`
-        captured on that stream with static input buffers and a kernel-1
-        scratch that the graph alone owns."""
-        dev = self.device
-        first = [t.to(dev).clone() for t in leaves]
-        static = (Keypoints(*first) if self.feature_input else first[0],
-                  P_l.to(dev, torch.float32).clone(),
-                  P_r.to(dev, torch.float32).clone(), gumbel.to(dev).clone())
-        scratch = self.match_scratch(leaves[0].shape[0])
-        with torch.cuda.device(dev):
-            stream = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                self.eager(*static, scratch)
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            graph = torch.cuda.CUDAGraph()
-            before = _build.captured.copy()
-            with torch.cuda.graph(graph, stream=stream):
-                outputs = self.eager(*static, scratch)
-        return _Captured(graph, scratch, static, outputs,
-                         _build.captured_since(before))
 
-
-def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True):
-    """Check the configuration and the device; with `cnn`, load the model
+def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True,
+             mesh: Optional[Mesh] = None):
+    """Check the configuration, the device and the mesh (its device is the
+    one used: `device` must name the same type); with `cnn`, load the model
     if needed."""
     check_supported(cfg)
     if cnn and cfg.is_classic:
@@ -450,6 +706,15 @@ def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True):
                          "configuration runs through build_orb_hybrid or "
                          "build_feature_hybrid")
     device = torch.device(device)
+    if mesh is not None:
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f"{who}: mesh must be a spsvo_tpu_torch.parallel."
+                            f"mesh.Mesh (make_mesh), got {type(mesh)}")
+        if device.type != mesh.device.type or device.index not in (
+                None, mesh.device.index):
+            raise ValueError(f"{who}: device {device} is not the mesh's "
+                             f"{mesh.device}")
+        device = mesh.device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"{who}: no CUDA device (pass device='cpu' to run "
                            "on the CPU)")
@@ -461,40 +726,59 @@ def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True):
     return model, device
 
 
+def _mesh_kernels(mesh: Optional[Mesh], cfg: VOConfig, binary_desc: bool,
+                  solver_kernel: bool) -> None:
+    """On a CUDA mesh, build the kernels the program launches once, on rank
+    0, before any rank needs them."""
+    if mesh is not None:
+        build_kernels(mesh, [name for name, used in (
+            ("match_nn", matcher_gate(cfg, binary_desc)),
+            ("fused_solve", solver_kernel)) if used])
+
+
 def build_online_hybrid(cfg: VOConfig, model=None, device="cuda", *,
                         feature_input: bool = False, binary_desc: bool = False,
-                        frontend_batch_fn=None) -> OnlineHybrid:
+                        frontend_batch_fn=None,
+                        mesh: Optional[Mesh] = None) -> OnlineHybrid:
     """The online hybrid for `cfg` on `device` (see `OnlineHybrid`). `model`
     None loads `cfg.model_name_prefix` at the configured precision, unless
-    `feature_input` or `frontend_batch_fn` replaces the CNN front end."""
+    `feature_input` or `frontend_batch_fn` replaces the CNN front end. With
+    a `mesh` (`parallel.mesh.make_mesh`) the frames are sharded over its
+    ranks and the program runs on the mesh's device."""
     if cfg.speculative_solve:
         raise NotImplementedError("speculative_solve is not ported")
     cnn = not feature_input and frontend_batch_fn is None
-    model, device = _resolve(cfg, model, device, "build_online_hybrid", cnn)
+    model, device = _resolve(cfg, model, device, "build_online_hybrid", cnn,
+                             mesh)
+    _mesh_kernels(mesh, cfg, binary_desc, solver.pallas_solver_config(cfg))
     return OnlineHybrid(cfg, model, device, feature_input=feature_input,
                         binary_desc=binary_desc,
-                        frontend_batch_fn=frontend_batch_fn)
+                        frontend_batch_fn=frontend_batch_fn, mesh=mesh)
 
 
 def build_feature_hybrid(cfg: VOConfig, binary_desc: bool = False,
-                         device="cuda") -> OnlineHybrid:
+                         device="cuda", mesh: Optional[Mesh] = None
+                         ) -> OnlineHybrid:
     """The online hybrid over pre-extracted features: `hybrid(kp_stack, P_l,
     P_r, *, gumbel=None, generator=None)` with `kp_stack` a `Keypoints` of
     leading dimensions (N, 2) (frame, left/right). Matching, chain filter,
     triangulation, RANSAC, LM and gates run as one device program with
     exact online semantics; binary descriptors may travel as packed uint8
-    bytes (`frontend_classic._pack_features_np(packed=True)`)."""
+    bytes (`frontend_classic._pack_features_np(packed=True)`). With a
+    `mesh` the keypoint stack is sharded over frames."""
     return build_online_hybrid(cfg, device=device, feature_input=True,
-                               binary_desc=binary_desc)
+                               binary_desc=binary_desc, mesh=mesh)
 
 
-def build_orb_hybrid(cfg: VOConfig, device="cuda") -> OnlineHybrid:
+def build_orb_hybrid(cfg: VOConfig, device="cuda",
+                     mesh: Optional[Mesh] = None) -> OnlineHybrid:
     """The fully device-resident classic mode: the classic front end the
     configuration names (ops/orb.py, ops/akaze.py: FAST or Shi-Tomasi or
     AKAZE detection, steered-BRIEF, BRISK or M-LDB bits) in place of the
     CNN, Hamming matching, and the same chain filter, solve and gates, as
     one device program. `hybrid(images (N, 2, H, W) float in [0, 1], P_l,
-    P_r, *, gumbel=None, generator=None)`."""
+    P_r, *, gumbel=None, generator=None)`. With a `mesh` the front end runs
+    on each rank's frames."""
     from spsvo_tpu_torch.ops.orb import frontend_kwargs, orb_frontend_batch
     check_supported(cfg)       # a host-classic configuration names OpenCV
     if not cfg.device_classic:
@@ -502,7 +786,8 @@ def build_orb_hybrid(cfg: VOConfig, device="cuda") -> OnlineHybrid:
     return build_online_hybrid(
         cfg, device=device, binary_desc=True,
         frontend_batch_fn=functools.partial(orb_frontend_batch,
-                                            **frontend_kwargs(cfg)))
+                                            **frontend_kwargs(cfg)),
+        mesh=mesh)
 
 
 # --------------------------------------------------------------------------
@@ -562,46 +847,67 @@ class BatchVO:
     and ONE batched solve over the N-1 pairs (identity prior), then the
     scalar gate pass and pose chaining. Inputs and noise as for
     `OnlineHybrid`; `diag` holds per-pair (N-1,) tensors, `gated` among
-    them."""
+    them. Each rank of the `mesh` (default `Mesh.alone`) runs the front
+    end, the matching, the chains and the batched solve for its shard (the
+    halo as in the hybrid), then one gather of the solved pairs; the gate
+    pass and the chaining run replicated."""
 
-    def __init__(self, cfg: VOConfig, model, device):
+    def __init__(self, cfg: VOConfig, model, device,
+                 mesh: Optional[Mesh] = None):
         self.cfg, self.model = cfg, model
         self.device = torch.device(device)
+        self.mesh = mesh or Mesh.alone(self.device)
 
     def draw_gumbel(self, n_frames: int,
                     generator: Optional[torch.Generator] = None
                     ) -> torch.Tensor:
-        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device)
+        return draw_pair_gumbel(self.cfg, n_frames, generator, self.device,
+                                self.mesh)
 
     @torch.no_grad()
     def __call__(self, images: torch.Tensor, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        if images.shape[0] < 2:
+        n = images.shape[0]
+        if n < 2:
             raise ValueError("the batch mode needs at least 2 frames")
         if gumbel is None:
-            gumbel = self.draw_gumbel(images.shape[0], generator)
+            gumbel = self.draw_gumbel(n, generator)
+        gumbel = gumbel.to(self.device)
         P_l = P_l.to(self.device, torch.float32)
         P_r = P_r.to(self.device, torch.float32)
-        kp_l, kp_r = stereo_frontend(self.model, images, self.cfg)
-        stereo, inter = match_pairs(kp_l, kp_r, self.cfg)
+        shard = _Shard.of(self.mesh, n)
+        p0, m = shard.a, shard.pairs
+        kp_l, kp_r = stereo_frontend(
+            self.model, shard.local((images,), self.device)[0], self.cfg)
+        kp_l, kp_r = shard.extend(kp_l, kp_r,
+                                  shard.halo_keypoints(kp_l, kp_r))
+        stereo, inter = match_pairs(kp_l, kp_r, self.cfg,
+                                    n_stereo=shard.frames)
+        stereo = shard.extend_stereo(stereo,
+                                     self.mesh.halo_next([stereo[0]]))
         chains, counts = pair_chains(kp_l, kp_r, stereo, inter, self.cfg)
-        (qs, ts, qs_raw, ts_raw, ok), diag = _pair_solve(
-            chains, P_l, P_r, self.cfg, gumbel)
-        q_out, t_out, gated = _gate_scan(qs, ts, qs_raw, ts_raw, ok, self.cfg)
+        solved, diag = _pair_solve(chains, P_l, P_r, self.cfg,
+                                   gumbel[p0:p0 + m])
+        leaves = iter(self.mesh.gather_frames(
+            [*solved, *diag.values(), *counts.values()], shard.counts))
+        solved = tuple(next(leaves) for _ in solved)
+        diag = {k: next(leaves) for k in diag}
+        counts = {k: next(leaves) for k in counts}
+        q_out, t_out, gated = _gate_scan(*solved, self.cfg)
         return chain_poses(q_out, t_out), dict(diag, **counts, gated=gated)
 
 
-def build_batch_vo(cfg: VOConfig, model=None, mesh=None, device="cuda"
-                   ) -> BatchVO:
-    """The offline batch mode for `cfg` on `device` (see `BatchVO`). One
-    device: `mesh` must be None."""
-    if mesh is not None:
-        raise NotImplementedError("not ported yet: a device mesh (multi-GPU "
-                                  "sharding)")
-    model, device = _resolve(cfg, model, device, "build_batch_vo")
-    return BatchVO(cfg, model, device)
+def build_batch_vo(cfg: VOConfig, model=None, mesh: Optional[Mesh] = None,
+                   device="cuda") -> BatchVO:
+    """The offline batch mode for `cfg` on `device` (see `BatchVO`); with a
+    `mesh` (`parallel.mesh.make_mesh`) frame-sharded over its ranks, on
+    the mesh's device."""
+    model, device = _resolve(cfg, model, device, "build_batch_vo",
+                             mesh=mesh)
+    _mesh_kernels(mesh, cfg, False, solver.pallas_solver_config(cfg))
+    return BatchVO(cfg, model, device, mesh)
 
 
 # --------------------------------------------------------------------------

@@ -6,9 +6,16 @@
     python -m spsvo_tpu_torch.run --preset superpoint_jetson --device cpu ...
     python -m spsvo_tpu_torch.run --compile-sweep --filter superpoint
 
+    torchrun --nproc-per-node 4 -m spsvo_tpu_torch.run --mode hybrid \
+        --kitti-root /data/kitti_odometry --eval-id 5
+
 Artefacts land in kitti_results/<description>/NN_pred.txt and
 kitti_latency_csvs/<machine>/, as the JAX package's `spsvo_tpu.run` writes
-them. Runs on the CUDA device unless `--device cpu` is given.
+them. Runs on the CUDA device unless `--device cpu` is given. The JAX CLI
+shards the whole-sequence modes over the devices its runtime has; this one
+over the ranks its launcher started: under `torchrun` the hybrid, batch
+and orb modes run frame-sharded, one rank per GPU (`cuda:LOCAL_RANK`, NCCL;
+gloo with `--device cpu`), and rank 0 writes the pose file.
 """
 
 from __future__ import annotations

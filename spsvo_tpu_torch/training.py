@@ -20,13 +20,14 @@ gradient.
 The optimizer (`Adam`, `make_optimizer`) is optax's `adam` with its
 defaults on the weights and `set_to_zero` on the buffers, written out: a
 learning-rate schedule is read at the update count before the increment, as
-optax does. Data-parallel training over several devices is ROADMAP Queue 1
-item 21 (`build_sharded_train_step`).
+optax does. `build_sharded_train_step` is the data-parallel step over a
+device mesh (parallel/mesh.py): the batch sharded over the ranks, the
+gradients averaged across them, the same update on every rank.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, NamedTuple, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Tuple, Union
 
 import numpy as np
 import torch
@@ -206,12 +207,84 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor], *,
     return TrainState(params, opt_state, state.step + 1), metrics
 
 
-def build_sharded_train_step(apply_fn, mesh, lr: float = 1e-3,
-                             axis_name: str = "data"):
-    """The JAX package's data-parallel train step over a device mesh."""
-    raise NotImplementedError(
-        "data-parallel training over several GPUs is not ported yet "
-        "(ROADMAP Queue 1 item 21, multi-GPU sharding)")
+class ShardedTrainStep:
+    """`step(state, batch) -> (state, metrics)`, `train_step` data-parallel
+    over a mesh. Every rank calls it with the same full batch; rank r
+    takes its rows [r B / w, (r + 1) B / w) (`mesh.shard_bounds`), computes
+    their loss and gradients with `value_and_grad`, and one
+    `Mesh.all_reduce_mean` weighted by the row counts gives every rank the
+    whole batch's mean gradient and metrics. The same `Adam.update` then
+    runs on every rank, so the parameters and the optimizer state stay
+    replicated: rank 0's are broadcast once, at the first call. BatchNorm
+    statistics stay frozen (`_is_buffer`)."""
+
+    def __init__(self, apply_fn, mesh, lr: LearningRate = 1e-3):
+        self.apply_fn, self.mesh, self.lr = apply_fn, mesh, lr
+        self._replicated = False
+
+    def replicate(self, state: TrainState) -> TrainState:
+        """Rank 0's parameters, moments and counts on every rank."""
+        p, opt = state.params, state.opt_state
+        names, moments = list(p), list(opt.mu)
+        dev = self.mesh.device
+        counts = torch.tensor([opt.count, state.step], dtype=torch.int64,
+                              device=dev)
+        got = self.mesh.broadcast(
+            [p[k].to(dev) for k in names]
+            + [opt.mu[k].to(dev) for k in moments]
+            + [opt.nu[k].to(dev) for k in moments] + [counts])
+        n, m = len(names), len(moments)
+        count, step = (int(v) for v in got[-1].tolist())
+        return TrainState(dict(zip(names, got[:n])),
+                          AdamState(count, dict(zip(moments, got[n:n + m])),
+                                    dict(zip(moments, got[n + m:n + 2 * m]))),
+                          step)
+
+    def metrics_and_grads(self, params: Params,
+                          batch: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], Params]:
+        """The whole batch's metrics and mean gradient, on every rank:
+        this rank's rows through `value_and_grad`, then one weighted
+        `all_reduce_mean`."""
+        from spsvo_tpu_torch.parallel.mesh import shard_bounds
+        mesh = self.mesh
+        rows = next(iter(batch.values())).shape[0]
+        if rows < mesh.size:
+            raise ValueError(f"a batch of {rows} over {mesh.size} ranks")
+        a, b = shard_bounds(rows, mesh.size)[mesh.rank]
+        local = {k: v[a:b].to(mesh.device) for k, v in batch.items()}
+        (_, metrics), grads = value_and_grad(
+            lambda p: total_loss(self.apply_fn, p, local), params)
+        g_names: List[str] = list(grads)
+        m_names: List[str] = list(metrics)
+        mean = mesh.all_reduce_mean([grads[k] for k in g_names]
+                                    + [metrics[k] for k in m_names],
+                                    weight=float(b - a))
+        return (dict(zip(m_names, mean[len(g_names):])),
+                dict(zip(g_names, mean[:len(g_names)])))
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor]
+                 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        if not self._replicated:
+            state = self.replicate(state)
+            self._replicated = True
+        metrics, grads = self.metrics_and_grads(state.params, batch)
+        params, opt_state = Adam(self.lr).update(grads, state.opt_state,
+                                                 state.params)
+        return TrainState(params, opt_state, state.step + 1), metrics
+
+
+def build_sharded_train_step(apply_fn, mesh, lr: LearningRate = 1e-3
+                             ) -> ShardedTrainStep:
+    """The data-parallel train step over `mesh` (`parallel.mesh.make_mesh`;
+    see `ShardedTrainStep`). The JAX package's `axis_name` has no
+    counterpart: a mesh here has one axis."""
+    from spsvo_tpu_torch.parallel.mesh import Mesh
+    if not isinstance(mesh, Mesh):
+        raise TypeError("build_sharded_train_step: mesh must be a "
+                        "spsvo_tpu_torch.parallel.mesh.Mesh (make_mesh), got "
+                        f"{type(mesh)}")
+    return ShardedTrainStep(apply_fn, mesh, lr)
 
 
 def synthetic_batch(batch: int, h: int, w: int, *,

@@ -116,6 +116,25 @@ def test_training_entry_points_raise_without_cuda(tmp_path):
                                         ["a.weight"])
 
 
+def test_make_mesh_defaults_to_cuda_and_nccl(monkeypatch):
+    """`make_mesh` defaults to the card and NCCL and, without a card,
+    raises (no quiet gloo or CPU mesh); gloo on the CPU only when asked."""
+    from spsvo_tpu_torch.parallel import mesh
+    params = inspect.signature(mesh.make_mesh).parameters
+    assert params["device"].default == "cuda"
+    assert params["backend"].default is None
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default works")
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh(backend="gloo")
+    with pytest.raises(ValueError, match="NCCL"):
+        mesh.make_mesh(device="cpu", backend="nccl")
+
+
 def test_cli_defaults_to_cuda(tmp_path, monkeypatch):
     """`--device` defaults to cuda: without a card the CLI raises once it
     builds the pipeline (no quiet fallback; the fused modes build theirs in

@@ -256,7 +256,16 @@ def test_batch_vo_matches_jax(change):
     assert np.abs(td["num_inliers"].numpy()
                   - np.asarray(jd["num_inliers"])).max() <= 3
     assert np.abs(tw[:, :3, 3].numpy() - gt).max() < 0.25
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # the port's own mesh of one (no process group) runs the same program:
+    # the same bits; the JAX package's mesh is refused
+    from spsvo_tpu_torch.parallel.mesh import make_mesh
+    sharded = tsh.build_batch_vo(_tcfg(**change), device="cpu",
+                                 mesh=make_mesh(1, device="cpu"))
+    sw, sd = sharded(torch.as_tensor(imgs), torch.as_tensor(P_l2),
+                     torch.as_tensor(P_r2), gumbel=torch.as_tensor(gumbel))
+    assert torch.equal(sw, tw)
+    assert all(torch.equal(sd[k], v) for k, v in td.items())
+    with pytest.raises(TypeError, match="Mesh"):
         tsh.build_batch_vo(_tcfg(**change), mesh=mesh, device="cpu")
 
 

@@ -360,5 +360,21 @@ def test_synthetic_batch_and_sharded_step():
     assert b["image_a"].shape == (2, 48, 64, 1)
     assert b["labels_a"].shape == (2, 6, 8) and b["labels_a"].max() <= 64
     assert torch.equal(b["correspondence"][1], torch.eye(48))
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tt.build_sharded_train_step(None, None)
+    # the sharded step on a mesh of one (no process group) equals
+    # `train_step`; the JAX package's mesh is refused (the sharded
+    # step over several ranks: tests/test_torch_parallel.py)
+    from spsvo_tpu_torch.parallel.mesh import make_mesh
+    model = tzoo.load_model("sp_resnet18", device="cpu")
+    apply_fn = tzoo.apply_fn(model)
+    state = tt.init_train_state(apply_fn, dict(model.state_dict()), LR)
+    want, m_want = tt.train_step(state, b, apply_fn=apply_fn, lr=LR)
+    step = tt.build_sharded_train_step(apply_fn, make_mesh(1, device="cpu"),
+                                       LR)
+    got, m_got = step(state, b)
+    assert got.step == 1 and got.opt_state.count == 1
+    assert all(torch.equal(got.params[k], v) for k, v in want.params.items())
+    assert all(torch.equal(m_got[k], v) for k, v in m_want.items())
+    with pytest.raises(TypeError, match="Mesh"):
+        tt.build_sharded_train_step(
+            apply_fn, jax.sharding.Mesh(np.array(jax.devices()[:1]),
+                                        ("data",)))
