@@ -121,6 +121,20 @@ limit, then the result line:
      note), BN statistics bit-unchanged; f. ms per sequence, per step, and
      peak memory per rank.
      (`python3 chip_smoke.py --phase11-only` runs phases 1, 2 and 11.)
+ 12. the paths ported last, on phase 5's corridor at the flagship's
+     width: a. the speculative hybrid (the flagship without landmark fusion
+     and without the fused solver, `speculative_solve`: the sampled winner
+     and its refit, polish and LM hoisted before the scan) against the
+     same configuration's plain branch on equal noise (equal counts per
+     pair, world poses within SPEC_WORLD_ATOL), kernel 1 once at B=63 and
+     kernel 2 never, kernel 1 against its plain version, the graph
+     against eager, phase 6's bounds, both branches' sequence and scan ms
+     and the share of pairs the prior won; b. `landmark_refine` (the LM
+     pass on the fused current points) through the hybrid with all of
+     phase 6's checks and through `VisualOdometry.process` on 8 frames (8
+     launches of each kernel), its drift beside phase 6's; c. which loader
+     `io.loader.make_loader` returns on this machine (the native one needs
+     OpenCV). (`--phase12-only` runs phases 1, 2 and 12.)
 
 Before phase 3's summary line, kernel 1 is also checked at the online
 hybrid's B=63 (2N-1 pairs for N=32) and at ragged K0=500, K1=300, and
@@ -138,12 +152,14 @@ The kernel report gives each kernel's launches per path ("per_frame",
 "hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
 "stream", phase 8's "orb_hybrid_*", "classic_process",
 "classic_stream", "harness_orb", "feature_hybrid", phase 9's
-"int8_hybrid", "int8_per_frame", and phase 11's "sharded_*" per rank
-"_rN"), each counted from zero
+"int8_hybrid", "int8_per_frame", phase 11's "sharded_*" per rank "_rN",
+and phase 12's "speculative_hybrid", "landmark_refine_hybrid",
+"landmark_refine_process"), each counted from zero
 over that path's run; "launches" is their sum. Every path must launch both
-kernels, but for the classic ones, which must launch kernel 1 never: binary
-descriptors are matched by a Hamming matrix product outside it, as in the
-JAX package. A count is a launch that ran on the card: a wrapper's call
+kernels, but for the classic ones, which must launch kernel 1 never (binary
+descriptors are matched by a Hamming matrix product outside it), and the
+speculative one, which must launch kernel 2 never (it refines its winners
+op by op), as in the JAX package. A count is a launch that ran on the card: a wrapper's call
 under CUDA-graph capture is recorded with the graph and counted at every
 replay.
 
@@ -686,6 +702,39 @@ def check_scan_steps(phase, hybrid, xs, P_l, P_r, n):
     return worst, k2
 
 
+def hybrid_inputs(raw, corridor, cfg):
+    """The corridor's raw (N, 2, H, W) frames on the card, preprocessed
+    there to the configuration's resolution, with the rescaled
+    projections."""
+    import torch
+
+    from spsvo_tpu_torch.ops import image as image_ops
+    _, _, P_l_np, P_r_np, _ = corridor
+    h0, w0 = raw.shape[-2:]
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    P_l, P_r = (image_ops.update_projection_matrix(
+        torch.as_tensor(P, dtype=torch.float32, device=raw.device), h0, w0,
+        cfg.image_height, cfg.image_width) for P in (P_l_np, P_r_np))
+    return imgs, P_l, P_r
+
+
+def graph_replays(hybrid, imgs, P_l, P_r, gumbel, reps: int = 10):
+    """The hybrid's first call (it captures the CUDA graph), then `reps`
+    replays: (the last result, capture seconds, ms per replay)."""
+    import torch
+    t0 = time.perf_counter()
+    out = hybrid(imgs, P_l, P_r, gumbel=gumbel)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = hybrid(imgs, P_l, P_r, gumbel=gumbel)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return out, capture_s, times
+
+
 def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
                  drift_limit=5.0):
     """The online hybrid over the corridor (`cfg` defaults to the flagship
@@ -698,13 +747,12 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
 
     from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
-    from spsvo_tpu_torch.ops import image as image_ops
     from spsvo_tpu_torch.ops import solver_cuda
     from spsvo_tpu_torch.parallel.sharding import (LANDMARK_KERNEL,
                                                    build_online_hybrid,
                                                    match_batch, match_pairs)
 
-    frames, gt, P_l_np, P_r_np, _ = corridor
+    frames, gt, _, _, _ = corridor
     n = len(frames)
     cfg = cfg or flagship_cfg()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -712,13 +760,9 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     if hybrid.branch != LANDMARK_KERNEL:
         fail(f"hybrid branch {hybrid.branch}, expected {LANDMARK_KERNEL}")
     raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
-    h0, w0 = raw.shape[-2:]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
-    P_l, P_r = (image_ops.update_projection_matrix(
-        torch.as_tensor(P, dtype=torch.float32, device=dev), h0, w0,
-        cfg.image_height, cfg.image_width) for P in (P_l_np, P_r_np))
+    imgs, P_l, P_r = hybrid_inputs(raw, corridor, cfg)
     torch.cuda.synchronize()
     preprocess_ms = (time.perf_counter() - t0) * 1e3
     gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
@@ -762,17 +806,8 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
     worst, k2 = check_scan_steps(phase, hybrid, xs, P_l, P_r, n)
 
-    # the CUDA graph: first call captures, later calls replay
-    t0 = time.perf_counter()
-    world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t0
-    replay_ms = []
-    for _ in range(10):
-        t0 = time.perf_counter()
-        world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)
-        torch.cuda.synchronize()
-        replay_ms.append((time.perf_counter() - t0) * 1e3)
+    (world_g, diag_g), capture_s, replay_ms = graph_replays(
+        hybrid, imgs, P_l, P_r, gumbel)
     same = torch.equal(world_g, world_e) and all(
         torch.equal(diag_g[k], v) for k, v in diag_e.items())
     max_diff = (world_g - world_e).abs().max().item()
@@ -816,7 +851,8 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     say(phase, result="pass", frames_per_s=n / seq_ms * 1e3,
         sequence_ms=seq_ms, **k2_t)
     timing = {"eager_ms": float(np.median(eager_ms)), "replay_ms": seq_ms,
-              "phase_ms": split, "peak_memory_gb": peak_gb}
+              "phase_ms": split, "peak_memory_gb": peak_gb,
+              "drift_percent": score["final_drift_percent"]}
     return launches, k2_t, m_err, max(worst["q"], worst["t"]), timing
 
 
@@ -2672,6 +2708,152 @@ def phase_sharded(dev, corridor):
     return by_path, m_err, s_err
 
 
+# phase 12a: speculative against plain on equal noise. The JAX package pins
+# this equality at 1e-3 m (tests/test_parallel.py); the hoisted refinement
+# runs batched over the pairs and the plain scan pair by pair, and the LM's
+# batched and unbatched products round differently.
+SPEC_WORLD_ATOL = 1e-3
+
+
+def phase_speculative(dev, corridor):
+    """12a: the speculative hybrid (the flagship without landmark fusion
+    and without the fused solver, `speculative_solve`) against the same
+    configuration's plain branch on equal noise: equal counts per pair,
+    world poses within SPEC_WORLD_ATOL; its launches (kernel 1 once at
+    B=2N-1, kernel 2 never, as in the JAX package), kernel 1 against its
+    plain version on the run's descriptors, the CUDA graph against the
+    eager run bit for bit, phase 6's bounds, and both branches' sequence
+    and scan times. Returns (launches, kernel 1's largest error)."""
+    import torch
+
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.parallel.sharding import (PLAIN, SPECULATIVE,
+                                                   build_online_hybrid,
+                                                   match_batch)
+    frames, gt, _, _, _ = corridor
+    n = len(frames)
+    cfg = dataclasses.replace(flagship_cfg(), landmark_fusion=False,
+                              use_pallas_solver=False, speculative_solve=True)
+    spec = build_online_hybrid(cfg, device=dev)
+    plain = build_online_hybrid(dataclasses.replace(
+        cfg, speculative_solve=False), model=spec.model, device=dev)
+    if (spec.branch, plain.branch) != (SPECULATIVE, PLAIN):
+        fail(f"phase12a: branches {spec.branch}, {plain.branch}")
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    imgs, P_l, P_r = hybrid_inputs(raw, corridor, cfg)
+    gumbel = spec.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    spec.eager(imgs, P_l, P_r, gumbel)           # warm-up: builds kernel 1
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    world_s, diag_s = spec.eager(imgs, P_l, P_r, gumbel)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) * 1e3
+    launches, shapes = dict(_build.launches), dict(_build.shapes)
+    world_p, diag_p = plain.eager(imgs, P_l, P_r, gumbel)
+    say("phase12a", frames=n, launches=launches,
+        shapes={k: list(v) for k, v in shapes.items()})
+    if (launches.get("match_nn", 0) != 1
+            or shapes["match_nn"][0] != 2 * n - 1
+            or launches.get("fused_solve", 0) != 0):
+        fail(f"phase12a: launches {launches} at {shapes}, expected match_nn "
+             f"once at B={2 * n - 1} and fused_solve never")
+    counts = ("num_chain", "num_inliers", "pnp_success", "accel_anomaly",
+              "num_keypoints_left", "num_stereo_matches",
+              "num_interframe_matches")
+    differing = [k for k in counts if not torch.equal(diag_s[k], diag_p[k])]
+    spec_diff = (world_s - world_p).abs().max().item()
+    winners = diag_s["prior_winner"].float().mean().item()
+    say("phase12a", check="speculative vs plain, equal noise",
+        differing_counts=differing, world_max_abs_diff=spec_diff,
+        tolerance=SPEC_WORLD_ATOL, prior_winner_share=winners)
+    if differing or not spec_diff <= SPEC_WORLD_ATOL:
+        fail(f"phase12a: speculative vs plain: counts {differing} differ, "
+             f"world max diff {spec_diff}")
+
+    kp_l, kp_r = spec.frontend(imgs)
+    q, vq, t, vt = match_batch(kp_l, kp_r, cfg)
+    m_err, m_bad, m_matches = check_matcher("speculative", q, vq, t, vt,
+                                            say_phase=False)
+    say("phase12a", check="match_nn vs plain", B=q.shape[0],
+        matches=m_matches, idx_mismatch_near_ties=m_bad,
+        max_abs_err_dist2=m_err)
+
+    (world_g, diag_g), _, spec_ms = graph_replays(spec, imgs, P_l, P_r,
+                                                  gumbel)
+    same = torch.equal(world_g, world_s) and all(
+        torch.equal(diag_g[k], v) for k, v in diag_s.items())
+    _, _, plain_ms = graph_replays(plain, imgs, P_l, P_r, gumbel)
+    split_s = phase_split_ms(spec, imgs, P_l, P_r, gumbel)
+    split_p = phase_split_ms(plain, imgs, P_l, P_r, gumbel)
+    world = [T.astype(np.float64) for T in world_s.cpu().numpy()]
+    score = score_trajectory(world, gt)
+    kps = diag_s["num_keypoints_left"].cpu().numpy()
+    inl = diag_s["num_inliers"].cpu().numpy()
+    say("phase12a", graph_equals_eager_bitwise=same, eager_ms=eager_ms,
+        sequence_ms=float(np.median(spec_ms)),
+        sequence_ms_plain=float(np.median(plain_ms)),
+        scan_ms=split_s["scan"], scan_ms_plain=split_p["scan"],
+        prep_ms=split_s["chain_prep_hyp_pack"],
+        prep_ms_plain=split_p["chain_prep_hyp_pack"], phase_ms=split_s,
+        median_keypoints=float(np.median(kps)),
+        median_inliers=float(np.median(inl)),
+        drift_percent=score["final_drift_percent"])
+    if not same:
+        fail("phase12a: graph replay differs from eager")
+    if not all(np.isfinite(T).all() for T in world):
+        fail("phase12a: non-finite trajectory")
+    if not (np.median(kps) > 200 and np.median(inl) > 30
+            and score["final_drift_percent"] < 5.0):
+        fail(f"phase12a: keypoints {np.median(kps)}, inliers "
+             f"{np.median(inl)}, drift {score['final_drift_percent']}")
+    return launches, m_err
+
+
+def phase_landmark_refine(dev, corridor, drift_phase6):
+    """12b: the flagship with `landmark_refine` through the hybrid (phase
+    6's checks: launches, kernel 1 and every scan step against their plain
+    versions, graph against eager, bounds) and through
+    `VisualOdometry.process` on 8 frames (8 launches of each kernel).
+    Returns ({path: launches}, kernel 1's and kernel 2's largest errors)."""
+    cfg = dataclasses.replace(flagship_cfg(), landmark_refine=True)
+    h_launches, _, m_err, s_err, timing = phase_hybrid(
+        dev, corridor, phase="phase12b", cfg=cfg)
+    p_launches, p_ms = phase_main_path(dev, corridor, "phase12b_process",
+                                       cfg=cfg, n=8)
+    if p_launches.get("fused_solve", 0) != 8:
+        fail(f"phase12b_process: fused_solve launched "
+             f"{p_launches.get('fused_solve', 0)} times, expected 8")
+    say("phase12b", drift_percent=timing["drift_percent"],
+        drift_percent_phase6=drift_phase6, replay_ms=timing["replay_ms"],
+        scan_ms=timing["phase_ms"]["scan"], process_ms=p_ms)
+    return ({"landmark_refine_hybrid": h_launches,
+             "landmark_refine_process": p_launches}, m_err, s_err)
+
+
+def phase_loader(dev):
+    """12c: which loader `make_loader` returns here (the native one needs
+    a compiler and OpenCV's headers and libraries)."""
+    import warnings
+
+    from spsvo_tpu_torch.io import loader, png
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = [os.path.join(tmp, f"{i}.png") for i in range(2)]
+        for p in paths:
+            png.write_gray8(p, np.full((24, 80), 128, np.uint8))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            ld = loader.make_loader(paths[:1], paths[1:], 16, 48)
+        got = list(ld)
+        ld.close()
+    say("phase12c", loader=type(ld).__name__, frames=len(got),
+        native_available=loader._native_lib() is not None,
+        warning=[str(w.message)[:200] for w in caught])
+    if len(got) != 1 or got[0][1].shape != (2, 16, 48):
+        fail(f"phase12c: the loader yielded {len(got)} frames")
+
+
 def main() -> None:
     try:
         import torch
@@ -2711,8 +2893,14 @@ def main() -> None:
         say("phase2", kernel=name, build_s=log["seconds"],
             cached=log["cached"], ptxas=regs)
 
-    if "--phase11-only" in sys.argv[1:]:     # a development aid
+    if "--phase11-only" in sys.argv[1:]:     # development aids
         phase_sharded(dev, render_corridor())
+        return
+    if "--phase12-only" in sys.argv[1:]:
+        corridor = render_corridor()
+        phase_speculative(dev, corridor)
+        phase_landmark_refine(dev, corridor, None)
+        phase_loader(dev)
         return
     rng = np.random.default_rng(0)
     m_err, m_t = phase_matcher(dev, rng)
@@ -2745,33 +2933,43 @@ def main() -> None:
     s_launches, s_m_err, s_s_err = phase_sharded(dev, corridor)
     m_err, s_err = max(m_err, s_m_err), max(s_err, s_s_err)
     say("phase11", gpu=gpu)
+    t12 = time.perf_counter()
+    x_launches, x_m_err = phase_speculative(dev, corridor)
+    r_launches, r_m_err, r_s_err = phase_landmark_refine(
+        dev, corridor, h_timing["drift_percent"])
+    phase_loader(dev)
+    m_err, s_err = max(m_err, x_m_err, r_m_err), max(s_err, r_s_err)
+    say("phase12", result="pass", seconds=time.perf_counter() - t12, gpu=gpu)
     if "jax" in sys.modules or "cv2" in sys.modules:
         fail("jax or cv2 was imported")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
     def counts(name):
-        # every path launches both kernels, but for the classic ones:
-        # binary descriptors never reach kernel 1, as in the JAX package
+        # every path launches both kernels, but for the classic ones
+        # (binary descriptors never reach kernel 1) and the speculative one
+        # (no fused solve), as in the JAX package
         by_path = {"per_frame": launches.get(name, 0),
                    "hybrid": h_launches.get(name, 0),
                    **{path: c.get(name, 0) for path, c in c_launches.items()},
                    **{path: c.get(name, 0) for path, c in q_launches.items()},
                    **{path: c.get(name, 0) for path, c in s_launches.items()
-                      if "orb" not in path}}
+                      if "orb" not in path},
+                   **{path: c.get(name, 0) for path, c in r_launches.items()}}
         classic = {path: c.get(name, 0) for path, c in b_launches.items()}
         classic.update({path: c.get(name, 0) for path, c in
                         s_launches.items() if "orb" in path})
+        speculative = {"speculative_hybrid": x_launches.get(name, 0)}
+        never, also = ((classic, speculative) if name == "match_nn"
+                       else (speculative, classic))
+        stray = [path for path, count in never.items() if count]
+        if stray:
+            fail(f"{name} was launched on {stray}")
+        by_path.update(also)
         missing = [path for path, count in by_path.items() if count == 0]
-        if name == "match_nn":
-            stray = [path for path, count in classic.items() if count]
-            if stray:
-                fail(f"match_nn was launched on the classic paths {stray}")
-        else:
-            missing += [path for path, count in classic.items() if count == 0]
         if missing:
             fail(f"{name} was not launched on {missing}")
-        by_path.update(classic)
+        by_path.update(never)
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
     print(json.dumps({"kernels": [

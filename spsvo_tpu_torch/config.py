@@ -236,9 +236,9 @@ def classic_sweep_configs(base: Optional[VOConfig] = None) -> list[VOConfig]:
     """The 6 classic configs benchmarked beside the 72 NN engines: each
     classic detector with its natural descriptor (detector-only families
     use ORB descriptors). The BRISK and AKAZE rows name the device front
-    ends at native KITTI resolution and run (`run_sweep`: mode "orb"); the
-    others name the host OpenCV detectors, which are not ported, so
-    `run_sweep` records those rows as errors."""
+    ends at native KITTI resolution (`run_sweep`: mode "orb"); the others
+    name the host OpenCV detectors at native resolution (`run_sweep`: mode
+    "classic")."""
     base = base or VOConfig()
     pairs = [
         (DetectorType.SHI_TOMASI, DescriptorType.ORB),

@@ -6,13 +6,16 @@ Mirrors `spsvo_tpu.eval.harness` with the same artefacts:
     write the KITTI-format pose file `<results_dir>/<description>/NN_pred.txt`
     and the 4-column per-frame latency CSV `{detect,match,solve,total}`
     named `<config_string>_<tag>.csv` under `<latency_dir>/<machine_name>/`;
-  * `run_sequence_fused` — the whole-sequence modes ("hybrid", "batch", and
-    "orb": the device-resident classic front end in the hybrid);
+  * `run_sequence_fused` — the whole-sequence modes ("hybrid", "batch",
+    "classic": OpenCV detection of every frame on host threads, then the
+    feature hybrid, and "orb": the device-resident classic front end in
+    the hybrid);
   * `run_eval_id`        — the kitti_eval_id 0..13 entry point;
   * `run_sweep`          — the config grid.
 
-Detection by OpenCV on the host and the per-frame visualisation are not
-ported: `mode="classic"` and `viz_dir` raise NotImplementedError.
+`run_sequence(viz_dir=...)` writes the per-frame match and inlier
+renderings (viz.py) as PNG files. The host classic mode and the renderings
+need OpenCV; everything else runs without it.
 """
 
 from __future__ import annotations
@@ -29,12 +32,6 @@ import numpy as np
 from spsvo_tpu_torch.config import VOConfig, sweep_configs
 from spsvo_tpu_torch.eval import metrics as metrics_mod
 from spsvo_tpu_torch.io import kitti
-
-_NO_CLASSIC = ("not ported yet: mode='classic' (the host classic front "
-               "ends detect with OpenCV; ROADMAP.md, Queue 1); the "
-               "device-resident classic front ends run as mode='orb'")
-_NO_VIZ = ("not ported yet: viz_dir (the match/inlier renderings of viz.py "
-           "need OpenCV; ROADMAP.md, Queue 1: viz.py)")
 
 
 @dataclasses.dataclass
@@ -89,6 +86,36 @@ def _write_pose_file(poses, results_dir, description, kitti_eval_id) -> None:
     kitti.write_kitti_poses(os.path.join(d, name), poses)
 
 
+def _write_frame_viz(viz_dir: str, i: int, img_l, img_r, out, cfg,
+                     prev_xy: Optional[np.ndarray]) -> None:
+    """Frame i's renderings: `matches_{i:06d}.png` (the stereo matches)
+    and, from the second frame, `inliers_{i:06d}.png` (the current left
+    keypoints in the inlier colour code, motion lines to `prev_xy`), drawn
+    on the frames as OpenCV preprocesses them for the configuration."""
+    import cv2
+
+    from spsvo_tpu_torch import viz
+    from spsvo_tpu_torch.ops.image import preprocess_u8_cv2
+
+    os.makedirs(viz_dir, exist_ok=True)
+    if cfg.image_height > 0 and cfg.image_width > 0:
+        il, ir = (preprocess_u8_cv2(im, cfg.image_height, cfg.image_width)
+                  for im in (img_l, img_r))
+    else:
+        il, ir = np.asarray(img_l), np.asarray(img_r)
+    host = {k: getattr(out, k).cpu().numpy() for k in (
+        "stereo_map", "interframe_map", "chain_valid", "inliers")}
+    xy_l = out.keypoints_left.xy.cpu().numpy()
+    xy_r = out.keypoints_right.xy.cpu().numpy()
+    cv2.imwrite(os.path.join(viz_dir, f"matches_{i:06d}.png"),
+                viz.draw_matches(il, xy_l, ir, xy_r, host["stereo_map"]))
+    if prev_xy is not None:
+        cv2.imwrite(os.path.join(viz_dir, f"inliers_{i:06d}.png"),
+                    viz.draw_inliers(il, xy_l, prev_xy, host["stereo_map"],
+                                     host["interframe_map"],
+                                     host["chain_valid"], host["inliers"]))
+
+
 def run_sequence(vo, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
                  P_l: np.ndarray, P_r: np.ndarray,
                  results_dir: Optional[str] = None,
@@ -113,17 +140,20 @@ def run_sequence(vo, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
 
     A `RuntimeGuards` instance watches every frame: latency over budget
     always; match/descriptor starvation whenever diagnostics are fetched
-    (`verbose`/`instrument_stages`). Violation counts land in
-    `SequenceResult.guards_summary`."""
+    (`verbose`/`instrument_stages`/`viz_dir`). Violation counts land in
+    `SequenceResult.guards_summary`.
+
+    `viz_dir` writes every `viz_every`-th frame's match and inlier
+    renderings there as PNG files (`_write_frame_viz`; needs OpenCV, and
+    the diagnostics fetch)."""
     from spsvo_tpu_torch.utils.logging import RuntimeGuards
 
-    if viz_dir is not None:
-        raise NotImplementedError(_NO_VIZ)
-    del viz_every
     vo.reset()
     guards = RuntimeGuards(latency_budget_ms=vo.cfg.latency_warn_ms)
+    want_diag = verbose or viz_dir is not None
     latencies: List[Dict[str, float]] = []
     diags: List[Dict[str, float]] = []
+    prev_xy: Optional[np.ndarray] = None
     for i, (il, ir) in enumerate(frames):
         t0 = time.perf_counter()
         d = None
@@ -134,11 +164,12 @@ def run_sequence(vo, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
             d = {k: np.asarray(v.cpu()).item() for k, v in
                  info["output"].diagnostics.items()}
         else:
-            T, info = vo.process(il, ir, P_l, P_r, want_diagnostics=verbose)
+            T, info = vo.process(il, ir, P_l, P_r,
+                                 want_diagnostics=want_diag)
             total = (time.perf_counter() - t0) * 1000.0
             latencies.append({"detect": 0.0, "match": 0.0, "solve": 0.0,
                               "total": total})
-            if verbose:
+            if want_diag:
                 d = {k: v for k, v in info.items() if k != "output"}
         if verbose and d is not None:
             diags.append(d)
@@ -146,6 +177,11 @@ def run_sequence(vo, frames: Iterable[Tuple[np.ndarray, np.ndarray]],
         if d is not None:
             _feed_guards(guards, d, first_frame=(i == 0), frame=i,
                          solve_slots=vo.cfg.solve_slots)
+        if viz_dir is not None:
+            out = info["output"]
+            if i % viz_every == 0:
+                _write_frame_viz(viz_dir, i, il, ir, out, vo.cfg, prev_xy)
+            prev_xy = out.keypoints_left.xy.cpu().numpy()
 
     poses = list(vo.trajectory)
     if results_dir is not None:
@@ -180,6 +216,12 @@ def run_sequence_fused(cfg: VOConfig,
     semantics, prior-independent stages frame-parallel.
     mode="batch":  `parallel.build_batch_vo` — identity-prior solves of all
     pairs at once, the gates re-applied in a scalar pass (offline mode).
+    mode="classic": OpenCV detects every frame on host threads
+    (`frontend_classic.detect_all_frames`), then one
+    `parallel.build_feature_hybrid` program does the rest (binary
+    descriptors sent as packed bytes); per frame the detect column is the
+    detection's wall time, the solve column the program's, each
+    amortised over the frames, and `total` their sum.
     mode="orb":    `parallel.build_orb_hybrid` — the device-resident classic
     front end (`cfg.device_classic`) in the hybrid's program.
 
@@ -202,20 +244,24 @@ def run_sequence_fused(cfg: VOConfig,
     device did process. Only rank 0 writes the pose file."""
     import torch
 
+    from spsvo_tpu_torch.frontend_classic import detect_all_frames
     from spsvo_tpu_torch.ops.image import (preprocess_image_np,
                                            update_projection_matrix_np)
+    from spsvo_tpu_torch.ops.postprocess import Keypoints
     from spsvo_tpu_torch.parallel import mesh as mesh_mod, sharding
     from spsvo_tpu_torch.utils.logging import RuntimeGuards
 
     if mode not in ("hybrid", "batch", "classic", "orb"):
         raise ValueError(f"unknown fused mode {mode!r}")
-    if mode == "classic" or (cfg.is_classic and not cfg.device_classic):
-        raise NotImplementedError(_NO_CLASSIC)
-    if cfg.is_classic != (mode == "orb"):
+    if cfg.is_classic != (mode in ("classic", "orb")):
         raise ValueError(
-            "mode='orb' is the fused mode for device-classic configs; CNN "
-            f"configs use mode='hybrid'/'batch' (got mode={mode!r}, "
-            f"is_classic={cfg.is_classic})")
+            "mode='classic' (OpenCV on the host) and mode='orb' (a "
+            "device-classic configuration) are the fused modes for classic "
+            "configs; CNN configs use mode='hybrid'/'batch' (got "
+            f"mode={mode!r}, is_classic={cfg.is_classic})")
+    if mode == "orb" and not cfg.device_classic:
+        raise ValueError("mode='orb' needs a device-classic configuration "
+                         "(cfg.device_classic=True)")
     frames = list(frames)
     n = len(frames)
     if n < 2:
@@ -227,25 +273,39 @@ def run_sequence_fused(cfg: VOConfig,
                                        h0, w0, h, w)
     P_r2 = update_projection_matrix_np(np.asarray(P_r, np.float64),
                                        h0, w0, h, w)
-    imgs = np.stack([np.stack([preprocess_image_np(il, h, w),
-                               preprocess_image_np(ir, h, w)])
-                     for il, ir in frames])
-
     mesh = mesh_mod.make_mesh(device=device)
     ranks = mesh.size
     n_pad = max(2 * ranks, -(-n // ranks) * ranks)
-    if n_pad > n:           # frames shard over the mesh: pad, trim after
-        imgs = np.concatenate([imgs, np.repeat(imgs[-1:], n_pad - n, axis=0)])
-    build = {"hybrid": sharding.build_online_hybrid,
-             "batch": sharding.build_batch_vo,
-             "orb": sharding.build_orb_hybrid}[mode]
-    fn = build(cfg, device=device, mesh=mesh)
+
+    def pad(x: torch.Tensor) -> torch.Tensor:
+        # frames shard over the mesh: pad with the last one, trim after.
+        # Unpadded frames keep their layout: the trunk's convolutions pick
+        # their algorithms (and so their last bits and their speed) by it
+        if n_pad == n:
+            return x
+        return torch.cat([x, x[-1:].expand((n_pad - n,) + x.shape[1:])])
+
+    detect_ms = 0.0
+    if mode == "classic":
+        t0 = time.perf_counter()
+        kp_stack, _, binary = detect_all_frames(cfg, frames)
+        detect_ms = (time.perf_counter() - t0) / n * 1000.0
+        fn = sharding.build_feature_hybrid(cfg, binary_desc=binary,
+                                           device=device, mesh=mesh)
+        first = Keypoints(*(pad(a).to(fn.device) for a in kp_stack))
+    else:
+        imgs = np.stack([np.stack([preprocess_image_np(il, h, w),
+                                   preprocess_image_np(ir, h, w)])
+                         for il, ir in frames])
+        build = {"hybrid": sharding.build_online_hybrid,
+                 "batch": sharding.build_batch_vo,
+                 "orb": sharding.build_orb_hybrid}[mode]
+        fn = build(cfg, device=device, mesh=mesh)
+        first = pad(torch.as_tensor(imgs)).to(fn.device)
     dev = fn.device
-    n_run = imgs.shape[0]
-    args = (torch.as_tensor(imgs).to(dev),
-            torch.as_tensor(P_l2, dtype=torch.float32).to(dev),
+    args = (first, torch.as_tensor(P_l2, dtype=torch.float32).to(dev),
             torch.as_tensor(P_r2, dtype=torch.float32).to(dev))
-    gumbel = fn.draw_gumbel(n_run, torch.Generator(dev).manual_seed(0))
+    gumbel = fn.draw_gumbel(n_pad, torch.Generator(dev).manual_seed(0))
 
     def sync():
         if dev.type == "cuda":
@@ -261,10 +321,11 @@ def run_sequence_fused(cfg: VOConfig,
 
     world = world[:n].cpu().numpy().astype(np.float64)
     # amortised over the frames the device processed, the padding included
-    per_frame_ms = elapsed / n_run * 1000.0
+    per_frame_ms = elapsed / n_pad * 1000.0
     poses = [world[i] for i in range(n)]
-    latencies = [{"detect": 0.0, "match": 0.0, "solve": 0.0,
-                  "total": per_frame_ms} for _ in range(n)]
+    latencies = [{"detect": detect_ms, "match": 0.0,
+                  "solve": per_frame_ms if mode == "classic" else 0.0,
+                  "total": detect_ms + per_frame_ms} for _ in range(n)]
     diags = {k: v.cpu().numpy() for k, v in diags.items()}
     diag_rows = [{k: float(v[i]) for k, v in diags.items()}
                  for i in range(n - 1)]
@@ -291,10 +352,10 @@ def run_eval_id(vo, kitti_root: str, kitti_eval_id: int,
                 device="cuda") -> SequenceResult:
     """The kitti_eval_id 0..13 entry point over the KITTI odometry layout
     under `kitti_root` (sequences 00..10 for ids 0..10). `mode`: "frame"
-    (per-frame online API, `vo` a `VisualOdometry` or, for a device-classic
+    (per-frame online API, `vo` a `VisualOdometry` or, for a classic
     config, a `ClassicVisualOdometry`) or a fused mode ("hybrid"/"batch"/
-    "orb"), for which `vo` may be a bare VOConfig and `device` says where
-    the program runs."""
+    "classic"/"orb"), for which `vo` may be a bare VOConfig and `device`
+    says where the program runs."""
     if not 0 <= kitti_eval_id < len(kitti.KITTI_EVAL_DRIVES):
         raise ValueError(f"kitti_eval_id {kitti_eval_id} out of range")
     start = kitti.KITTI_EVAL_START_FRAME[kitti_eval_id]
@@ -338,12 +399,12 @@ def run_sweep(frames_fn, P_l: np.ndarray, P_r: np.ndarray,
               device="cuda") -> List[Dict]:
     """Latency + accuracy sweep over the config grid (default: the 72 NN
     configs). `frames_fn() -> iterable of (img_l, img_r)`; every row runs
-    `run_sequence_fused(timing_reps=4)` in mode "hybrid", a device-classic
-    row in mode "orb". With `gt_poses`
-    every row also carries ATE, final drift (over distance travelled) and
-    RPE. A row that cannot run (a model family or front end that is not
-    ported, absent weights) is recorded as `{"config", "error"}` and the
-    grid goes on; the JSON is rewritten after every row."""
+    `run_sequence_fused(timing_reps=4)` in mode "hybrid", a host-classic
+    row in mode "classic", a device-classic row in mode "orb". With
+    `gt_poses` every row also carries ATE, final drift (over distance
+    travelled) and RPE. A row that cannot run (absent weights, an OpenCV
+    build without the algorithm) is recorded as `{"config", "error"}` and
+    the grid goes on; the JSON is rewritten after every row."""
     results = []
     for cfg in (configs or sweep_configs()):
         try:

@@ -1,43 +1,100 @@
-"""Classic (binary-descriptor) feature front ends behind the pipeline's
-interface. Mirrors the device branch of `spsvo_tpu.frontend_classic`.
+"""Classic feature front ends behind the pipeline's interface. Mirrors
+`spsvo_tpu.frontend_classic`.
 
 `ClassicVisualOdometry` is `pipeline.VisualOdometry` with the CNN replaced
-by a device-resident classic front end (ops/orb.py, ops/akaze.py): ORB
-(multi-scale FAST + steered BRIEF or BRISK bits), Shi-Tomasi/GFTT, or
-AKAZE with M-LDB bits, as `cfg.detector_type` / `cfg.descriptor_type` name
-them. Detection, description, Hamming matching (a matrix product of {0,1}
-bit vectors), chain filtering, triangulation, RANSAC and LM all run on the
-device; the solve is the same code as the SuperPoint path's
-(`pipeline.features_step`), the fused solver kernel included.
+by a classic front end, in one of two routes:
 
-The JAX package's other branch detects on the host with OpenCV
-(`make_detector`, `make_extractor`, `detect_all_frames`); it is not here:
-`device_classic=False` raises. What that branch needs besides OpenCV is
-here and runs without it: `_pack_features_np` pads host features (objects
-with `.pt` and `.response`) into the fixed-capacity layout, optionally with
-binary descriptors as packed bytes, which `unpack_binary_desc` unpacks on
-the device (`parallel.sharding.build_feature_hybrid` takes them).
+  * `cfg.device_classic`: a device-resident front end (ops/orb.py,
+    ops/akaze.py): ORB (multi-scale FAST + steered BRIEF or BRISK bits),
+    Shi-Tomasi/GFTT, or AKAZE with M-LDB bits, as `cfg.detector_type` /
+    `cfg.descriptor_type` name them;
+  * otherwise OpenCV on the host: the detector and extractor of
+    `make_detector` / `make_extractor` (ORB, FAST, Shi-Tomasi, SIFT, and
+    BRISK or AKAZE where the OpenCV build has them) on frames cropped and
+    resized by OpenCV, their keypoints padded to the fixed capacity
+    (`_pack_features_np`) and sent to the device.
+
+Either way matching (Hamming distance as a matrix product of {0,1} bit
+vectors; SIFT's float descriptors by L2, through the matcher kernel where
+`pipeline.matcher_gate` holds), the chain filter, triangulation, RANSAC and
+LM run on the device, as the SuperPoint path's `pipeline.features_step`,
+the fused solver kernel included. `detect_all_frames` detects a whole
+sequence on host threads for `parallel.sharding.build_feature_hybrid`
+(binary descriptors travel as packed bytes, unpacked on the device by
+`unpack_binary_desc`).
+
+cv2 is imported inside the functions that need it only: the module, and
+the device route, work where OpenCV is not installed.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 import time
 from typing import Any, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 
-from spsvo_tpu_torch.config import VOConfig
+from spsvo_tpu_torch.config import DescriptorType, DetectorType, VOConfig
 from spsvo_tpu_torch.ops import image as image_ops
 from spsvo_tpu_torch.ops.orb import (descriptor_bits, frontend_kwargs,
                                      orb_frontend_batch)
 from spsvo_tpu_torch.ops.postprocess import Keypoints
 from spsvo_tpu_torch.pipeline import (StepProgram, VOState, VOStepOutput,
-                                      apply_pose_update, check_supported,
-                                      features_step, init_state, match_stage,
-                                      solve_stage, stream_frames)
+                                      apply_pose_update, features_step,
+                                      init_state, match_stage, solve_stage,
+                                      stream_frames)
+
+
+def _cv2_factory(name: str):
+    """`cv2.<name>`, or NotImplementedError naming it where the installed
+    OpenCV build lacks the algorithm (some builds drop BRISK and AKAZE)."""
+    import cv2
+    fn = getattr(cv2, name, None)
+    if fn is None:
+        raise NotImplementedError(
+            f"cv2.{name} unavailable in this OpenCV build "
+            f"({cv2.__version__})")
+    return fn
+
+
+def make_detector(detector_type: DetectorType):
+    """The OpenCV detector with the reference's parameters."""
+    import cv2
+    if detector_type == DetectorType.BRISK:
+        return _cv2_factory("BRISK_create")()
+    if detector_type == DetectorType.ORB:
+        return cv2.ORB_create(
+            nfeatures=2000, scaleFactor=1.2, nlevels=8, edgeThreshold=31,
+            firstLevel=0, WTA_K=2, scoreType=cv2.ORB_FAST_SCORE,
+            patchSize=31, fastThreshold=20)
+    if detector_type == DetectorType.AKAZE:
+        return _cv2_factory("AKAZE_create")()
+    if detector_type == DetectorType.SIFT:
+        return cv2.SIFT_create()
+    if detector_type == DetectorType.FAST:
+        return cv2.FastFeatureDetector_create(10, True)
+    if detector_type == DetectorType.SHI_TOMASI:
+        return cv2.GFTTDetector_create(1000, 0.03, 7.5, 5, False, 0.04)
+    raise ValueError(f"detector {detector_type} not implemented")
+
+
+def make_extractor(descriptor_type: DescriptorType):
+    """The OpenCV descriptor extractor with the reference's parameters."""
+    import cv2
+    if descriptor_type == DescriptorType.BRISK:
+        return _cv2_factory("BRISK_create")(30, 3, 1.0)
+    if descriptor_type == DescriptorType.ORB:
+        return cv2.ORB_create()
+    if descriptor_type == DescriptorType.AKAZE:
+        return _cv2_factory("AKAZE_create")()
+    if descriptor_type == DescriptorType.SIFT:
+        return cv2.SIFT_create()
+    raise ValueError(f"descriptor {descriptor_type} not implemented")
+
 
 # descriptor widths in BITS for binary descriptors, floats otherwise
 DESC_DIMS = {"ORB": 256, "BRISK": 512, "BRIEF": 256, "AKAZE": 488,
@@ -82,6 +139,24 @@ def _pack_features_np(kps, descs, k: int, binary: bool, desc_dim: int,
     return xy, score, valid, d
 
 
+def _pack_features(kps, descs, k: int, binary: bool, desc_dim: int,
+                   device) -> Keypoints:
+    """`_pack_features_np` (binary descriptors as {0,1} floats) as a
+    `Keypoints` on `device`."""
+    return Keypoints(*(torch.as_tensor(a).to(device) for a in
+                       _pack_features_np(kps, descs, k, binary, desc_dim)))
+
+
+def _detect_host(detector, extractor, img: np.ndarray):
+    """Detect and describe one uint8 image with OpenCV -> (keypoints,
+    descriptors; an empty array when there are none)."""
+    kps = detector.detect(img, None)
+    kps, descs = extractor.compute(img, kps)
+    if descs is None or len(kps) == 0:
+        descs = np.zeros((0, 1), np.uint8)
+    return kps, descs
+
+
 def unpack_binary_desc(desc_u8: torch.Tensor) -> torch.Tensor:
     """`np.unpackbits` on the device: (..., D/8) uint8 -> (..., D) float
     {0,1} bit vectors, most significant bit first."""
@@ -119,22 +194,30 @@ class ClassicVisualOdometry:
         vo = ClassicVisualOdometry(cfg, device="cuda")
         pose4x4, info = vo.process(img_l_u8, img_r_u8, P_l, P_r)
 
-    `cfg.device_classic` must be set: detection runs on the device. Frames
-    are uint8 grayscale at any resolution; `cfg.image_height == 0` runs at
-    the native resolution, otherwise the pair is cropped and resized on the
-    device, rounded to whole grey levels as a resize of uint8 images gives,
-    and the projections rescaled."""
+    Frames are uint8 grayscale at any resolution; `cfg.image_height == 0`
+    runs at the native resolution, otherwise the pair is cropped and
+    resized and the projections rescaled. With `cfg.device_classic` that
+    happens on the device, rounded to whole grey levels as a resize of
+    uint8 images gives, and detection runs there too; otherwise OpenCV
+    crops, resizes, detects and describes on the host (`make_detector`,
+    `make_extractor`) and the padded features go to the device."""
 
     def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0):
         if not cfg.is_classic:
             cfg = dataclasses.replace(cfg, is_classic=True)
-        check_supported(cfg)
         self.cfg = cfg
         self.device = torch.device(device)
         self.binary = cfg.descriptor_type.is_binary
-        # steered-BRIEF 256 bits, the 512-bit BRISK ring pattern, or the
-        # 488-bit AKAZE M-LDB
-        self.desc_dim = descriptor_bits(frontend_kwargs(cfg)["descriptor"])
+        if cfg.device_classic:
+            self.detector = self.extractor = None
+            # steered-BRIEF 256 bits, the 512-bit BRISK ring pattern, or
+            # the 488-bit AKAZE M-LDB
+            self.desc_dim = descriptor_bits(
+                frontend_kwargs(cfg)["descriptor"])
+        else:
+            self.detector = make_detector(cfg.detector_type)
+            self.extractor = make_extractor(cfg.descriptor_type)
+            self.desc_dim = DESC_DIMS[cfg.descriptor_type.value]
         self.seed = seed
         self.generator = torch.Generator(self.device)
         # process_stream's step programs, by (frame shape, dtype)
@@ -149,8 +232,12 @@ class ClassicVisualOdometry:
         self.trajectory: list[np.ndarray] = []
         self.latencies: list[Dict[str, float]] = []
 
-    def _upload(self, img_l, img_r, P_l, P_r, gumbel):
-        """Frames, projections and noise to the device; preprocessing there."""
+    def _noise(self, gumbel) -> Optional[torch.Tensor]:
+        return None if gumbel is None else torch.as_tensor(
+            np.array(gumbel, np.float32)).to(self.device)
+
+    def _upload(self, img_l, img_r, P_l, P_r):
+        """Frames and projections to the device; preprocessing there."""
         dev, cfg = self.device, self.cfg
         imgs = torch.as_tensor(np.stack([np.asarray(img_l),
                                          np.asarray(img_r)])).to(dev)
@@ -161,9 +248,45 @@ class ClassicVisualOdometry:
                 imgs[0], imgs[1], Pl, Pr, dst_h=cfg.image_height,
                 dst_w=cfg.image_width, normalize=False)
         imgs = torch.round(imgs.to(torch.float32)) / 255.0
-        g = None if gumbel is None else torch.as_tensor(
-            np.array(gumbel, np.float32)).to(dev)
-        return imgs, Pl, Pr, g
+        return imgs, Pl, Pr
+
+    def _detect(self, img: np.ndarray) -> Keypoints:
+        """Host detection of one uint8 image -> padded Keypoints on the
+        device (binary descriptors as {0,1} floats)."""
+        kps, descs = _detect_host(self.detector, self.extractor, img)
+        return _pack_features(kps, descs, self.cfg.max_keypoints,
+                              self.binary, self.desc_dim, self.device)
+
+    def _host_features(self, img_l, img_r, P_l, P_r):
+        """The host route's front end: OpenCV preprocessing, detection and
+        description of both images -> (kp_l, kp_r, P_l, P_r on the
+        device)."""
+        cfg = self.cfg
+        img_l, img_r = np.asarray(img_l), np.asarray(img_r)
+        if cfg.image_height > 0 and cfg.image_width > 0:
+            h0, w0 = img_l.shape[:2]
+            img_l, img_r = (image_ops.preprocess_u8_cv2(
+                im, cfg.image_height, cfg.image_width)
+                for im in (img_l, img_r))
+            P_l, P_r = (image_ops.update_projection_matrix_np(
+                P, h0, w0, cfg.image_height, cfg.image_width)
+                for P in (P_l, P_r))
+        Pl, Pr = (torch.as_tensor(np.asarray(P), dtype=torch.float32).to(
+            self.device) for P in (P_l, P_r))
+        return self._detect(img_l), self._detect(img_r), Pl, Pr
+
+    def _host_step(self, state: VOState, images: torch.Tensor,
+                   P_l: torch.Tensor, P_r: torch.Tensor, *,
+                   gumbel: Optional[torch.Tensor] = None, scratch=None
+                   ) -> Tuple[VOState, VOStepOutput]:
+        """`classic_step` of the host route, for `process_stream`: the
+        (2, H, W) pair in [0, 1] back to uint8 on the host, OpenCV
+        detection, then `features_step` on the device."""
+        u8 = torch.round(images * 255.0).to(torch.uint8).cpu().numpy()
+        return features_step(state, self._detect(u8[0]), self._detect(u8[1]),
+                             P_l, P_r, cfg=self.cfg, binary_desc=self.binary,
+                             gumbel=gumbel, generator=self.generator,
+                             scratch=scratch)
 
     @torch.no_grad()
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
@@ -175,10 +298,17 @@ class ClassicVisualOdometry:
         (`solver.gumbel_shape(cfg)`); None draws it from the instance's
         generator."""
         t0 = time.perf_counter()
-        imgs, Pl, Pr, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
-        self.state, out = classic_step(self.state, imgs, Pl, Pr,
-                                       cfg=self.cfg, gumbel=g,
-                                       generator=self.generator)
+        g = self._noise(gumbel)
+        if self.cfg.device_classic:
+            imgs, Pl, Pr = self._upload(img_l, img_r, P_l, P_r)
+            self.state, out = classic_step(self.state, imgs, Pl, Pr,
+                                           cfg=self.cfg, gumbel=g,
+                                           generator=self.generator)
+        else:
+            kp_l, kp_r, Pl, Pr = self._host_features(img_l, img_r, P_l, P_r)
+            self.state, out = features_step(
+                self.state, kp_l, kp_r, Pl, Pr, cfg=self.cfg,
+                binary_desc=self.binary, gumbel=g, generator=self.generator)
         T = out.T_curr_prev.cpu().numpy().astype(np.float64)
         latency = time.perf_counter() - t0
         T = apply_pose_update(self, T)
@@ -200,17 +330,25 @@ class ClassicVisualOdometry:
                              ) -> Tuple[np.ndarray, Dict[str, Any]]:
         """Like `process`, in three stages (front end / matching / solve)
         with a host read after each, so `info["stages_ms"]` carries real
-        detect/match/solve/total times for the latency CSV. Same math and
-        the same noise stream as `process`: equal results."""
+        detect/match/solve/total times for the latency CSV (the host
+        route's detect column is OpenCV's preprocessing, detection and the
+        upload). Same math and the same noise stream as `process`: equal
+        results."""
         cfg = self.cfg
         t0 = time.perf_counter()
-        imgs, Pl, Pr, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
-        kps = orb_frontend_batch(imgs, **frontend_kwargs(cfg))
-        kp_l, kp_r = (Keypoints(*(a[i] for a in kps)) for i in (0, 1))
+        g = self._noise(gumbel)
+        if cfg.device_classic:
+            imgs, Pl, Pr = self._upload(img_l, img_r, P_l, P_r)
+            kps = orb_frontend_batch(imgs, **frontend_kwargs(cfg))
+            kp_l, kp_r = (Keypoints(*(a[i] for a in kps)) for i in (0, 1))
+        else:
+            kp_l, kp_r, Pl, Pr = self._host_features(img_l, img_r, P_l, P_r)
         kp_l.xy.cpu()
         t1 = time.perf_counter()
-        stereo_idx, inter_idx = match_stage(self.state, kp_l, kp_r, cfg=cfg,
-                                            binary_desc=True)
+        # the device front end always emits binary descriptors
+        stereo_idx, inter_idx = match_stage(
+            self.state, kp_l, kp_r, cfg=cfg,
+            binary_desc=cfg.device_classic or self.binary)
         stereo_idx.cpu()
         t2 = time.perf_counter()
         self.state, out = solve_stage(
@@ -229,20 +367,69 @@ class ClassicVisualOdometry:
                        chunk: int = 16,
                        gumbel: Optional[Iterable[np.ndarray]] = None):
         """Process an iterator of preprocessed (2, H, W) frames (uint8, or
-        float in [0, 1]; bare, or `(idx, frame)` tuples) in on-device
-        chunks, as `VisualOdometry.process_stream` does: exact online
-        semantics, one host round trip per `chunk` frames, on a CUDA device
-        one captured step program replayed per frame. `P_l`/`P_r` are the
-        projections already rescaled to the frame resolution. Yields
-        (frame_idx, T_curr_prev 4x4) in order.
+        float in [0, 1]; bare, or `(idx, frame)` tuples) in chunks, as
+        `VisualOdometry.process_stream` does: exact online semantics, one
+        host round trip per `chunk` frames. `P_l`/`P_r` are the projections
+        already rescaled to the frame resolution. Yields (frame_idx,
+        T_curr_prev 4x4) in order. The device route runs one captured step
+        program per frame on a CUDA device; the host route detects each
+        frame with OpenCV between device steps (no graph: a host read per
+        frame).
 
         `gumbel` yields one (chunk, *solver.gumbel_shape(cfg)) noise slab
         per chunk; None draws them from the instance's generator. A partial
         last chunk is padded with frames whose state update is reverted on
         the device and whose outputs are dropped."""
+        if self.cfg.device_classic:
+            step, graph = functools.partial(classic_step, cfg=self.cfg), None
+        else:
+            step, graph = self._host_step, False
         return stream_frames(
             self, lambda shape, dtype: StepProgram(
-                functools.partial(classic_step, cfg=self.cfg), self.cfg,
-                self.device, shape, dtype, desc_dim=self.desc_dim,
-                binary_desc=True),
+                step, self.cfg, self.device, shape, dtype, graph=graph,
+                desc_dim=self.desc_dim,
+                binary_desc=self.cfg.device_classic or self.binary),
             frames, P_l, P_r, chunk, gumbel)
+
+
+def detect_all_frames(cfg: VOConfig, frames, n_threads: int = 0
+                      ) -> Tuple[Keypoints, int, bool]:
+    """Detect and describe a whole sequence of (left, right) uint8 frames
+    with OpenCV on host threads (cv2 releases the GIL; one detector and
+    extractor per thread, their instances not being documented
+    thread-safe), each image cropped and resized by OpenCV first. Returns
+    (Keypoints with leading (N, 2) as host tensors, binary descriptors as
+    packed uint8 bytes, for `parallel.sharding.build_feature_hybrid`;
+    descriptor width; whether it is binary). `n_threads=0` takes up to 8
+    of the visible cores; 1 runs in the calling thread."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    if n_threads <= 0:
+        n_threads = min(8, os.cpu_count() or 1)
+    binary = cfg.descriptor_type.is_binary
+    desc_dim = DESC_DIMS[cfg.descriptor_type.value]
+    tls = threading.local()
+
+    def work(img):
+        if cfg.image_height > 0 and cfg.image_width > 0:
+            img = image_ops.preprocess_u8_cv2(img, cfg.image_height,
+                                              cfg.image_width)
+        if not hasattr(tls, "detector"):
+            tls.detector = make_detector(cfg.detector_type)
+            tls.extractor = make_extractor(cfg.descriptor_type)
+        kps, descs = _detect_host(tls.detector, tls.extractor,
+                                  np.asarray(img))
+        return _pack_features_np(kps, descs, cfg.max_keypoints, binary,
+                                 desc_dim, packed=True)
+
+    frames = list(frames)
+    flat = [im for pair in frames for im in pair]
+    if n_threads <= 1:
+        packed = [work(im) for im in flat]
+    else:
+        with ThreadPoolExecutor(max_workers=n_threads) as ex:
+            packed = list(ex.map(work, flat))
+    n = len(frames)
+    return (Keypoints(*(torch.as_tensor(np.stack(x).reshape(
+        (n, 2) + x[0].shape)) for x in zip(*packed))), desc_dim, binary)

@@ -28,6 +28,12 @@ def quat_multiply(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     ], dim=-1)
 
 
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) -> (-x, -y, -z, w)."""
+    return q * torch.tensor([-1.0, -1.0, -1.0, 1.0], dtype=q.dtype,
+                            device=q.device)
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """(..., 4) xyzw -> (..., 3, 3) rotation matrix (normalises first)."""
     q = quat_normalize(q)
@@ -68,6 +74,53 @@ def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
     return quat_normalize(torch.stack([x, y, z, w], dim=-1))
 
 
+def axis_angle_to_quat(rvec: torch.Tensor) -> torch.Tensor:
+    """Rodrigues vector (..., 3) -> quaternion (..., 4) xyzw; the sinc
+    factor takes its limit 1/2 below an angle of 1e-8."""
+    angle = torch.linalg.vector_norm(rvec, dim=-1, keepdim=True)
+    half = 0.5 * angle
+    k = torch.where(angle > 1e-8,
+                    torch.sin(half) / torch.clamp(angle, min=_EPS),
+                    torch.full_like(angle, 0.5))
+    return torch.cat([rvec * k, torch.cos(half)], dim=-1)
+
+
+def quat_to_axis_angle(q: torch.Tensor) -> torch.Tensor:
+    """Quaternion (..., 4) xyzw -> Rodrigues vector (..., 3) of the short
+    rotation (w >= 0)."""
+    q = quat_normalize(q)
+    xyz, w = q[..., :3], q[..., 3]
+    sign = torch.where(w < 0, -1.0, 1.0).to(q.dtype)
+    xyz = xyz * sign[..., None]
+    w = w * sign
+    norm = torch.linalg.vector_norm(xyz, dim=-1)
+    angle = 2.0 * torch.atan2(norm, w)
+    axis = xyz / torch.clamp(norm, min=_EPS)[..., None]
+    return torch.where(norm[..., None] > 1e-12, axis * angle[..., None],
+                       2.0 * xyz)
+
+
+def axis_angle_to_matrix(rvec: torch.Tensor) -> torch.Tensor:
+    return quat_to_matrix(axis_angle_to_quat(rvec))
+
+
+def matrix_to_axis_angle(m: torch.Tensor) -> torch.Tensor:
+    return quat_to_axis_angle(matrix_to_quat(m))
+
+
+def so3_exp(phi: torch.Tensor) -> torch.Tensor:
+    """so(3) tangent (..., 3) -> rotation matrix (Rodrigues)."""
+    return axis_angle_to_matrix(phi)
+
+
+def hat(v: torch.Tensor) -> torch.Tensor:
+    """(..., 3) -> (..., 3, 3) skew-symmetric matrix [v]_x."""
+    x, y, z = v.unbind(-1)
+    zero = torch.zeros_like(x)
+    m = torch.stack([zero, -z, y, z, zero, -x, -y, x, zero], dim=-1)
+    return m.reshape(v.shape[:-1] + (3, 3))
+
+
 def _bottom_row(like: torch.Tensor) -> torch.Tensor:
     """[0, 0, 0, 1] made on the device (no host copy, so a CUDA graph can
     capture it)."""
@@ -94,6 +147,17 @@ def invert_transform(T: torch.Tensor) -> torch.Tensor:
     top = torch.cat([Rt, t_inv[..., None]], dim=-1)
     bottom = _bottom_row(T).expand(T.shape[:-2] + (4,))
     return torch.cat([top, bottom[..., None, :]], dim=-2)
+
+
+def transform_points(T: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Apply (..., 4, 4) to points (..., N, 3)."""
+    return (torch.einsum("...ij,...nj->...ni", T[..., :3, :3], pts)
+            + T[..., None, :3, 3])
+
+
+def rotate_points(q: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+    """Rotate points (..., N, 3) by quaternion (..., 4)."""
+    return torch.einsum("...ij,...nj->...ni", quat_to_matrix(q), pts)
 
 
 def quat_boxplus(q: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:

@@ -119,6 +119,21 @@ def preprocess_image_np(img: np.ndarray, dst_h: int, dst_w: int,
     return img
 
 
+def preprocess_u8_cv2(img: np.ndarray, dst_h: int, dst_w: int
+                      ) -> np.ndarray:
+    """The OpenCV host route's preprocessing: centre crop, then
+    `cv2.resize` (INTER_LINEAR) of the uint8 image, which rounds to whole
+    grey levels. The host classic front ends detect on it and the
+    visualisation draws on it. cv2 is imported here only."""
+    import cv2
+    src_h, src_w = img.shape[:2]
+    row_off, col_off, crop_h, crop_w = crop_geometry(src_h, src_w, dst_h, dst_w)
+    img = np.asarray(img)[row_off:row_off + crop_h, col_off:col_off + crop_w]
+    if (crop_h, crop_w) != (dst_h, dst_w):
+        img = cv2.resize(img, (dst_w, dst_h), interpolation=cv2.INTER_LINEAR)
+    return img.astype(np.uint8)
+
+
 def update_projection_matrix_np(P: np.ndarray, src_h: int, src_w: int,
                                 dst_h: int, dst_w: int) -> np.ndarray:
     P = P.copy().astype(np.float64)

@@ -58,17 +58,6 @@ def _residuals(q, t, pts3d_curr, pts3d_prev, uv_prev_l, uv_prev_r,
                         project(P_r, X_inv) - uv_curr_r], dim=-2)
 
 
-def _cross_matrix(v: torch.Tensor) -> torch.Tensor:
-    """(..., 3) -> (..., 3, 3) skew-symmetric [v]_x."""
-    x, y, z = v.unbind(-1)
-    zero = torch.zeros_like(x)
-    return torch.stack([
-        torch.stack([zero, -z, y], dim=-1),
-        torch.stack([z, zero, -x], dim=-1),
-        torch.stack([-y, x, zero], dim=-1),
-    ], dim=-2)
-
-
 def _residuals_and_jac(q, t, pts3d_curr, pts3d_prev, uv_prev_l, uv_prev_r,
                        uv_curr_l, uv_curr_r, P_l, P_r
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -83,9 +72,9 @@ def _residuals_and_jac(q, t, pts3d_curr, pts3d_prev, uv_prev_l, uv_prev_r,
     Rt = R.transpose(-1, -2)
     Y = pts3d_curr @ Rt + t
     Z = (pts3d_prev - t) @ R
-    dY_dd = -2.0 * _cross_matrix(Y - t)
+    dY_dd = -2.0 * se3.hat(Y - t)
     dZ_dd = 2.0 * torch.einsum("...ji,...kjl->...kil", R,
-                               _cross_matrix(pts3d_prev - t))
+                               se3.hat(pts3d_prev - t))
 
     def factor(P, X, dX_dd, dX_dt, uv):
         A = P[:, :3]

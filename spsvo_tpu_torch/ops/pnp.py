@@ -269,6 +269,33 @@ def best_hypothesis(R_h: torch.Tensor, t_h: torch.Tensor,
     return best.R, best.t, best.inl, ~best.from_prior
 
 
+def sampled_best(pts3d_curr: torch.Tensor, pts3d_prev: torch.Tensor,
+                 pts2d_prev: torch.Tensor, valid: torch.Tensor,
+                 P_l: torch.Tensor, *, iterations: int,
+                 reproj_threshold: float,
+                 gumbel: Optional[torch.Tensor] = None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """Best of the sampled hypothesis batch alone, no prior lane: the
+    hypothesis stage of single-batch `ransac_pose` (the same noise, the
+    same draw, the first maximum), which does not depend on the motion
+    prior. `gumbel` is (..., iterations, L) noise; leading pair dims
+    allowed. Returns (count, R (3, 3), t (3,), inlier mask (L,))."""
+    thr2 = reproj_threshold * reproj_threshold
+    idx = _sample_indices(valid, iterations, 3, gumbel, generator)
+    q_h, t_h = _horn(take_rows(pts3d_curr, idx), take_rows(pts3d_prev, idx),
+                     torch.ones(idx.shape, dtype=torch.float32,
+                                device=idx.device))
+    R_h = se3.quat_to_matrix(q_h)
+    inl = _score_mask(R_h, t_h, pts3d_curr, pts2d_prev, valid,
+                      P_l.to(torch.float32), thr2)
+    counts = inl.sum(dim=-1)
+    j = torch.argmax(counts, dim=-1)                           # first max
+    return (_take_hyp(counts, j, 0), _take_hyp(R_h, j, 2),
+            _take_hyp(t_h, j, 1), _take_hyp(inl, j, 1))
+
+
 def ransac_pose(pts3d_curr: torch.Tensor, pts3d_prev: torch.Tensor,
                 pts2d_prev: torch.Tensor, valid: torch.Tensor,
                 P_l: torch.Tensor, q_prior: torch.Tensor,

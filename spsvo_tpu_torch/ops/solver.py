@@ -17,6 +17,11 @@ its plain version. Every other configuration (the adaptive chunked RANSAC,
 the while-loop LM: `VOConfig`'s defaults) runs op by op: `pnp.ransac_pose`,
 the gates, `lm.refine_pose`.
 
+With single-batch RANSAC the solve also splits in two
+(`precompute_speculative`, `solve_speculative`): everything but the prior
+lane runs before the sequential scan, and the scan keeps the precomputed
+sampled winner unless the prior lane is strictly better.
+
 `build_chain`, `prepare_solve` and `solve_prepared` take any leading
 dimensions: the per-frame path calls them on one frame pair (K,), the
 whole-sequence modes (parallel/sharding.py) on all pairs of a sequence at
@@ -295,6 +300,126 @@ def solve_prepared(prep: PreparedSolve, P_l: torch.Tensor, P_r: torch.Tensor,
     return res
 
 
+class SpeculativeSolve(NamedTuple):
+    """The prior-independent part of one single-batch solve (leading pair
+    dimensions allowed): the best sampled hypothesis and its whole
+    refinement chain. The scan then only scores the prior lane, takes this
+    unless the prior is strictly better (sampled lanes win ties, as in
+    `ransac_pose`), and applies the gates (`solve_speculative`)."""
+
+    count_sampled: torch.Tensor   # best sampled inlier count, before refit
+    q_raw: torch.Tensor           # (4,) sampled winner after refit + polish
+    t_raw: torch.Tensor           # (3,)
+    inliers: torch.Tensor         # (L,) inlier mask after the polish
+    num_inliers: torch.Tensor     # int32
+    q_lm: torch.Tensor            # (4,) after LM (== q_raw at degree 0)
+    t_lm: torch.Tensor
+    lm_improved: torch.Tensor     # bool
+
+
+def _lm_refine(q_raw, t_raw, inliers, prep: PreparedSolve, P_l, P_r,
+               cfg: VOConfig):
+    """The solve's LM refinement of a winner -> (q, t, improved)."""
+    if cfg.refinement_degree <= 0:
+        return q_raw, t_raw, torch.zeros(q_raw.shape[:-1], dtype=torch.bool,
+                                         device=q_raw.device)
+    refined = lm.refine_pose(
+        q_raw, t_raw, prep.pts3d_curr, prep.pts3d_prev, prep.uv_prev_l,
+        prep.uv_prev_r, prep.uv_curr_l, prep.uv_curr_r, inliers, P_l, P_r,
+        refinement_degree=cfg.refinement_degree,
+        max_iterations=cfg.lm_max_iterations,
+        huber_delta=cfg.huber_delta, unroll=cfg.lm_unroll)
+    return refined.q, refined.t, refined.improved
+
+
+def _winner_branch(R, t, inl, prep: PreparedSolve, P_l, P_r, cfg: VOConfig):
+    """Refit + polish + LM of a RANSAC winner -> `SpeculativeSolve`'s
+    fields after `count_sampled`."""
+    q_raw, t_raw, inl2 = pnp.refit_polish(
+        R, t, inl, prep.pts3d_curr, prep.pts3d_prev, prep.uv_prev_l,
+        prep.chain, P_l, reproj_threshold=cfg.ransac_reproj_threshold,
+        polish_unroll=(min(cfg.lm_unroll, 4) if cfg.lm_unroll else 0))
+    num = inl2.sum(dim=-1).to(torch.int32)
+    return (q_raw, t_raw, inl2, num,
+            *_lm_refine(q_raw, t_raw, inl2, prep, P_l, P_r, cfg))
+
+
+def precompute_speculative(prep: PreparedSolve, P_l: torch.Tensor,
+                           P_r: torch.Tensor, cfg: VOConfig, *,
+                           gumbel: Optional[torch.Tensor] = None,
+                           generator: Optional[torch.Generator] = None
+                           ) -> SpeculativeSolve:
+    """The frame-parallel half of the speculative solve: the sampled
+    winner (`pnp.sampled_best`, noise `gumbel` (..., rows, L) as for
+    `solve_prepared`) and its refit, polish and LM; no prior anywhere."""
+    count, R, t, inl = pnp.sampled_best(
+        prep.pts3d_curr, prep.pts3d_prev, prep.uv_prev_l, prep.chain, P_l,
+        iterations=cfg.ransac_iterations,
+        reproj_threshold=cfg.ransac_reproj_threshold, gumbel=gumbel,
+        generator=generator)
+    return SpeculativeSolve(count, *_winner_branch(R, t, inl, prep, P_l, P_r,
+                                                   cfg))
+
+
+def solve_speculative(spec: SpeculativeSolve, prep: PreparedSolve,
+                      P_l: torch.Tensor, P_r: torch.Tensor,
+                      q_pred: torch.Tensor, t_pred: torch.Tensor,
+                      frame_count: torch.Tensor, cfg: VOConfig
+                      ) -> SolveResult:
+    """The sequential half: score the prior lane, take the precomputed
+    sampled winner unless the prior is strictly better, then the gates.
+    Both branches are computed and selected on the device (no host read:
+    the scan runs inside a CUDA graph), so the prior's refit, polish and LM
+    run on every step. `solve_prepared`'s outputs, masks at lane level."""
+    dev = prep.chain.device
+    lead = tuple(prep.chain.shape[:-1])
+    q_pred = q_pred.to(torch.float32).expand(lead + (4,))
+    t_pred = t_pred.to(torch.float32).expand(lead + (3,))
+    R_p = se3.quat_to_matrix(q_pred)
+    inl_p = pnp._score_mask(R_p, t_pred, prep.pts3d_curr, prep.uv_prev_l,
+                            prep.chain, P_l.to(torch.float32),
+                            cfg.ransac_reproj_threshold ** 2)
+    prior_wins = inl_p.sum(dim=-1) > spec.count_sampled
+
+    def pick(a, b):
+        w = prior_wins.reshape(lead + (1,) * (a.dim() - len(lead)))
+        return torch.where(w, a, b)
+
+    q_raw, t_raw, inliers, num, q_lm, t_lm, lm_imp = (
+        pick(a, b) for a, b in zip(
+            _winner_branch(R_p, t_pred, inl_p, prep, P_l, P_r, cfg),
+            spec[1:]))
+    success = num >= cfg.ransac_min_inliers
+    accel = (torch.linalg.vector_norm(t_raw - t_pred, dim=-1)
+             / cfg.time_interval)
+    accel_anomaly = ((torch.as_tensor(frame_count, device=dev)
+                      > cfg.ignore_frame_count)
+                     & (accel > cfg.max_acceleration))
+    use_pred = (~success) | accel_anomaly
+    do_optimize = ~use_pred
+    q = torch.where(use_pred[..., None], q_pred, q_raw)
+    t = torch.where(use_pred[..., None], t_pred, t_raw)
+    lm_improved = torch.zeros_like(use_pred)
+    if cfg.refinement_degree > 0:
+        q = torch.where(do_optimize[..., None], q_lm, q)
+        t = torch.where(do_optimize[..., None], t_lm, t)
+        lm_improved = lm_imp & do_optimize
+    chain = prep.chain
+    return SolveResult(
+        q=q, t=t,
+        T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
+        q_pred=torch.where(do_optimize[..., None], q_raw, q_pred),
+        t_pred=torch.where(do_optimize[..., None], t_raw, t_pred),
+        chain_valid=chain, inliers=inliers & chain,
+        num_chain=chain.sum(dim=-1).to(torch.int32), num_inliers=num,
+        pnp_success=success, accel_anomaly=accel_anomaly,
+        lm_improved=lm_improved,
+        n_ransac_hypotheses=torch.full(lead, cfg.ransac_iterations,
+                                       dtype=torch.int32, device=dev),
+        chain_truncated=prep.num_chain_total > chain.shape[-1],
+        prior_winner=prior_wins)
+
+
 # ---------------------------------------------------------------------------
 # Landmark fusion: a fused 3D estimate per track (chain of inter-frame
 # matches) replaces the fresh prev-side triangulation before the solve, and
@@ -385,8 +510,9 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     """The landmark-fusion solve: substitute carried landmarks, solve on the
     substituted prep, run the GLS pass (backward factors weighted by track
     length, from the solved pose, on inliers of non-gated frames), fuse the
-    landmarks forward, and scatter masks and landmarks to `k_capacity`
-    slots.
+    landmarks forward, with `cfg.landmark_refine` run one more LM pass on
+    the fused current points (op by op, also after a fused solve), and
+    scatter masks and landmarks to `k_capacity` slots.
 
     Per frame (`hyp` None): `solve_prepared` samples on the substituted
     prep and the GLS pass runs op by op. The online hybrid passes `hyp`,
@@ -397,8 +523,6 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     LM and the GLS pass (its kernel wrapper, or with `use_kernel=False`
     its plain version)."""
     from spsvo_tpu_torch.ops import solver_cuda
-    if cfg.landmark_refine:
-        raise NotImplementedError("landmark_refine is not ported")
     if (hyp is None) != (pts_static is None):
         raise ValueError("pass hyp and pts_static together (the hoisted "
                          "hypotheses and point tile)")
@@ -434,6 +558,19 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
 
     pts_lanes, len_lanes, _ = fuse_landmarks(
         q, t, use_pred, inl, prep2, lane_len, P_l, P_r, cfg)
+    if cfg.landmark_refine and cfg.refinement_degree > 0:
+        # one structure -> motion alternation: the fused current points feed
+        # a second LM pass; refine_pose's revert guard keeps a pass that
+        # does not lower the cost from shipping
+        refined = lm.refine_pose(
+            q, t, pts_lanes, prep2.pts3d_prev, prep2.uv_prev_l,
+            prep2.uv_prev_r, prep2.uv_curr_l, prep2.uv_curr_r,
+            inl & ~use_pred, P_l, P_r,
+            refinement_degree=cfg.refinement_degree,
+            max_iterations=cfg.lm_max_iterations,
+            huber_delta=cfg.huber_delta, unroll=cfg.lm_unroll)
+        q = torch.where(use_pred, q, refined.q)
+        t = torch.where(use_pred, t, refined.t)
     res = res._replace(q=q, t=t, T_curr_prev=se3.invert_transform(
         se3.make_transform(q, t)))
     L = prep.chain.shape[0]

@@ -16,13 +16,17 @@ stage runs once over the whole sequence of N stereo frames:
      batched call of the fused matcher, B = 2N-1 (binary descriptors: one
      batched Hamming product, outside the kernel);
   3. chain filter, compaction + triangulation, RANSAC hypotheses and the
-     solver kernel's point tile, batched over the N-1 frame pairs;
+     solver kernel's point tile (or, in the speculative branch, the best
+     sampled hypothesis and its refit, polish and LM), batched over the N-1
+     frame pairs;
 
 then a sequential scan over the pairs carries only the prior-dependent core
 (motion prior, frame counter, fused landmarks). In the flagship branch
 (landmark fusion + fused solver) each step splices the carried landmarks
 into the hoisted tile and makes one launch of the fused solver, with the
-GLS pass in the kernel. Last,
+GLS pass in the kernel. With `speculative_solve` (and neither landmark
+fusion nor the fused solver) a step only scores the prior lane and keeps
+the hoisted sampled winner unless the prior is strictly better. Last,
 
   4. pose chaining: a log-depth cumulative product of the per-pair motions.
 
@@ -77,13 +81,14 @@ from spsvo_tpu_torch.ops.matching_cuda import match_nn_batched, match_scratch
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
 from spsvo_tpu_torch.parallel.mesh import (Mesh, build_kernels,
                                            pair_counts, shard_bounds)
-from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, check_supported,
-                                      init_state, matcher_gate, vo_step)
+from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, init_state,
+                                      matcher_gate, vo_step)
 
 # scan branches, chosen from the configuration alone
 LANDMARK_KERNEL = "landmark_kernel"   # flagship: hoisted tile + fused solve
 LANDMARK = "landmark"                 # landmark fusion, solve_prepared
 KERNEL = "kernel"                     # hoisted tile + fused solve
+SPECULATIVE = "speculative"           # hoisted sampled winner + its refinement
 PLAIN = "plain"                       # solve_prepared
 
 
@@ -228,13 +233,16 @@ class ScanInputs(NamedTuple):
     prep: solver.PreparedSolve
     hyp: Optional[torch.Tensor]       # (S, 12) hoisted hypotheses
     pts: Optional[torch.Tensor]       # (16, Lp) hoisted point tile
+    spec: Optional[solver.SpeculativeSolve]   # hoisted sampled winner
     gumbel: torch.Tensor              # (S, L) RANSAC noise
 
     def pair(self, p: int) -> "ScanInputs":
         return ScanInputs(
             solver.PreparedSolve(*(a[p] for a in self.prep)),
             None if self.hyp is None else self.hyp[p],
-            None if self.pts is None else self.pts[p], self.gumbel[p])
+            None if self.pts is None else self.pts[p],
+            None if self.spec is None else solver.SpeculativeSolve(
+                *(a[p] for a in self.spec)), self.gumbel[p])
 
 
 class Carry(NamedTuple):
@@ -271,6 +279,10 @@ def scan_step(carry: Carry, x: ScanInputs, P_l: torch.Tensor,
         res = solver_cuda.fused_solve(x.hyp, x.prep, P_l, P_r, q_pred,
                                       t_pred, fc, cfg, pts=x.pts,
                                       use_kernel=use_kernel)
+        diag = dict(_diag_of(res), prior_winner=res.prior_winner)
+    elif branch == SPECULATIVE:
+        res = solver.solve_speculative(x.spec, x.prep, P_l, P_r, q_pred,
+                                       t_pred, fc, cfg)
         diag = dict(_diag_of(res), prior_winner=res.prior_winner)
     else:
         res = solver.solve_prepared(x.prep, P_l, P_r, q_pred, t_pred, fc,
@@ -486,8 +498,13 @@ class OnlineHybrid:
         kernel = solver.pallas_solver_config(cfg)
         if cfg.landmark_fusion:
             self.branch = LANDMARK_KERNEL if kernel else LANDMARK
+        elif kernel:
+            self.branch = KERNEL
+        elif cfg.speculative_solve and pnp.is_single_batch(
+                cfg.ransac_chunk, cfg.ransac_iterations):
+            self.branch = SPECULATIVE
         else:
-            self.branch = KERNEL if kernel else PLAIN
+            self.branch = PLAIN
         k = cfg.max_keypoints
         self.lanes = min(cfg.solve_slots, k) if cfg.solve_slots else k
         self._graphs: Dict[tuple, _StepGraphs] = {}
@@ -514,16 +531,20 @@ class OnlineHybrid:
                 inter: torch.Tensor, P_l: torch.Tensor, P_r: torch.Tensor,
                 gumbel: torch.Tensor
                 ) -> Tuple[ScanInputs, Dict[str, torch.Tensor]]:
-        """Chains, compaction + triangulation, and for the kernel branches
-        the hoisted hypotheses and point tiles, over all pairs."""
+        """Chains, compaction + triangulation, and what the branch hoists
+        out of the scan, over all pairs: the hypotheses and point tiles of
+        the kernel branches, the sampled winners of the speculative one."""
         chains, counts = pair_chains(kp_l, kp_r, stereo, inter, self.cfg)
         preps = solver.prepare_solve(chains, P_l, P_r, self.cfg)
-        hyp = pts = None
+        hyp = pts = spec = None
         if self.branch in (LANDMARK_KERNEL, KERNEL):
             hyp = solver_cuda.precompute_hypotheses(preps, self.cfg,
                                                     gumbel=gumbel)
             pts = solver_cuda.pack_points(preps)
-        return ScanInputs(preps, hyp, pts, gumbel), counts
+        elif self.branch == SPECULATIVE:
+            spec = solver.precompute_speculative(preps, P_l, P_r, self.cfg,
+                                                 gumbel=gumbel)
+        return ScanInputs(preps, hyp, pts, spec, gumbel), counts
 
     def init_carry(self) -> Carry:
         dev = self.device
@@ -577,8 +598,9 @@ class OnlineHybrid:
 
         def gather(s):
             xs, counts = s["prepare"]
-            leaves = [*xs.prep] + [t for t in (xs.hyp, xs.pts)
-                                   if t is not None] + list(counts.values())
+            leaves = ([*xs.prep] + [t for t in (xs.hyp, xs.pts)
+                                    if t is not None]
+                      + list(xs.spec or ()) + list(counts.values()))
             return mesh.gather_frames(leaves, shard.counts)
 
         def scan(s):
@@ -607,8 +629,10 @@ class OnlineHybrid:
         prep = solver.PreparedSolve(*(next(leaves) for _ in xs.prep))
         hyp = None if xs.hyp is None else next(leaves)
         pts = None if xs.pts is None else next(leaves)
+        spec = None if xs.spec is None else solver.SpeculativeSolve(
+            *(next(leaves) for _ in xs.spec))
         counts = {k: next(leaves) for k in counts}
-        return ScanInputs(prep, hyp, pts, state["in"][3]), counts
+        return ScanInputs(prep, hyp, pts, spec, state["in"][3]), counts
 
     def _inputs(self, images, P_l, P_r, gumbel
                 ) -> Tuple[_Shard, List[torch.Tensor]]:
@@ -700,7 +724,6 @@ def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True,
     """Check the configuration, the device and the mesh (its device is the
     one used: `device` must name the same type); with `cnn`, load the model
     if needed."""
-    check_supported(cfg)
     if cnn and cfg.is_classic:
         raise ValueError(f"{who} runs the CNN front end; a classic "
                          "configuration runs through build_orb_hybrid or "
@@ -745,8 +768,6 @@ def build_online_hybrid(cfg: VOConfig, model=None, device="cuda", *,
     `feature_input` or `frontend_batch_fn` replaces the CNN front end. With
     a `mesh` (`parallel.mesh.make_mesh`) the frames are sharded over its
     ranks and the program runs on the mesh's device."""
-    if cfg.speculative_solve:
-        raise NotImplementedError("speculative_solve is not ported")
     cnn = not feature_input and frontend_batch_fn is None
     model, device = _resolve(cfg, model, device, "build_online_hybrid", cnn,
                              mesh)
@@ -780,7 +801,6 @@ def build_orb_hybrid(cfg: VOConfig, device="cuda",
     P_r, *, gumbel=None, generator=None)`. With a `mesh` the front end runs
     on each rank's frames."""
     from spsvo_tpu_torch.ops.orb import frontend_kwargs, orb_frontend_batch
-    check_supported(cfg)       # a host-classic configuration names OpenCV
     if not cfg.device_classic:
         raise ValueError("build_orb_hybrid requires cfg.device_classic=True")
     return build_online_hybrid(

@@ -5,7 +5,7 @@ Mirrors `spsvo_tpu.pipeline`'s per-frame online path:
     preprocess -> CNN trunk -> detector postprocess -> descriptor sampling
     -> stereo + inter-frame matching -> chain filter -> compaction +
     triangulation -> landmark substitution -> RANSAC + refit + polish ->
-    gates -> LM -> GLS LM -> landmark fusion -> pose
+    gates -> LM -> GLS LM -> landmark fusion -> landmark LM -> pose
 
 On a CUDA device the matching of float descriptors runs as one launch of the
 fused matcher kernel (both pairs batched) and the prior-dependent solve as
@@ -449,20 +449,6 @@ def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
     return T
 
 
-def check_supported(cfg: VOConfig) -> None:
-    """Reject configurations whose code paths are not ported yet. A classic
-    configuration runs when its front end is device-resident
-    (`device_classic`, frontend_classic.py)."""
-    missing = []
-    if cfg.is_classic and not cfg.device_classic:
-        missing.append("the host classic front ends (is_classic without "
-                       "device_classic: detection by OpenCV)")
-    if cfg.landmark_refine:
-        missing.append("landmark_refine")
-    if missing:
-        raise NotImplementedError("not ported yet: " + ", ".join(missing))
-
-
 class VisualOdometry:
     """Stateful host-side wrapper:
 
@@ -476,7 +462,6 @@ class VisualOdometry:
 
     def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0,
                  model=None):
-        check_supported(cfg)
         if cfg.is_classic:
             raise ValueError(
                 "a classic configuration runs through frontend_classic."

@@ -9,13 +9,20 @@
     torchrun --nproc-per-node 4 -m spsvo_tpu_torch.run --mode hybrid \
         --kitti-root /data/kitti_odometry --eval-id 5
 
+    python -m spsvo_tpu_torch.run --preset classic_orb --mode classic \
+        --device cpu --kitti-root /data/kitti_odometry --eval-id 0
+    python -m spsvo_tpu_torch.run --preset superpoint_jetson --device cpu \
+        --kitti-root /data/kitti_odometry --max-frames 8 --viz-dir viz/
+
 Artefacts land in kitti_results/<description>/NN_pred.txt and
 kitti_latency_csvs/<machine>/, as the JAX package's `spsvo_tpu.run` writes
 them. Runs on the CUDA device unless `--device cpu` is given. The JAX CLI
 shards the whole-sequence modes over the devices its runtime has; this one
 over the ranks its launcher started: under `torchrun` the hybrid, batch
 and orb modes run frame-sharded, one rank per GPU (`cuda:LOCAL_RANK`, NCCL;
-gloo with `--device cpu`), and rank 0 writes the pose file.
+gloo with `--device cpu`), and rank 0 writes the pose file. The host
+classic route (`--mode classic`, a classic preset without device_classic in
+frame mode) and `--viz-dir` need OpenCV (cv2).
 """
 
 from __future__ import annotations
@@ -105,7 +112,8 @@ def cmd_compile_sweep(args) -> int:
     """Build both CUDA kernels (on a CUDA device) and run the sequence scan
     on two zero frames for every config of the 72-config grid: each config's
     program is built and exercised once, the engine-generation role. A
-    config whose model family is not ported counts as failed."""
+    config whose model cannot load (an ONNX family without its file) counts
+    as failed."""
     import torch
 
     from spsvo_tpu_torch.config import sweep_configs
@@ -163,16 +171,18 @@ def main(argv=None) -> int:
                         "separate stages so the latency CSV columns are "
                         "real; slower (one synchronisation per stage)")
     p.add_argument("--viz-dir", default=None,
-                   help="per-frame match/inlier PNGs (not ported: needs "
-                        "OpenCV)")
+                   help="write per-frame match/inlier PNGs here (frame mode "
+                        "only; needs OpenCV)")
     p.add_argument("--mode", default="frame",
                    choices=("frame", "hybrid", "batch", "classic", "orb"),
                    help="execution mode: per-frame online API (per-frame "
                         "latency CSV), 'hybrid' = whole-sequence on-device "
                         "with exact online semantics, 'batch' = offline "
-                        "throughput mode, 'orb' = the hybrid with the "
-                        "device-resident ORB front end; 'classic' (OpenCV "
-                        "on the host) is not ported")
+                        "throughput mode, 'classic' = OpenCV detection of "
+                        "every frame on the host, then the feature hybrid "
+                        "on the device (classic configs; needs OpenCV), "
+                        "'orb' = the hybrid with the device-resident ORB "
+                        "front end")
     p.add_argument("--landmark-fusion", action="store_true",
                    help="carry fused 3D landmarks across frames instead of "
                         "re-triangulating every frame")

@@ -329,17 +329,25 @@ def test_classic_vo_resizes_on_the_device():
     assert np.abs(vo.current_pose()[:3, 3] - gt[-1][:3, 3]).max() < 0.25
 
 
-def test_host_classic_configurations_name_opencv():
-    """Detection by OpenCV on the host is not ported: both per-frame
-    classes say so, and a classic configuration does not build the CNN
-    class."""
+def test_host_classic_configurations_build_the_opencv_route():
+    """A classic configuration without `device_classic` builds the OpenCV
+    host route (its detector and extractor; the route's parity:
+    tests/test_torch_classic_host.py), a CNN configuration handed to the
+    classic class becomes classic, and `VisualOdometry` refuses classic
+    configurations for the class that runs them."""
+    pytest.importorskip("cv2")
     host = dataclasses.replace(_tcfg(), device_classic=False)
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        tfc.ClassicVisualOdometry(host, device="cpu")
-    with pytest.raises(NotImplementedError, match="OpenCV"):
+    vo = tfc.ClassicVisualOdometry(host, device="cpu")
+    assert vo.detector is not None and vo.extractor is not None
+    assert vo.desc_dim == 256 and vo.binary
+    with pytest.raises(ValueError, match="ClassicVisualOdometry"):
         VisualOdometry(host, device="cpu")
     with pytest.raises(ValueError, match="ClassicVisualOdometry"):
         VisualOdometry(_tcfg(), device="cpu")
-    # a CNN configuration handed to the classic class becomes classic
-    with pytest.raises(NotImplementedError, match="OpenCV"):
+    sift = tfc.ClassicVisualOdometry(
+        TCfg(detector_type=TDet.SIFT, descriptor_type=TDesc.SIFT),
+        device="cpu")
+    assert sift.cfg.is_classic and sift.desc_dim == 128 and not sift.binary
+    # a CNN configuration names SuperPoint, which OpenCV does not detect
+    with pytest.raises(ValueError, match="SUPERPOINT"):
         tfc.ClassicVisualOdometry(TCfg(), device="cpu")

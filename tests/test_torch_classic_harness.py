@@ -1,9 +1,10 @@
 """The classic modes from the harness and the CLI (CPU):
 `run_sequence_fused(mode="orb")` on the JAX package's own corridor drives and
 bounds, the sweep's device-classic rows, `--mode orb` and a device-classic
-configuration in frame mode; what is not ported raises and names OpenCV; the
-classic entry points run with jax and cv2 blocked (that they default to the
-card: tests/test_torch_device_defaults.py)."""
+configuration in frame mode; the host classic mode from the harness and the
+CLI; the device classic entry points run with jax and cv2 blocked, and the
+host route's modules import without them (that they default to the card:
+tests/test_torch_device_defaults.py)."""
 import dataclasses
 import functools
 import json
@@ -21,7 +22,7 @@ from spsvo_tpu_torch.config import (DescriptorType as TDesc,
                                     classic_sweep_configs,
                                     device_classic_sweep_configs)
 from spsvo_tpu_torch.eval import harness as tharness, synthetic as tsyn
-from spsvo_tpu_torch.io import png
+from spsvo_tpu_torch.io import kitti as tkitti, png
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 H, W, N = 150, 496, 6
@@ -95,26 +96,31 @@ def test_run_sequence_fused_orb_tracks_the_corridor(name, tmp_path):
     assert os.path.exists(tmp_path / "default" / "03_pred.txt")
 
 
-def test_fused_classic_modes_say_what_is_missing():
-    """`mode="classic"` and a host-classic configuration name OpenCV; the
-    orb mode and the CNN modes take only their own kind of configuration."""
+def test_fused_classic_modes_take_their_configurations():
+    """`mode="classic"` (OpenCV on the host, then the feature hybrid) runs
+    a host-classic configuration and, as in the JAX package, a
+    device-classic one too (its detector by OpenCV); the orb mode takes a
+    device-classic configuration only, and the CNN modes no classic one."""
+    pytest.importorskip("cv2")
     frames, _, _, P_l, P_r = _drive()
     run = functools.partial(tharness.run_sequence_fused, frames=list(frames),
                             P_l=P_l, P_r=P_r, device="cpu")
     host = dataclasses.replace(_tcfg(), device_classic=False)
-    for cfg, mode in ((host, "classic"), (_tcfg(), "classic"),
-                      (host, "orb")):
-        with pytest.raises(NotImplementedError, match="OpenCV"):
+    for cfg in (host, _tcfg()):
+        res = run(cfg, mode="classic")
+        assert len(res.poses) == N and len(res.diagnostics) == N - 1
+        assert np.isfinite(np.stack(res.poses)).all()
+        assert all(r["detect"] > 0 and r["solve"] > 0
+                   for r in res.latencies_ms)
+    for cfg, mode in ((host, "orb"), (_tcfg(), "hybrid"), (TCfg(), "orb"),
+                      (TCfg(), "classic")):
+        with pytest.raises(ValueError, match="device-classic"):
             run(cfg, mode=mode)
-    with pytest.raises(ValueError, match="device-classic"):
-        run(_tcfg(), mode="hybrid")
-    with pytest.raises(ValueError, match="device-classic"):
-        run(TCfg(), mode="orb")
 
 
 def test_run_sweep_device_classic_row(tmp_path):
     """`run_sweep` sends a device-classic row to mode "orb" and a
-    host-classic row to an error that names OpenCV; the grid goes on."""
+    host-classic row to mode "classic"; both run."""
     frames, poses, P_l, P_r = tsyn.synthetic_drive(
         np.random.default_rng(SEED), n_frames=6)
     row = dataclasses.replace(
@@ -127,7 +133,9 @@ def test_run_sweep_device_classic_row(tmp_path):
                               configs=[host, row], out_json=out,
                               gt_poses=list(poses), max_frames=6,
                               device="cpu")
-    assert len(rows) == 2 and "OpenCV" in rows[0]["error"]
+    assert len(rows) == 2 and "error" not in rows[0], rows
+    assert rows[0]["config"] == "classic_ShiTomasi_ORB_0_0"
+    assert rows[0]["fps"] > 0 and np.isfinite(rows[0]["ate_m"])
     assert "error" not in rows[1], rows
     assert rows[1]["config"].startswith("orbtpu_ORB_ORB_120_392")
     assert rows[1]["fps"] > 0 and "ate_m" in rows[1]
@@ -159,7 +167,8 @@ def test_cli_mode_orb_and_classic_frame_mode(tree, tmp_path, monkeypatch,
     """`--mode orb --device cpu` makes any preset device-classic and writes
     the pose file; a device-classic configuration in frame mode runs
     through `ClassicVisualOdometry` and writes the latency CSV (with
-    `--instrument`: real stage columns); `--mode classic` is refused."""
+    `--instrument`: real stage columns); `--mode classic` detects with
+    OpenCV and writes the pose file."""
     common = ["--device", "cpu", "--kitti-root", tree, "--max-frames", "4",
               "--results-dir", str(tmp_path / "res"),
               "--latency-dir", str(tmp_path / "lat")]
@@ -194,8 +203,12 @@ def test_cli_mode_orb_and_classic_frame_mode(tree, tmp_path, monkeypatch,
     # a classic preset in a CNN mode is refused with exit code 2
     assert trun.main(["--preset", "classic_small", "--mode", "hybrid"]
                      + common) == 2
-    with pytest.raises(NotImplementedError, match="OpenCV"):
-        trun.main(["--preset", "classic_small", "--mode", "classic"] + common)
+    pytest.importorskip("cv2")
+    assert trun.main(["--preset", "classic_small", "--mode", "classic",
+                      "--description", "classic"] + common) == 0
+    poses = tkitti.read_kitti_poses(str(tmp_path / "res" / "classic" /
+                                        "00_pred.txt"))
+    assert len(poses) == 4 and np.isfinite(np.stack(poses)).all()
 
 
 _NO_JAX = r"""
@@ -251,6 +264,25 @@ with tempfile.TemporaryDirectory() as root:
                    "--results-dir", os.path.join(root, "res")])
     assert rc == 0
     assert os.path.exists(os.path.join(root, "res", "default", "00_pred.txt"))
+# the host route's modules import without OpenCV; the route itself then
+# stops at its first use of cv2
+import spsvo_tpu_torch.frontend_classic, spsvo_tpu_torch.viz
+from spsvo_tpu_torch.io import loader
+from spsvo_tpu_torch.eval import harness
+host = VOConfig(is_classic=True, detector_type=DetectorType.ORB,
+                descriptor_type=DescriptorType.ORB, image_height=0,
+                image_width=0)
+for call in (lambda: ClassicVisualOdometry(host, device="cpu"),
+             lambda: spsvo_tpu_torch.viz.draw_trajectory([np.eye(4)] * 2),
+             lambda: harness.run_sequence_fused(
+                 host, [(raw[0], raw[0])] * 2, DEFAULT_P_L, P_r,
+                 mode="classic", device="cpu")):
+    try:
+        call()
+        raise AssertionError("ran without cv2")
+    except ImportError:
+        pass
+assert "cv2" not in sys.modules or sys.modules["cv2"] is None
 assert not any(m == "spsvo_tpu" or m.startswith("spsvo_tpu.") for m in sys.modules)
 print("NO_JAX_OK")
 """

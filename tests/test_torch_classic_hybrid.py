@@ -189,7 +189,10 @@ def test_orb_hybrid_featureless_frames_degrade_gracefully():
 
 
 def test_build_orb_hybrid_wants_a_device_classic_config():
-    with pytest.raises(NotImplementedError, match="OpenCV"):
+    """`build_orb_hybrid` runs the device front end: a host-classic
+    configuration (OpenCV's route: `build_feature_hybrid`) and a CNN one
+    are refused, and the CNN builders refuse a classic one."""
+    with pytest.raises(ValueError, match="device_classic"):
         tsh.build_orb_hybrid(dataclasses.replace(_tcfg(),
                                                  device_classic=False),
                              device="cpu")

@@ -12,7 +12,9 @@ import numpy as np
 import pytest
 
 from spsvo_tpu_torch import presets as tpresets, run as trun
-from spsvo_tpu_torch.config import Precision as TPrecision, VOConfig as TCfg
+from spsvo_tpu_torch.config import (DescriptorType as TDesc,
+                                    DetectorType as TDet,
+                                    Precision as TPrecision, VOConfig as TCfg)
 from spsvo_tpu_torch.eval import harness as tharness, synthetic as tsyn
 from spsvo_tpu_torch.io import kitti as tkitti, png
 from spsvo_tpu_torch.pipeline import VisualOdometry
@@ -145,9 +147,10 @@ def test_harness_artefacts_equal_the_jax_package(tree, tmp_path, monkeypatch,
 
 
 def test_harness_verbose_guards_and_unported_modes(tree):
-    """`verbose` records per-frame diagnostics and feeds the guards; the
-    host classic mode and `viz_dir` say what is missing, and `mode="orb"`
-    takes only a device-classic configuration."""
+    """`verbose` records per-frame diagnostics and feeds the guards;
+    `viz_dir` writes the match and inlier PNGs (their pixels against the
+    JAX package's: tests/test_torch_classic_host.py); the classic modes
+    take only classic configurations, `mode="orb"` a device-classic one."""
     root, _ = tree
     seq = tkitti.KittiOdometrySequence(root, "00")
     # seed 1: with 64 hypotheses at this size an unlucky draw (seed 0) finds
@@ -160,12 +163,18 @@ def test_harness_verbose_guards_and_unported_modes(tree):
     assert res.guards_summary["latency"] == N
     assert res.guards_summary["matches"] == 0
     assert res.fps > 0
-    with pytest.raises(NotImplementedError, match="viz"):
-        tharness.run_sequence(vo, iter(seq), seq.P_l, seq.P_r, viz_dir="x")
-    with pytest.raises(NotImplementedError, match="OpenCV"):
+    pytest.importorskip("cv2")
+    viz = os.path.join(root, "viz")
+    again = tharness.run_sequence(vo, iter(seq), seq.P_l, seq.P_r,
+                                  viz_dir=viz, viz_every=2)
+    np.testing.assert_array_equal(np.stack(again.poses), np.stack(res.poses))
+    assert sorted(os.listdir(viz)) == ["inliers_000002.png",
+                                       "matches_000000.png",
+                                       "matches_000002.png"]
+    with pytest.raises(ValueError, match="classic"):
         tharness.run_sequence_fused(_tcfg(), list(seq), seq.P_l, seq.P_r,
                                     mode="classic", device="cpu")
-    with pytest.raises(NotImplementedError, match="OpenCV"):
+    with pytest.raises(ValueError, match="device-classic"):
         tharness.run_sequence_fused(TCfg(is_classic=True), list(seq), seq.P_l,
                                     seq.P_r, mode="orb", device="cpu")
     with pytest.raises(ValueError, match="device-classic"):
@@ -182,21 +191,24 @@ def test_harness_verbose_guards_and_unported_modes(tree):
 
 
 def test_run_sweep_records_unported_rows_and_goes_on(tree, tmp_path):
-    """A host-classic row and an ONNX-family row without its file land as
-    error rows, the latter naming the missing file; the row between them
-    runs (hybrid, 4 timed repetitions) with accuracy columns; the JSON on
-    disk equals the returned rows."""
+    """An ONNX-family row without its file lands as an error row naming
+    the missing file, and the grid goes on: the rows around it run, the
+    CNN one in mode "hybrid" (4 timed repetitions) with accuracy columns,
+    a host-classic one (OpenCV) in mode "classic"; the JSON on disk equals
+    the returned rows."""
     root, _ = tree
     seq = tkitti.KittiOdometrySequence(root, "00")
     frames = list(seq)
-    cfgs = [TCfg(is_classic=True, max_keypoints=64), _tcfg(),
+    cfgs = [TCfg(is_classic=True, detector_type=TDet.ORB,
+                 descriptor_type=TDesc.ORB, image_height=0, image_width=0,
+                 max_keypoints=256), _tcfg(),
             TCfg(model_name_prefix="sp_mbv1", max_keypoints=64)]
     out_json = str(tmp_path / "sweep.json")
     rows = tharness.run_sweep(lambda: frames, seq.P_l, seq.P_r, configs=cfgs,
                               out_json=out_json, max_frames=3,
                               gt_poses=_drive()[1], device="cpu")
     assert [r["config"] for r in rows] == [c.config_string for c in cfgs]
-    assert "classic" in rows[0]["error"]
+    assert "error" not in rows[0] and rows[0]["fps"] > 0, rows[0]
     assert "sp_mbv1_b1.onnx" in rows[2]["error"]
     for k in ("fps", "mean_total_ms", "ate_m", "final_drift_percent",
               "rpe_trans_rmse_m"):

@@ -22,7 +22,9 @@ import pytest
 import torch
 
 from spsvo_tpu_torch import presets as tpresets
-from spsvo_tpu_torch.config import Precision as TPrecision
+from spsvo_tpu_torch.config import (DescriptorType as TDesc,
+                                    DetectorType as TDet,
+                                    Precision as TPrecision)
 from spsvo_tpu_torch.ops import solver as tsolver, solver_cuda
 from spsvo_tpu_torch.ops.image import (preprocess_image_np,
                                        update_projection_matrix_np)
@@ -329,15 +331,59 @@ def test_hybrid_reference_solve_matches_jax_xla(change, branch):
     dict(speculative_solve=True), dict(landmark_refine=True),
     dict(is_classic=True)],
     ids=["speculative_solve", "landmark_refine", "host_classic"])
-def test_unported_configurations_raise(change):
-    """What is still missing raises, whichever way the hybrid is built (a
-    host-classic configuration names OpenCV); the device-classic ones run
-    (tests/test_torch_classic.py), and so does int8 (below)."""
-    cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL, **change)
-    match = "OpenCV" if "is_classic" in change else None
-    for kw in (dict(), dict(feature_input=True, binary_desc=True)):
-        with pytest.raises(NotImplementedError, match=match):
-            tsh.build_online_hybrid(cfg, device="cpu", **kw)
+def test_flagship_with_each_option_builds_and_runs(change):
+    """The flagship composition with speculative_solve, landmark_refine or
+    a host-classic front end builds and follows the corridor over 3
+    frames, with the CNN and from pre-extracted features (for the
+    host-classic configuration OpenCV's, by `detect_all_frames`; the CNN
+    form refuses it, as it refuses every classic configuration). As in
+    the JAX package, landmark fusion supersedes speculation: the branch
+    stays the flagship's."""
+    from spsvo_tpu_torch.eval import synthetic as tsyn
+    from spsvo_tpu_torch.frontend_classic import detect_all_frames
+    from spsvo_tpu_torch.ops.postprocess import Keypoints
+    if "is_classic" in change:          # ORB at native resolution
+        change = dict(change, detector_type=TDet.ORB,
+                      descriptor_type=TDesc.ORB, image_height=0,
+                      image_width=0, max_keypoints=512, solve_slots=128,
+                      ransac_iterations=128)
+    cfg = dataclasses.replace(tpresets.flagship_tpu(),
+                              **{**SMALL, **change},
+                              precision=TPrecision.FP32)
+    imgs, P_l, P_r, gt = _corridor(3, tsyn)
+    args = (torch.as_tensor(P_l), torch.as_tensor(P_r))
+    g = tsh.draw_pair_gumbel(cfg, 3, torch.Generator().manual_seed(0), "cpu")
+    runs = []
+    if "is_classic" in change:
+        pytest.importorskip("cv2")
+        with pytest.raises(ValueError, match="build_feature_hybrid"):
+            tsh.build_online_hybrid(cfg, device="cpu")
+        # the host classic drive of tests/test_torch_classic_host.py
+        frames, poses, P_l, P_r = tsyn.synthetic_drive(
+            np.random.default_rng(3), n_frames=3,
+            twists=[(np.array([0.0, 0.004, 0.0]),
+                     np.array([0.02, 0.0, 0.35]))] * 2)
+        gt = np.array([T[:3, 3] for T in poses])
+        stack, _, binary = detect_all_frames(cfg, frames)
+        hyb = tsh.build_feature_hybrid(cfg, binary_desc=binary, device="cpu")
+        runs.append(hyb(stack, torch.as_tensor(P_l, dtype=torch.float32),
+                        torch.as_tensor(P_r, dtype=torch.float32),
+                        gumbel=g))
+    else:
+        hyb = tsh.build_online_hybrid(cfg, device="cpu")
+        runs.append(hyb(torch.as_tensor(imgs), *args, gumbel=g))
+        with torch.no_grad():
+            kp_l, kp_r = hyb.frontend(torch.as_tensor(imgs))
+        stack = Keypoints(*(torch.stack([a, b], 1)
+                            for a, b in zip(kp_l, kp_r)))
+        feat = tsh.build_online_hybrid(cfg, device="cpu", feature_input=True)
+        runs.append(feat(stack, *args, gumbel=g))
+        assert torch.equal(runs[0][0], runs[1][0])
+    assert hyb.branch == tsh.LANDMARK_KERNEL
+    for world, diag in runs:
+        assert torch.isfinite(world).all()
+        assert diag["pnp_success"].all() and (diag["num_inliers"] > 10).all()
+        assert np.abs(world[:, :3, 3].numpy() - gt).max() < 0.25
 
 
 def test_int8_hybrid_builds_and_runs_on_the_cpu():

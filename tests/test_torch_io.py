@@ -166,11 +166,12 @@ def _tree(root, rng, n=5, h=60, w=200):
 
 def test_kitti_sequence_reader_and_loader(rng, tmp_path):
     """`KittiOdometrySequence` yields what the JAX package's (cv2) reader
-    yields, start/end included; `make_loader` yields (idx, (2, H, W)) in
-    order, within one grey level of the JAX package's Python loader (that
-    one resizes in uint8 with cv2, which rounds; the port keeps the float
-    taps of its device preprocessing), and hands a decode error to the
-    consumer."""
+    yields, start/end included; `make_loader` (here the native loader)
+    yields (idx, (2, H, W)) in order, within one grey level of the JAX
+    package's Python loader (that one resizes in uint8 with cv2, which
+    rounds; the port's Python loader keeps the float taps of its device
+    preprocessing); both of the port's loaders hand a decode error to the
+    consumer and stop early on `close()`."""
     from spsvo_tpu.io import kitti as jkitti, loader as jloader
     root = str(tmp_path)
     frames = _tree(root, rng)
@@ -187,9 +188,12 @@ def test_kitti_sequence_reader_and_loader(rng, tmp_path):
     full = tkitti.KittiOdometrySequence(root, "00")
     lp = [os.path.join(full.left_dir, f) for f in full.files]
     rp = [os.path.join(full.right_dir, f) for f in full.files]
-    for normalize in (True, False):
-        got = list(tloader.make_loader(lp, rp, 32, 96, queue_capacity=2,
-                                       normalize=normalize))
+    for normalize, make in ((True, tloader.make_loader),
+                            (False, tloader.make_loader),
+                            (True, tloader.PythonStereoLoader),
+                            (False, tloader.PythonStereoLoader)):
+        got = list(make(lp, rp, 32, 96, queue_capacity=2,
+                        normalize=normalize))
         ref = list(jloader.PythonStereoLoader(lp, rp, 32, 96,
                                               normalize=normalize))
         assert [i for i, _ in got] == list(range(5))
@@ -197,18 +201,19 @@ def test_kitti_sequence_reader_and_loader(rng, tmp_path):
             assert a.shape == (2, 32, 96) and a.dtype == np.float32
             np.testing.assert_allclose(a, b, atol=1.01 / 255 if normalize
                                        else 1.01)
+    # here g++ and OpenCV build the native loader
     assert isinstance(tloader.make_loader(lp, rp, 32, 96),
-                      tloader.PythonStereoLoader)
+                      tloader.NativeStereoLoader)
     with open(lp[2], "wb") as f:
         f.write(b"not a png")
-    ld = tloader.make_loader(lp, rp, 32, 96)
-    with pytest.raises(ValueError, match="not a PNG"):
-        list(ld)
-    ld.close()
-    early = tloader.make_loader(lp[:2] * 20, rp[:2] * 20, 32, 96,
-                                queue_capacity=1)
-    next(iter(early))
-    early.close()
+    for make in (tloader.make_loader, tloader.PythonStereoLoader):
+        ld = make(lp, rp, 32, 96)
+        with pytest.raises(ValueError, match="not a PNG"):
+            list(ld)
+        ld.close()
+        early = make(lp[:2] * 20, rp[:2] * 20, 32, 96, queue_capacity=1)
+        next(iter(early))
+        early.close()
     assert not early._thread.is_alive()
 
 
@@ -247,3 +252,50 @@ def test_synthetic_blocks_copy_equals_original():
         for a, b in zip(pair_t, pair_j):
             d = np.abs(a.astype(int) - b.astype(int))
             assert (d > 0).mean() <= 0.01 and d.max() <= 64
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_native_loader_matches_jax(rng, tmp_path, monkeypatch, normalize):
+    """The port's own copy of the native loader (built into
+    `.kernel_cache/`) yields the JAX package's native loader's frames (that
+    one built in a directory of this test), bit for bit and in order, over
+    more frames than its ring holds, with several workers."""
+    from spsvo_tpu.io import loader as jloader
+    monkeypatch.setenv("SPSVO_NATIVE_DIR", str(tmp_path / "jax_native"))
+    _tree(str(tmp_path), rng, n=12, h=70, w=230)
+    full = tkitti.KittiOdometrySequence(str(tmp_path), "00")
+    lp = [os.path.join(full.left_dir, f) for f in full.files]
+    rp = [os.path.join(full.right_dir, f) for f in full.files]
+    kw = dict(queue_capacity=3, num_threads=3, normalize=normalize)
+    got = list(tloader.NativeStereoLoader(lp, rp, 48, 160, **kw))
+    ref = list(jloader.NativeStereoLoader(lp, rp, 48, 160, **kw))
+    assert [i for i, _ in got] == [i for i, _ in ref] == list(range(12))
+    for (_, a), (_, b) in zip(got, ref):
+        assert a.shape == (2, 48, 160) and a.dtype == np.float32
+        np.testing.assert_array_equal(a, b)
+    from spsvo_tpu_torch import _build
+    assert os.path.dirname(tloader._build_native()) == _build.CACHE
+
+
+def test_make_loader_falls_back_where_the_library_does_not_load(
+        rng, tmp_path, monkeypatch):
+    """A native library that does not load (in this test: not a library;
+    elsewhere: built against an OpenCV the machine lacks, or no OpenCV to
+    build against) makes `make_loader` warn and return the Python loader."""
+    _tree(str(tmp_path), rng, n=2)
+    full = tkitti.KittiOdometrySequence(str(tmp_path), "00")
+    lp = [os.path.join(full.left_dir, f) for f in full.files]
+    rp = [os.path.join(full.right_dir, f) for f in full.files]
+    bad = tmp_path / "libbroken.so"
+    bad.write_bytes(b"not a shared library")
+    monkeypatch.setattr(tloader, "_build_native", lambda: str(bad))
+    tloader._native_lib.cache_clear()
+    try:
+        with pytest.warns(UserWarning, match="native loader unavailable"):
+            ld = tloader.make_loader(lp, rp, 32, 96)
+        assert isinstance(ld, tloader.PythonStereoLoader)
+        assert [i for i, _ in ld] == [0, 1]
+        with pytest.raises(RuntimeError, match="unavailable"):
+            tloader.NativeStereoLoader(lp, rp, 32, 96)
+    finally:
+        tloader._native_lib.cache_clear()

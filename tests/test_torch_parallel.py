@@ -21,6 +21,9 @@ What is held, and to what:
   tests/test_parallel.py tolerances), BatchNorm statistics bit-unchanged;
   at world 2 against the JAX package's `build_sharded_train_step` on the
   conftest's virtual mesh by tests/test_torch_training.py's rule;
+- the speculative branch (the sampled winners hoisted per rank, carried by
+  the one gather) from the same keypoints at world 2, on 8 and 7 frames,
+  bit for bit;
 - the cheapest hybrid (no landmark fusion, no fused solver, 4 frames) at
   world 2 against the JAX package's `build_online_hybrid(mesh=make_mesh(2))`
   with the same noise, at tests/test_torch_hybrid.py's WORLD_ATOL;
@@ -140,6 +143,13 @@ def _run_case(case: str, d: dict, mesh=None):
                               else tsh.KERNEL)
         return hyb(Keypoints(*(t(a[:n]) for a in d["kp"])), t(d["P_l"]),
                    t(d["P_r"]), gumbel=t(d["gumbel"][:n - 1]))
+    if kind == "feature_spec":
+        hyb = tsh.build_online_hybrid(
+            _cfg(False, use_pallas_solver=False, speculative_solve=True),
+            device="cpu", feature_input=True, mesh=mesh)
+        assert hyb.branch == tsh.SPECULATIVE
+        return hyb(Keypoints(*(t(a[:n]) for a in d["kp"])), t(d["P_l"]),
+                   t(d["P_r"]), gumbel=t(d["gumbel"][:n - 1]))
     if kind in ("cnn_lm", "batch"):
         build = (tsh.build_batch_vo if kind == "batch"
                  else tsh.build_online_hybrid)
@@ -213,7 +223,8 @@ def _cases(world):
              f"feature_plain_{r}", f"cnn_lm_{n}", f"batch_{n}",
              f"batch_{r}", "train"]
     if world == 2:
-        cases += ["orb_6", "jax_plain_4", "train_jax"]
+        cases += ["orb_6", "jax_plain_4", "train_jax", f"feature_spec_{n}",
+                  f"feature_spec_{r}"]
     return cases
 
 
@@ -407,6 +418,21 @@ def test_sharded_hybrid_equals_unsharded_from_the_keypoints(world, kind,
     world_poses, diag = ref
     assert world_poses.shape == (n, 4, 4)
     assert (diag["num_inliers"] > 30).all(), diag["num_inliers"]
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["even", "ragged"])
+def test_sharded_speculative_hybrid_equals_unsharded(ragged):
+    """The speculative branch on a 2-rank mesh: each rank hoists the
+    sampled winners of its own pairs, the one gather carries them to the
+    replicated scan, and the result equals the unsharded run's bit for
+    bit (the same per-pair work, batched differently)."""
+    n = RAGGED[2] if ragged else 8
+    case = f"feature_spec_{n}"
+    ref = _reference(case)
+    for rank_out in _world_runs(2):
+        _assert_equal(rank_out[case], ref, case)
+    assert "prior_winner" in ref[1]
+    assert (ref[1]["num_inliers"] > 30).all(), ref[1]["num_inliers"]
 
 
 @pytest.mark.parametrize("world", [2, 4])

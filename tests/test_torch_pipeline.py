@@ -183,12 +183,21 @@ def test_port_runs_without_jax():
 
 
 def test_port_sources_import_no_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|spsvo_tpu|cv2)\b", re.M)
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No source of the port imports jax or the JAX package, anywhere; cv2
+    only inside the functions of the OpenCV host route (none at module
+    level, and none in chip_smoke.py, which must run without OpenCV)."""
+    anywhere = re.compile(r"^\s*(import|from)\s+(jax|spsvo_tpu)\b", re.M)
+    top_cv2 = re.compile(r"^(import|from)\s+cv2\b", re.M)
+    any_cv2 = re.compile(r"^\s*(import|from)\s+cv2\b", re.M)
+    smoke = os.path.join(REPO, "chip_smoke.py")
+    files = [smoke]
     for root, _, names in os.walk(os.path.join(REPO, "spsvo_tpu_torch")):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    offenders = [f for f in files if pattern.search(open(f).read())]
+    offenders = [f for f in files
+                 if anywhere.search(open(f).read())
+                 or top_cv2.search(open(f).read())]
     assert not offenders
+    assert not any_cv2.search(open(smoke).read())
 
 
 def test_metrics_copy_equals_original(rng):

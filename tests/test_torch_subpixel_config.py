@@ -99,9 +99,11 @@ def test_sweep_enumerations_equal_field_for_field(name, rows):
 
 def test_default_config_builds_a_pipeline():
     """`VOConfig()`'s solver defaults (adaptive RANSAC, while-loop LM) are
-    supported, and so is int8; what is still missing names itself, and
-    `VOConfig()`'s own family, `sp_mbv1`, names its absent ONNX file."""
-    from spsvo_tpu_torch.pipeline import VisualOdometry, check_supported
+    supported, and so are sub-pixel refinement with landmark fusion and its
+    refinement pass; a classic configuration is sent to the class that
+    runs it, and `VOConfig()`'s own family, `sp_mbv1`, names its absent
+    ONNX file."""
+    from spsvo_tpu_torch.pipeline import VisualOdometry
     cfg = tconfig.VOConfig(model_name_prefix="superpoint_pretrained",
                            image_height=48, image_width=160,
                            max_keypoints=64)
@@ -111,13 +113,15 @@ def test_default_config_builds_a_pipeline():
     P = np.array([[100.0, 0, 80, 0], [0, 100.0, 24, 0], [0, 0, 1, 0]])
     T, _ = vo.process(img, img, P, P)
     np.testing.assert_array_equal(T, np.eye(4))
-    check_supported(dataclasses.replace(cfg, subpixel_refine="quad"))
-    check_supported(dataclasses.replace(cfg,
-                                        precision=tconfig.Precision.INT8))
-    for change, word in ((dict(is_classic=True), "classic"),
-                         (dict(landmark_refine=True), "landmark_refine")):
-        with pytest.raises(NotImplementedError, match=word):
-            check_supported(dataclasses.replace(cfg, **change))
+    refine = VisualOdometry(dataclasses.replace(
+        cfg, subpixel_refine="quad", landmark_fusion=True,
+        landmark_refine=True), device="cpu")
+    for shift in (0, 2):
+        T, _ = refine.process(np.roll(img, shift, axis=1), img, P, P)
+        assert np.isfinite(T).all()
+    with pytest.raises(ValueError, match="ClassicVisualOdometry"):
+        VisualOdometry(dataclasses.replace(cfg, is_classic=True),
+                       device="cpu")
     with pytest.raises(FileNotFoundError, match="sp_mbv1_b1.onnx"):
         VisualOdometry(tconfig.VOConfig(), device="cpu")     # sp_mbv1
 
