@@ -8,13 +8,29 @@ Phases, one line each, then the kernel report and the card's name and power
 limit, then the result line:
 
   1. environment: torch / CUDA / nvcc versions and the card;
-  2. build both hand-written kernels from spsvo_tpu_torch/csrc/ (nvcc);
+  2. build the three hand-written kernels from spsvo_tpu_torch/csrc/
+     (nvcc, side by side);
   3. kernel 1 (fused mutual-NN matcher) against its plain PyTorch version
      on the card, B=2, K=512, D=256, bf16 and fp32, invalid slots and
      duplicated descriptors (exact ties);
   4. kernel 2 (fused solver) against its plain version on the card, S=256,
      L=128, on synthetic frames with known motion and 15% outliers: both
      winner branches, the gate fallback and the GLS (weighted LM) pass;
+ 4b. kernel 3 (the bf16 implicit-GEMM convolution) on every conv of
+     superpoint_pretrained and sp_resnet18 fed the corridor's own
+     activations, at 120x392 (B=64) and 360x1176 (B=16), and on the ONNX
+     families' forms (stride 2, asymmetric pads, dilation 2, groups 2,
+     depthwise, C_in 1, 1x1): within the sum-order bound CONV_SUM_RTOL of
+     its plain version (run in fp64), the bias and ReLU epilogue bit for
+     bit, every 2-image slice bit for bit the batch's output; per layer and
+     for the trunk (B=2 and 64 at 120x392, 16 at 360x1176) its ms, the
+     plain version's, cuDNN's fp32 conv on pre-rounded operands
+     (library_ms) and the bound;
+ 4c. the front end's batch invariance: the bf16 flagship's on the
+     corridor's 64 images bit for bit at batch 64, 32, 16 and 2 and per
+     frame through `superpoint_frontend` with model_batch_size 2 and 1;
+     superpoint_jetson's at 360x1176 at chunk 16 and 2; and, as a reading
+     only, the fp32 route's (superpoint_laptop, cuDNN) at chunk 16 and 2;
   5. the per-frame path: `VisualOdometry.process` with the flagship
      composition on superpoint_pretrained (full width, committed weights)
      over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
@@ -28,7 +44,10 @@ limit, then the result line:
      with its plain version from the same carry, the CUDA-graph replay
      against the eager run, accuracy bounds, and times: the sequence eager
      and replayed, frames per second, a per-phase split (one CUDA graph per
-     phase) and kernel 2 at the weighted shape;
+     phase) and kernel 2 at the weighted shape; its front end bit for bit
+     the per-frame `superpoint_frontend`'s, and against the sequence scan
+     on equal noise equal match counts per pair and translations within
+     SCAN_T_ATOL_M;
   7. the run CLI and the evaluation harness over the same corridor written
      as a KITTI tree (`sequences/00/image_0|1/*.png`, `calib.txt`, a
      ground-truth pose file) by the package's own PNG writer:
@@ -43,8 +62,8 @@ limit, then the result line:
         32 out, the captured step program bitwise equal to its eager run;
         f. the reference-parity composition at full width
         (`--preset superpoint_jetson`: 360x1176, bf16 trunk, K=1000, 500
-        hypotheses in chunks of 64, while-loop LM, 256 lanes; it runs no
-        hand-written kernel, as in the JAX package) in frame and hybrid
+        hypotheses in chunks of 64, while-loop LM, 256 lanes; of the
+        hand-written kernels it runs kernel 3 alone) in frame and hybrid
         mode on 8 frames, with hypotheses scored, keypoints, inliers, ms
         per frame and peak memory;
   8. the device-resident classic front ends (ops/orb.py, ops/akaze.py: no
@@ -77,7 +96,7 @@ limit, then the result line:
      d. `VisualOdometry.process` with `precision=INT8` (dynamic scales) on
      8 frames; e. whether the bundled ONNX families' files are present
      (`zoo.reference_models_dir()`), and if `sp_mbv1`'s is, 9c's hybrid on
-     it;
+     it; f. the static-scale front end bit for bit at batch 64, 32, 16, 2;
  10. training and distillation (training.py, distill.py, io/homography.py:
      PyTorch ops and cuDNN in fp32, no kernel of their own): a.
      `distill.distill` with the recipe of tools/distill_families.py
@@ -98,17 +117,13 @@ limit, then the result line:
      width: a. no process group left by the earlier phases; the hybrid on
      a mesh of one over an NCCL group of one in this process against the
      run without a mesh bit for bit, its CUDA graph against its eager run,
-     and its launches; the front end in the ranks' batches against the
-     whole batch, by keypoint agreement, with cuDNN (it picks algorithms by
-     batch) and without it (the witness: about 1.0); b-f in ranks started
-     by `mesh.spawn`: NCCL over min(4, cards) cards where there are two or
+     and its launches; b-f in ranks started by `mesh.spawn`: NCCL over min(4, cards) cards where there are two or
      more, else two gloo ranks sharing this card (a correctness run, not a
      scaling one). b. the feature-input hybrid with landmark fusion on and
      off fed the unsharded front end's keypoints, equal to the unsharded
      run bit for bit; the CNN hybrid end to end: its keypoints and result
-     bit for bit those of the unsharded program fed the front end run here
-     in the ranks' batches, its keypoint agreement with the whole batch,
-     phase 6's drift, keypoint and inlier bounds, kernel 1 against its
+     bit for bit those of the unsharded program (the front end is
+     batch-invariant: phase 4c), phase 6's drift, keypoint and inlier bounds, kernel 1 against its
      plain version at the rank's B, every scan step against the plain
      body, graphs (one per stretch between collectives) against eager;
      c. the batch mode (bit for bit as the CNN hybrid, 7d's bounds, one
@@ -150,16 +165,19 @@ tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
 "hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
-"stream", phase 8's "orb_hybrid_*", "classic_process",
-"classic_stream", "harness_orb", "feature_hybrid", phase 9's
-"int8_hybrid", "int8_per_frame", phase 11's "sharded_*" per rank "_rN",
-and phase 12's "speculative_hybrid", "landmark_refine_hybrid",
-"landmark_refine_process"), each counted from zero
-over that path's run; "launches" is their sum. Every path must launch both
-kernels, but for the classic ones, which must launch kernel 1 never (binary
-descriptors are matched by a Hamming matrix product outside it), and the
-speculative one, which must launch kernel 2 never (it refines its winners
-op by op), as in the JAX package. A count is a launch that ran on the card: a wrapper's call
+"stream", "jetson_frame", "jetson_hybrid", phase 8's "orb_hybrid_*",
+"classic_process", "classic_stream", "harness_orb", "feature_hybrid",
+phase 9's "int8_hybrid", "int8_per_frame", phase 10's "training", phase
+11's "sharded_*" per rank "_rN", and phase 12's "speculative_hybrid",
+"landmark_refine_hybrid", "landmark_refine_process"), each counted from
+zero over that path's run; "launches" is their sum. A kernel must launch
+on every path that runs its stage and never elsewhere, as in the JAX
+package: kernel 1 not on the classic paths (binary descriptors are matched
+by a Hamming matrix product outside it); kernel 2 not on the speculative
+path (it refines its winners op by op); neither on superpoint_jetson's (its
+configuration turns both off, as the reference's); kernel 3 on
+every bf16 CNN path and never on the feature-input, int8, classic and
+training paths; no kernel runs in training. A count is a launch that ran on the card: a wrapper's call
 under CUDA-graph capture is recorded with the graph and counted at every
 replay.
 
@@ -167,6 +185,7 @@ Exits non-zero at the first failed check, without a result line. Needs a
 CUDA device; imports neither jax nor the JAX package.
 """
 
+import collections
 import csv
 import dataclasses
 import datetime
@@ -526,6 +545,332 @@ def phase_solver(dev, rng):
     return worst, timing
 
 
+# ---- phase 4b: kernel 3, the bf16 convolution ----
+
+# The sum-order bound: the kernel sums exact bf16 products in fp32 on the
+# tensor cores, the plain version (run in fp64 here, so its own sums are
+# exact) in full precision; each element may differ by CONV_SUM_RTOL of
+# the conv of the magnitudes |bf16(x)| * |bf16(w)| (a few fp32 roundings
+# of the partial sums over K <= 2304). Checked without the bias; the
+# epilogue (bias, ReLU) is then held bit for bit against the fp32 ops.
+CONV_SUM_RTOL = 1e-5
+# the ONNX families' conv forms the trained trunks do not hold: (name, C,
+# Cout, kernel, stride, pads (top, left, bottom, right), dilation, groups)
+CONV_SYNTHETIC = [
+    ("stride2", 32, 64, 3, 2, (1, 1, 1, 1), 1, 1),
+    ("asym_pads_s2", 32, 32, 3, 2, (0, 0, 1, 1), 1, 1),
+    ("dilation2", 64, 64, 3, 1, (2, 2, 2, 2), 2, 1),
+    ("groups2", 64, 128, 3, 1, (1, 1, 1, 1), 1, 2),
+    ("depthwise", 64, 64, 3, 1, (1, 1, 1, 1), 1, 64),
+    ("depthwise_s2_asym", 32, 32, 3, 2, (0, 0, 1, 1), 1, 32),
+    ("cin1_s2", 1, 32, 3, 2, (1, 1, 1, 1), 1, 1),
+    ("pointwise", 96, 24, 1, 1, (0, 0, 0, 0), 1, 1),
+]
+# (H, W, images) of the trained trunks' checks: the flagship's and the
+# reference composition's resolutions at their front ends' batches
+CONV_SHAPES = ((120, 392, 64), (360, 1176, 16))
+
+
+def conv_layers(dev, model, x_nhwc):
+    """Every conv of `model` (its fused node list) with the input
+    activation the fp32 trunk gives it on `x_nhwc`: [(weight name, x NCHW,
+    w, b, strides, pads, dilations, groups, relu)]."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.models.graph import OnnxGraph
+    convs = [n for n in model.nodes if n.op == "Conv"]
+    names = list(dict.fromkeys(n.inputs[0] for n in convs))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    probe = zoo.model_from_state(
+        OnnxGraph(model.graph.nodes, {}, model.graph.input_names, names),
+        state, bf16=False, device=dev)
+    with torch.no_grad():
+        acts = probe(x_nhwc)
+    del probe
+    out = []
+    for node in convs:
+        w = model.get_buffer(node.inputs[1])
+        b = model.get_buffer(node.inputs[2]) if len(node.inputs) > 2 else None
+        out.append((node.inputs[1],
+                    acts[node.inputs[0]].permute(0, 3, 1, 2).contiguous(),
+                    w, b, [int(v) for v in node.attr("strides", [1, 1])],
+                    [int(v) for v in node.attr("pads", [0, 0, 0, 0])],
+                    [int(v) for v in node.attr("dilations", [1, 1])],
+                    int(node.attr("group", 1)),
+                    bool(node.attr("fused_relu", 0))))
+    return out
+
+
+def check_conv(tag, x, w, b, strides, pads, dilations, groups, relu,
+               slice_b: int = 2):
+    """Kernel 3 against its plain version on one layer's inputs: the sum
+    within CONV_SUM_RTOL of the magnitude conv (plain in fp64), the
+    epilogue bit for bit, each `slice_b`-image slice of the batch bit for
+    bit the batch's output. Fails on a miss; returns the report."""
+    import torch
+
+    from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, conv2d_bf16_plain
+    geo = (strides, pads, dilations, groups)
+    with torch.no_grad():
+        y0 = conv2d_bf16(x, w, None, *geo)
+        y = conv2d_bf16(x, w, b, *geo, relu=relu)
+        torch.cuda.synchronize()
+        xd, wd = x.double(), w.double()
+        ref = conv2d_bf16_plain(xd, wd, None, *geo)
+        mag = conv2d_bf16_plain(xd.abs(), wd.abs(), None, *geo)
+        err = (y0.double() - ref).abs()
+        limit = CONV_SUM_RTOL * mag + 1e-30
+        ratio = float((err / limit).max())
+        within = bool((err <= limit).all())
+        del xd, wd, ref, mag, limit
+        want = y0 if b is None else y0 + b[None, :, None, None]
+        epilogue = torch.equal(y, torch.relu(want) if relu else want)
+        plain32 = conv2d_bf16_plain(x, w, b, *geo, relu=relu)
+        err32 = float((y - plain32).abs().max())
+        del plain32, want
+        n = x.shape[0]
+        sliced = all(torch.equal(conv2d_bf16(x[i:i + slice_b], w, b, *geo,
+                                             relu=relu), y[i:i + slice_b])
+                     for i in range(0, n, slice_b))
+    rep = {"layer": tag, "x": list(x.shape), "w": list(w.shape),
+           "strides": list(strides), "pads": list(pads),
+           "dilations": list(dilations), "groups": groups, "relu": relu,
+           "max_abs_err": float(err.max()), "err_over_bound_max": ratio,
+           "max_abs_diff_vs_plain_fp32": err32, "epilogue_bitwise": epilogue,
+           f"slices_of_{slice_b}_bitwise": sliced}
+    if not (within and epilogue and sliced):
+        fail(f"phase4b: conv_bf16 {rep}")
+    return rep
+
+
+def conv_bound(x, w, y):
+    """Kernel 3: 2 * outputs * K multiply-adds on the bf16 tensor cores;
+    x, w, bias read once and y written once, fp32."""
+    k = w.shape[1] * w.shape[2] * w.shape[3]
+    n_bytes = 4 * (x.numel() + w.numel() + w.shape[0] + y.numel())
+    return n_bytes, 2.0 * y.numel() * k
+
+
+def time_conv(x, w, b, strides, pads, dilations, groups, relu, iters):
+    """Kernel 3, its plain version and cuDNN's fp32 conv on pre-rounded
+    operands (the route the kernel replaced, the same function but the
+    ReLU), each from a CUDA graph; with the layer's bytes and operations."""
+    import torch
+    import torch.nn.functional as F
+
+    from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, conv2d_bf16_plain
+    geo = (strides, pads, dilations, groups)
+    xr = x.to(torch.bfloat16).float()
+    wr = w.to(torch.bfloat16).float()
+    pad = (pads[0], pads[1])
+    if pads[:2] != pads[2:]:
+        raise ValueError("time_conv: the trunks' pads are symmetric")
+    with torch.no_grad():
+        y = conv2d_bf16(x, w, b, *geo, relu=relu)
+        n_bytes, ops = conv_bound(x, w, y)
+        return {"ms": graph_ms(lambda: conv2d_bf16(x, w, b, *geo, relu=relu),
+                               iters),
+                "plain_ms": graph_ms(lambda: conv2d_bf16_plain(
+                    x, w, b, *geo, relu=relu), iters),
+                "library_ms": graph_ms(lambda: F.conv2d(
+                    xr, wr, b, strides, pad, dilations, groups), iters),
+                "bytes": n_bytes, "ops": ops}
+
+
+def phase_conv(dev, corridor):
+    """Phase 4b: kernel 3 on every conv of superpoint_pretrained and
+    sp_resnet18 fed the corridor's own activations, at 120x392 (B=64, and
+    B=2 as its slices) and 360x1176 (B=16, and B=2), and on the ONNX
+    families' synthetic forms; superpoint_pretrained's layers and trunk
+    timed at B=2 and 64 (120x392) and 16 (360x1176). Returns (largest error
+    against the plain version, the kernel report's timing at the main
+    path's B=64)."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops import image as image_ops
+    t_start = time.perf_counter()
+    frames = corridor[0]
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    worst = 0.0
+    timing = {}
+    for prefix in ("superpoint_pretrained", "sp_resnet18"):
+        model = zoo.load_model(prefix, torch.bfloat16, dev)
+        for h, w, n_img in CONV_SHAPES:
+            x = image_ops.preprocess_image(raw, h, w).reshape(
+                -1, h, w)[:n_img, ..., None]
+            reps = []
+            for layer in conv_layers(dev, model, x):
+                rep = check_conv(*layer)
+                worst = max(worst, rep["max_abs_err"])
+                reps.append(rep)
+            say("phase4b", model=prefix, hw=[h, w], B=n_img,
+                check="every conv vs plain (fp64) within the sum-order "
+                "bound, epilogue and B=2 slices bit for bit",
+                rtol=CONV_SUM_RTOL, layers=reps)
+            if prefix != "superpoint_pretrained":
+                continue
+            for b_img in ((2, n_img) if (h, w) == CONV_SHAPES[0][:2]
+                          else (n_img,)):
+                xb = x[:b_img]
+                iters = 20 if b_img == 2 else 5
+                per = {}
+                for layer in conv_layers(dev, model, xb):
+                    t = time_conv(*layer[1:], iters)
+                    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
+                                                         "bf16")
+                    per[layer[0]] = t
+                tot = {k: sum(t[k] for t in per.values())
+                       for k in ("ms", "plain_ms", "library_ms", "bytes",
+                                 "ops")}
+                tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"],
+                                                         tot["ops"], "bf16")
+                tot["bound_ms_sum_of_layers"] = sum(t["bound_ms"]
+                                                    for t in per.values())
+                tot["trunk_forward_ms"] = trunk_ms(model, xb)
+                say("phase4b", model=prefix, hw=[h, w], B=b_img,
+                    timing="per layer, CUDA graphs", layers=per, trunk=tot)
+                timing[(h, b_img)] = tot
+            del x
+        del model
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(dev).manual_seed(5)
+    reps = []
+    for name, c, cout, k, s, pads, d, g in CONV_SYNTHETIC:
+        x = torch.relu(torch.randn((4, c, 60, 196), generator=gen,
+                                   device=dev))
+        w = torch.randn((cout, c // g, k, k), generator=gen, device=dev) * (
+            2.0 / (c // g * k * k)) ** 0.5
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        for relu in (False, True):
+            rep = check_conv(name, x, w, b, [s, s], list(pads), [d, d], g,
+                             relu)
+            worst = max(worst, rep["max_abs_err"])
+            reps.append(rep)
+    say("phase4b", check="the ONNX families' conv forms, B=4 at 60x196",
+        rtol=CONV_SUM_RTOL, layers=reps)
+    (h0, _, b0), (h1, _, b1) = CONV_SHAPES
+    main = timing[(h0, b0)]
+    say("phase4b", result="pass", max_abs_err=worst,
+        phase4b_s=time.perf_counter() - t_start)
+    return worst, {"ms": main["ms"], "plain_ms": main["plain_ms"],
+                   "bound_ms": main["bound_ms"],
+                   "bound_by": main["bound_by"],
+                   "library_ms": main["library_ms"],
+                   "trunk_forward_ms": main["trunk_forward_ms"],
+                   "ms_b2": timing[(h0, 2)]["ms"],
+                   "ms_360x1176_b16": timing[(h1, b1)]["ms"]}
+
+
+def frontend_kp(model, images, cfg, batch: int):
+    """`frontend_batch` over (M, H, W) images in batches of `batch`."""
+    import torch
+
+    from spsvo_tpu_torch.ops.postprocess import Keypoints
+    from spsvo_tpu_torch.parallel.sharding import frontend_batch
+    with torch.no_grad():
+        parts = [frontend_batch(model, images[i:i + batch], cfg)
+                 for i in range(0, images.shape[0], batch)]
+    return Keypoints(*(torch.cat(f) for f in zip(*parts)))
+
+
+def kp_equal(a, b) -> bool:
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def kp_agreement(a, b) -> float:
+    """The share of `b`'s valid keypoints that `a` has at the same place."""
+    hit = (a.xy == b.xy).all(-1) & a.valid & b.valid
+    return int(hit.sum()) / max(1, int(b.valid.sum()))
+
+
+def frontend_invariance(tag, model, images, cfg, batches):
+    """The front end (`frontend_batch`) on `images` in each of `batches`
+    against the first: xy, score, valid and desc bit for bit. Fails on a
+    miss; returns the report."""
+    ref = frontend_kp(model, images, cfg, batches[0])
+    rep = {}
+    for b in batches[1:]:
+        got = frontend_kp(model, images, cfg, b)
+        rep[f"batch_{b}_bitwise"] = kp_equal(got, ref)
+        rep[f"batch_{b}_keypoint_agreement"] = kp_agreement(got, ref)
+    say(tag, check=f"front end at batch {batches[0]} against "
+        f"{list(batches[1:])}", images=int(images.shape[0]),
+        hw=list(images.shape[1:]), **rep)
+    if not all(v for k, v in rep.items() if k.endswith("bitwise")):
+        fail(f"{tag}: the front end depends on the batch: {rep}")
+    return ref
+
+
+def phase_frontend_invariance(dev, corridor):
+    """Phase 4c: the bf16 flagship front end on the corridor's 64 images
+    bit for bit at batch 64, 32, 16 and 2, and per frame through
+    `superpoint_frontend` with model_batch_size 2 and 1; superpoint_jetson's
+    at 360x1176 at chunk 16 and 2. A reading, not a check: the fp32 route
+    (superpoint_laptop's trunk, cuDNN) at 360x1176, chunk 16 against 2."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops import image as image_ops
+    from spsvo_tpu_torch.pipeline import superpoint_frontend
+    from spsvo_tpu_torch.presets import superpoint_jetson, superpoint_laptop
+    frames = corridor[0]
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    cfg = flagship_cfg()
+    model = zoo.load_model(cfg.model_name_prefix, torch.bfloat16, dev)
+    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
+    flat = imgs.reshape(-1, *imgs.shape[2:])
+    ref = frontend_invariance("phase4c bf16", model, flat, cfg,
+                              (64, 32, 16, 2))
+    per = {}
+    for mb in (2, 1):
+        c = dataclasses.replace(cfg, model_batch_size=mb)
+        with torch.no_grad():
+            pairs = [superpoint_frontend(model, imgs[f], c)
+                     for f in range(imgs.shape[0])]
+        per[mb] = type(ref)(*(torch.stack([torch.stack([a[i], b[i]])
+                                           for a, b in pairs]).reshape(
+                                               (-1,) + ref[i].shape[1:])
+                              for i in range(4)))
+    same_mb = kp_equal(per[1], per[2])
+    same_batch = kp_equal(per[2], ref)
+    say("phase4c bf16", check="superpoint_frontend per frame, "
+        "model_batch_size 2 and 1, against frontend_batch at 64",
+        model_batch_size_1_equals_2=same_mb,
+        per_frame_equals_batch_64=same_batch)
+    if not (same_mb and same_batch):
+        fail("phase4c: the per-frame front end differs between "
+             "model_batch_size 1 and 2 or from the batch of 64")
+    readings = {}
+    for name, preset, check in (("jetson", superpoint_jetson, True),
+                                ("laptop_fp32", superpoint_laptop, False)):
+        c = preset()
+        dtype = (torch.bfloat16 if c.precision.name == "BF16"
+                 else torch.float32)
+        m = zoo.load_model(c.model_name_prefix, dtype, dev)
+        x = image_ops.preprocess_image(raw[:8], c.image_height,
+                                       c.image_width).reshape(
+            -1, c.image_height, c.image_width)
+        if check:
+            frontend_invariance(f"phase4c {name}", m, x, c, (16, 2))
+        else:
+            a = frontend_kp(m, x, c, 16)
+            b = frontend_kp(m, x, c, 2)
+            readings = {"preset": "superpoint_laptop", "precision": "FP32",
+                        "images": int(x.shape[0]),
+                        "chunk_16_vs_2_bitwise": kp_equal(b, a),
+                        "keypoint_agreement": kp_agreement(b, a),
+                        "desc_max_abs_diff": float((a.desc - b.desc).abs()
+                                                   .max())}
+        del m
+    say("phase4c fp32", check="a reading, not held: the fp32 route "
+        "(cuDNN) at chunk 16 against 2", **readings)
+    torch.cuda.empty_cache()
+
+
 def render_corridor(n: int = 32):
     """The n-frame 375x1242 corridor drive both paths run on: (frames, gt,
     P_l, P_r, render seconds)."""
@@ -735,14 +1080,62 @@ def graph_replays(hybrid, imgs, P_l, P_r, gumbel, reps: int = 10):
     return out, capture_s, times
 
 
+# The hybrid against the sequence scan (the per-frame step program) on
+# equal noise: the JAX package pins their translations at 0.08 m
+# (tests/test_parallel.py); the front ends and so the matches are equal.
+SCAN_T_ATOL_M = 0.08
+
+
+def hybrid_vs_per_frame(phase, hybrid, imgs, P_l, P_r, gumbel, world, diag,
+                        cfg):
+    """The hybrid's front end (all frames in one batch) against
+    `superpoint_frontend` frame by frame, bit for bit; the hybrid's eager
+    result against the sequence scan fed the same noise per pair: equal
+    per-pair match counts, translations within SCAN_T_ATOL_M."""
+    import torch
+
+    from spsvo_tpu_torch.parallel.sharding import build_sequence_scan
+    from spsvo_tpu_torch.pipeline import superpoint_frontend
+    n = imgs.shape[0]
+    with torch.no_grad():
+        kp_l, kp_r = hybrid.frontend(imgs)
+        per = [superpoint_frontend(hybrid.model, imgs[f], cfg)
+               for f in range(n)]
+    same_fe = all(torch.equal(torch.stack([p[side][i] for p in per]), kp[i])
+                  for side, kp in enumerate((kp_l, kp_r)) for i in range(4))
+    scan = build_sequence_scan(cfg, model=hybrid.model, device=imgs.device)
+    g = torch.cat([gumbel[:1], gumbel])   # frame f solves pair f-1
+    want = (n,) + tuple(scan.draw_gumbel(
+        1, torch.Generator(imgs.device).manual_seed(0)).shape[1:])
+    if tuple(g.shape) != want:
+        fail(f"{phase}: the hybrid's noise {tuple(gumbel.shape)} does not "
+             f"feed the scan's {want}")
+    w_s, d_s = scan.eager(imgs, P_l, P_r, gumbel=g)
+    counts = ("num_stereo_matches", "num_interframe_matches")
+    differing = [k for k in counts if not torch.equal(d_s[k][1:], diag[k])]
+    dt = float((w_s[:, :3, 3] - world[:, :3, 3]).abs().max())
+    say(phase, check="the hybrid against the per-frame program",
+        frontend_equals_per_frame_bitwise=same_fe,
+        scan_differing_match_counts=differing,
+        scan_inliers_equal=bool(torch.equal(d_s["num_inliers"][1:],
+                                            diag["num_inliers"])),
+        scan_max_abs_translation_diff_m=dt, limit_m=SCAN_T_ATOL_M)
+    if not same_fe or differing or not dt < SCAN_T_ATOL_M:
+        fail(f"{phase}: the hybrid against the per-frame program: front "
+             f"end equal {same_fe}, match counts differing {differing}, "
+             f"translations {dt} m apart")
+
+
 def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
-                 drift_limit=5.0):
+                 drift_limit=5.0, per_frame: bool = False):
     """The online hybrid over the corridor (`cfg` defaults to the flagship
     composition, `model` to the one it loads): launches, kernels against
     their plain versions on the run's own inputs, graph replay against
     eager, accuracy, times and peak memory. Returns (launches, kernel 2's
     weighted timing, kernel 1's and kernel 2's largest error against the
-    plain version, {sequence ms eager and replayed, per-phase ms})."""
+    plain version, {sequence ms eager and replayed, per-phase ms}).
+    `per_frame` also holds it to the per-frame program
+    (`hybrid_vs_per_frame`)."""
     import torch
 
     from spsvo_tpu_torch import _build
@@ -792,6 +1185,9 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
              f"times at {shapes.get('fused_solve')}, expected {n - 1} with "
              "the GLS pass in the kernel")
 
+    if per_frame:
+        hybrid_vs_per_frame(phase, hybrid, imgs, P_l, P_r, gumbel, world_e,
+                            diag_e, cfg)
     # kernel 1 against its plain version on the run's own B=2N-1 entries
     kp_l, kp_r = hybrid.frontend(imgs)
     q, vq, t, vt = match_batch(kp_l, kp_r, cfg)
@@ -913,6 +1309,13 @@ def check_trajectory(tag: str, poses, gt, n: int, limit: float = 5.0) -> float:
     if not drift < limit:
         fail(f"phase {tag}: drift {drift:.3f}% >= {limit}%")
     return drift
+
+
+def cnn_launches(launches, want) -> bool:
+    """A bf16 CNN path's launches: exactly `want` of kernels 1 and 2, and
+    kernel 3 at least once (once per conv of each trunk call)."""
+    return ({k: v for k, v in launches.items() if k != "conv_bf16"} == want
+            and launches.get("conv_bf16", 0) >= 1)
 
 
 def check_counts(tag: str, launches, want) -> None:
@@ -1141,7 +1544,9 @@ def phase_stream_and_scan(dev, corridor, root):
 
 
 def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
-    """7f: superpoint_jetson at full width, frame and hybrid mode."""
+    """7f: superpoint_jetson at full width, frame and hybrid mode. Returns
+    {path: launches}: kernel 3 only (the configuration runs neither
+    kernel 1 nor kernel 2, as in the JAX package)."""
     import torch
 
     from spsvo_tpu_torch.eval import harness
@@ -1154,7 +1559,7 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
     cfg = superpoint_jetson()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    report = {}
+    report, by_path = {}, {}
     for mode in ("frame", "hybrid"):
         poses, rows, launches, _ = run_cli(
             ["--preset", "superpoint_jetson", "--mode", mode, "--kitti-root",
@@ -1162,9 +1567,10 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
             out_dir, f"7f_{mode}")
         report[f"drift_percent_{mode}"] = check_trajectory(
             f"7f {mode}", poses, gt, n)
-        if launches:
-            fail(f"phase 7f: {launches} kernel launches in a configuration "
-                 "that uses neither kernel")
+        if set(launches) != {"conv_bf16"}:
+            fail(f"phase 7f: launches {launches} in a configuration that "
+                 "uses kernel 3 alone")
+        by_path[f"jetson_{mode}"] = launches
         if mode == "frame":
             report["ms_per_frame_frame"] = float(np.median(
                 [float(r[3]) for r in rows[3:]]))
@@ -1222,7 +1628,8 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
     report["hybrid_ms_per_frame"] = fused.latencies_ms[0]["total"]
     report["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 2 ** 30
     say("phase7f", preset="superpoint_jetson",
-        config=cfg.config_string, frames=n, **report)
+        config=cfg.config_string, frames=n, launches=by_path, **report)
+    return by_path
 
 
 def phase_cli(dev, corridor, tmp):
@@ -1304,7 +1711,8 @@ def phase_cli(dev, corridor, tmp):
     (by_path["stream"], by_path["sequence_scan_eager"],
      by_path["sequence_scan_graph"]) = phase_stream_and_scan(
         dev, corridor, root)
-    phase_reference_parity(dev, corridor, root, gt_file, out_dir)
+    by_path.update(phase_reference_parity(dev, corridor, root, gt_file,
+                                          out_dir))
     return by_path, k2_f31, err, gt_file
 
 
@@ -1811,6 +2219,12 @@ def phase_int8(dev, corridor, bf16_timing):
     models, imgs = int8_models(dev, corridor)
     phase_int8_convs(dev, models, imgs)
     cfg = dataclasses.replace(flagship_cfg(), precision=Precision.INT8)
+    # 9f: static scales make the int8 front end batch-invariant as well
+    # (exact int32 convs, element-wise requantization, fixed-order sums);
+    # dynamic scales take the batch's maximum, in the JAX package too
+    frontend_invariance("phase9f int8 static", models["static"],
+                        imgs.reshape(-1, *imgs.shape[2:]), cfg,
+                        (64, 32, 16, 2))
     launches, _, m_err, s_err, timing = phase_hybrid(
         dev, corridor, "phase9c", cfg, models["static"],
         INT8_HYBRID_DRIFT_LIMIT)
@@ -2111,7 +2525,8 @@ def phase_card_vs_cpu(dev, corridor):
 
 
 def phase_training(dev, corridor):
-    """Phase 10; 10d: neither hand-written kernel launches on the way."""
+    """Phase 10; 10d: no hand-written kernel launches on the way. Returns
+    the launches it counted (none)."""
     from spsvo_tpu_torch import _build
     before = (dict(_build.launches), dict(_build.captured))
     t0 = time.perf_counter()
@@ -2124,6 +2539,8 @@ def phase_training(dev, corridor):
         peak_memory_gb={"distill": distill_gb, "finetune": finetune_gb})
     if before != after:
         fail(f"phase10d: kernel launches changed {before} -> {after}")
+    return dict(collections.Counter(after[0]) - collections.Counter(
+        before[0]))
 
 
 # ---- phase 11: frame sharding over a device mesh ----
@@ -2141,20 +2558,13 @@ def phase_training(dev, corridor):
 # 1e-4 of all ~1.3 million, every one with |g| < 1e-5 (0 of the 1,319,894
 # with |g| >= 1e-5). 2 lr on every element is a sanity bound only (a
 # first Adam step cannot exceed it).
-# The CNN front end on a rank's 2N/w images against the unsharded 2N: cuDNN
-# picks its convolution algorithms by batch, and the bf16 trunk rounds
-# every conv input to bf16, so a last-bit difference can flip a rounding
-# and move keypoints. The CNN paths are held bit for bit to the unsharded
-# program fed the front end run on this card in the ranks' batches
-# (`sharded_references`), and by keypoint agreement with the 2N batch at
-# SHARDED_KP_AGREEMENT (readings 0.9996 at 32 images per rank, 0.818-0.867
-# at 16). The witness that the difference is cuDNN's choice: with cuDNN
-# off (PyTorch's own convolution, one GEMM per image) the ranks' batches
-# agree with the 2N batch to at least NO_CUDNN_KP_AGREEMENT.
+# The CNN front end is batch-invariant on the card (kernel 3 sums each
+# conv output in an order fixed by the layer, the postprocess's sums run in
+# a fixed order: phase 4c), so a rank's 2N/w images give the bits of the
+# unsharded 2N and the CNN hybrid and the batch mode equal the unsharded
+# programs bit for bit, as the JAX package's tests/test_parallel.py holds.
 SHARDED_TRAIN = dict(prefix="sp_resnet18", batch=8, h=120, w=392, lr=1e-3)
 SHARDED_MOVED_BEYOND = 1e-4
-SHARDED_KP_AGREEMENT = 0.75
-NO_CUDNN_KP_AGREEMENT = 0.999
 
 
 def _bitwise(got, ref) -> bool:
@@ -2180,19 +2590,15 @@ def _kp_agreement(kp_l, kp_r, ref_kp, a: int) -> float:
     return same / max(1, total)
 
 
-def sharded_references(dev, corridor, world: int) -> dict:
+def sharded_references(dev, corridor) -> dict:
     """The unsharded runs phase 11 holds the sharded ones to, on this card,
     as CPU tensors: the corridor preprocessed as phase 6 does it, its noise
     (seed 0), the CNN hybrid's eager result and keypoints, the feature
     hybrid's on those keypoints with landmark fusion on and off, the batch
-    mode's, and the ORB hybrid's (8b's configuration); and the keypoints of
-    the front end run in the batches of a world-`world` mesh's ranks with
-    the unsharded feature hybrid's and batch mode's results on them."""
+    mode's, and the ORB hybrid's (8b's configuration)."""
     import torch
 
     from spsvo_tpu_torch.ops import image as image_ops
-    from spsvo_tpu_torch.parallel import sharding
-    from spsvo_tpu_torch.parallel.mesh import shard_bounds
     from spsvo_tpu_torch.parallel.sharding import (build_batch_vo,
                                                    build_online_hybrid,
                                                    build_orb_hybrid)
@@ -2227,42 +2633,6 @@ def sharded_references(dev, corridor, world: int) -> dict:
     batch = build_batch_vo(bcfg, model=hybrid.model, device=dev)
     refs["batch"] = cpu(batch(imgs, P_l, P_r, gumbel=gumbel))
 
-    # the front end in the batches of world-w ranks against the whole
-    # batch, with cuDNN and without it (the witness)
-    agreement = {}
-    for w in sorted({world, 4}):
-        for tag, on in (("cudnn", True), ("no_cudnn", False)):
-            torch.backends.cudnn.enabled = on
-            try:
-                with torch.no_grad():
-                    whole = hybrid.frontend(imgs)
-                    parts = [hybrid.frontend(imgs[a:b])
-                             for a, b in shard_bounds(n, w)]
-            finally:
-                torch.backends.cudnn.enabled = True
-            p_l, p_r = (type(kp_l)(*(torch.cat(f) for f in zip(*side)))
-                        for side in zip(*parts))
-            w_kp = [torch.stack([a, b], 1) for a, b in zip(*whole)]
-            agreement[f"w{w}_{tag}"] = _kp_agreement(p_l, p_r, w_kp, 0)
-    refs["kp_agreement"] = agreement
-
-    # the front end in the ranks' batches, and the unsharded programs on it
-    with torch.no_grad():
-        parts = [hybrid.frontend(imgs[a:b]) for a, b in shard_bounds(n, world)]
-        s_l, s_r = (type(kp_l)(*(torch.cat(f) for f in zip(*side)))
-                    for side in zip(*parts))
-        refs["kp_shard"] = [torch.stack([a, b], 1).cpu()
-                            for a, b in zip(s_l, s_r)]
-        refs["cnn_shard"] = cpu(build_online_hybrid(
-            cfg, device=dev, feature_input=True).eager(
-                [torch.stack([a, b], 1) for a, b in zip(s_l, s_r)], P_l, P_r,
-                gumbel))
-        stereo, inter = sharding.match_pairs(s_l, s_r, bcfg)
-        chains, counts = sharding.pair_chains(s_l, s_r, stereo, inter, bcfg)
-        solved, diag = sharding._pair_solve(chains, P_l, P_r, bcfg, gumbel)
-        q_out, t_out, gated = sharding._gate_scan(*solved, bcfg)
-        refs["batch_shard"] = cpu((sharding.chain_poses(q_out, t_out),
-                                   dict(diag, **counts, gated=gated)))
     orb = build_orb_hybrid(classic_cfg(), device=dev)
     orb_imgs = raw.float() / 255.0
     P_l0, P_r0 = (torch.as_tensor(P, dtype=torch.float32, device=dev)
@@ -2393,10 +2763,9 @@ def sharded_rank(mesh, ref_path):
         "scan_max_inlier_lanes": worst["lanes"],
         "keypoint_agreement": _kp_agreement(*state["frontend"], refs["kp"],
                                             shard.a),
-        "keypoints_equal_same_batch": all(
+        "keypoints_equal_unsharded": all(
             torch.equal(torch.stack([a, b], 1).cpu(), ref[shard.a:shard.b])
-            for a, b, ref in zip(*state["frontend"], refs["kp_shard"])),
-        "bitwise_vs_same_batch": _bitwise((world, diag), refs["cnn_shard"]),
+            for a, b, ref in zip(*state["frontend"], refs["kp"])),
         "bitwise_vs_unsharded": _bitwise((world, diag), refs["cnn"]),
         "max_abs_diff_vs_unsharded": (world.cpu() - refs["cnn"][0]).abs()
         .max().item(),
@@ -2438,7 +2807,6 @@ def sharded_rank(mesh, ref_path):
     b_score = score_trajectory([T.astype(np.float64)
                                 for T in bw.cpu().numpy()], gt)
     out["batch"] = {
-        "bitwise_vs_same_batch": _bitwise((bw, bd), refs["batch_shard"]),
         "bitwise_vs_unsharded": _bitwise((bw, bd), refs["batch"]),
         "max_abs_diff_vs_unsharded": (bw.cpu() - refs["batch"][0]).abs()
         .max().item(),
@@ -2491,7 +2859,8 @@ def sharded_rank(mesh, ref_path):
                               for k, v in p0.items()}
     step = tt.build_sharded_train_step(apply_fn, mesh, st["lr"])
     state_t = tt.init_train_state(apply_fn, mine, st["lr"])
-    got, m_got = step(state_t, batch_t)
+    (got, m_got), launches, _ = _counted(lambda: step(state_t, batch_t))
+    out["launches"][f"sharded_train_r{r}"] = launches
     # the gradients the step averaged, against the whole batch's
     _, g_full = tt.value_and_grad(
         lambda q: tt.total_loss(apply_fn, q, batch_t), p0)
@@ -2533,9 +2902,8 @@ def phase_sharded(dev, corridor):
     """Phase 11. a: no earlier phase left a process group (the harness's
     batch mode runs on a mesh of one without one); the hybrid on a mesh of
     one over an NCCL group of one in this process against the run without
-    a mesh, bit for bit, and its graph against its eager run; the cuDNN
-    witness and the keypoint agreement of the front end in the ranks'
-    batches (`sharded_references`). b-f: `sharded_rank` on `mesh.spawn`
+    a mesh, bit for bit, and its graph against its eager run. b-f:
+    `sharded_rank` on `mesh.spawn`
     ranks: NCCL over min(4, cards) cards where there are two or more, else
     two gloo ranks sharing this card (a correctness run, not a scaling
     one).
@@ -2551,7 +2919,7 @@ def phase_sharded(dev, corridor):
     count = torch.cuda.device_count()
     world, device, backend = ((min(4, count), "cuda", "nccl") if count >= 2
                               else (2, "cuda:0", "gloo"))
-    refs = sharded_references(dev, corridor, world)
+    refs = sharded_references(dev, corridor)
     n = refs["imgs"].shape[0]
     imgs, P_l, P_r, gumbel = (refs[k].to(dev)
                               for k in ("imgs", "P_l", "P_r", "gumbel"))
@@ -2585,19 +2953,10 @@ def phase_sharded(dev, corridor):
     if not (same and same_g and mesh.group is not None):
         fail("phase11a: the sharded hybrid on a mesh of one differs from the "
              "unsharded run or from its own eager run")
-    if launches != {"match_nn": 1, "fused_solve": n - 1} or \
-            shapes["match_nn"][0] != 2 * n - 1 or rep != launches:
+    if not cnn_launches(launches, {"match_nn": 1, "fused_solve": n - 1}) \
+            or shapes["match_nn"][0] != 2 * n - 1 or rep != launches:
         fail(f"phase11a: launches {launches} at {shapes}, replay {rep}")
     by_path = {"sharded_hybrid_w1": launches}
-    agreement = refs["kp_agreement"]
-    say("phase11a", check="the front end in the batches of world-w ranks "
-        "against the whole batch, on this card, with cuDNN and without it",
-        keypoint_agreement=agreement)
-    low = {k: v for k, v in agreement.items() if v < (
-        NO_CUDNN_KP_AGREEMENT if k.endswith("no_cudnn")
-        else SHARDED_KP_AGREEMENT)}
-    if low:
-        fail(f"phase11a: keypoint agreement of the ranks' batches {low}")
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -2646,32 +3005,32 @@ def phase_sharded(dev, corridor):
                   f"sharded_hybrid_r{r}"):
             got_l, got_s = res["launches"][p], res["shapes"][p]
             gls = "lm0" in p or got_s["fused_solve"][3] == 1
-            if got_l != want_cnn or got_s["match_nn"][0] != frames + pairs \
-                    or not gls:
+            ok = (cnn_launches(got_l, want_cnn) if "hybrid" in p
+                  else got_l == want_cnn)       # the feature input: no CNN
+            if not ok or got_s["match_nn"][0] != frames + pairs or not gls:
                 fail(f"{tagr}: {p} launched {got_l} at {got_s}, expected "
                      f"{want_cnn} at B={frames + pairs}")
         c = res["cnn"]
-        if c["kernel1_B"] != frames + pairs or c["replay_launches"] != \
-                want_cnn or not c["graph_equals_eager_bitwise"]:
+        if c["kernel1_B"] != frames + pairs or not cnn_launches(
+                c["replay_launches"], want_cnn) or \
+                not c["graph_equals_eager_bitwise"]:
             fail(f"{tagr}: the CNN hybrid's kernel-1 B, replay launches or "
                  f"graph check: {c}")
-        if not (c["keypoints_equal_same_batch"]
-                and c["bitwise_vs_same_batch"]
-                and c["keypoint_agreement"] >= SHARDED_KP_AGREEMENT
+        if not (c["keypoints_equal_unsharded"]
+                and c["bitwise_vs_unsharded"]
                 and c["drift_percent"] < 5.0 and c["median_keypoints"] > 200
                 and c["median_inliers"] > 30):
             fail(f"{tagr}: the CNN hybrid end to end: {c}")
         b = res["batch"]
         bl, bs = res["launches"][f"sharded_batch_r{r}"], \
             res["shapes"][f"sharded_batch_r{r}"]
-        if bl != {"match_nn": 1, "fused_solve": 1} or \
+        if not cnn_launches(bl, {"match_nn": 1, "fused_solve": 1}) or \
                 bs["match_nn"][0] != frames + pairs or \
                 bs["fused_solve"][0] != pairs:
             fail(f"{tagr}: batch launched {bl} at {bs}, expected one each at "
                  f"B={frames + pairs}, F={pairs}")
-        if not b["bitwise_vs_same_batch"]:
-            fail(f"{tagr}: batch mode differs from the unsharded program on "
-                 "the same keypoints")
+        if not b["bitwise_vs_unsharded"]:
+            fail(f"{tagr}: batch mode differs from the unsharded program")
         if not (b["drift_percent"] < BATCH_DRIFT_LIMIT
                 and b["median_pair_err_m"] < BATCH_PAIR_ERR_LIMIT_M
                 and b["kernel2_err_q"] <= 1e-4 and b["kernel2_err_t"] <= 1e-3
@@ -2881,19 +3240,25 @@ def main() -> None:
         device=torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
+    kernels = ("match_nn", "fused_solve", "conv_bf16")
     try:
-        _build.load_all(("match_nn", "fused_solve"))   # nvcc runs side by side
+        _build.load_all(kernels)              # nvcc runs side by side
     except RuntimeError as e:
         fail(f"kernel build: {e}")
-    say("phase2", both_built_s=time.perf_counter() - t0)
-    for name in ("match_nn", "fused_solve"):
+    say("phase2", all_built_s=time.perf_counter() - t0)
+    for name in kernels:
         log = _build.build_log[name]
         regs = [ln.strip() for ln in log["ptxas"].splitlines()
                 if "registers" in ln]
         say("phase2", kernel=name, build_s=log["seconds"],
             cached=log["cached"], ptxas=regs)
 
-    if "--phase11-only" in sys.argv[1:]:     # development aids
+    if "--phase4b-only" in sys.argv[1:]:     # development aids
+        corridor = render_corridor()
+        phase_conv(dev, corridor)
+        phase_frontend_invariance(dev, corridor)
+        return
+    if "--phase11-only" in sys.argv[1:]:
         phase_sharded(dev, render_corridor())
         return
     if "--phase12-only" in sys.argv[1:]:
@@ -2913,10 +3278,13 @@ def main() -> None:
     say("phase4", result="pass", share_of_bound=s_t["bound_ms"] / s_t["ms"],
         gpu=gpu, **s_t)
     corridor = render_corridor()
+    c_err, c_t = phase_conv(dev, corridor)
+    say("phase4b", share_of_bound=c_t["bound_ms"] / c_t["ms"], gpu=gpu)
+    phase_frontend_invariance(dev, corridor)
     launches, median_ms = phase_main_path(dev, corridor)
     say("phase5", result="pass", median_process_ms=median_ms, gpu=gpu)
-    h_launches, k2_t, h_m_err, h_s_err, h_timing = phase_hybrid(dev,
-                                                                 corridor)
+    h_launches, k2_t, h_m_err, h_s_err, h_timing = phase_hybrid(
+        dev, corridor, per_frame=True)
     m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
     say("phase6", gpu=gpu)
     with tempfile.TemporaryDirectory() as tmp:
@@ -2928,7 +3296,7 @@ def main() -> None:
     q_launches, q_m_err, q_s_err = phase_int8(dev, corridor, h_timing)
     m_err, s_err = max(m_err, q_m_err), max(s_err, q_s_err)
     say("phase9", result="pass", gpu=gpu)
-    phase_training(dev, corridor)
+    t_launches = phase_training(dev, corridor)
     say("phase10", result="pass", gpu=gpu)
     s_launches, s_m_err, s_s_err = phase_sharded(dev, corridor)
     m_err, s_err = max(m_err, s_m_err), max(s_err, s_s_err)
@@ -2945,31 +3313,44 @@ def main() -> None:
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
 
+    # the paths by the kernels they must run: the bf16 CNN front end
+    # (kernel 3; superpoint_jetson's runs neither kernel 1 nor 2, the
+    # speculative one no fused solve), the feature input (keypoints in, no
+    # CNN), the int8 trunk (no bf16 conv), the classic front ends (binary
+    # descriptors never reach kernel 1), training (fp32, no kernel)
+    cnn = {"per_frame": launches, "hybrid": h_launches, **c_launches,
+           **{p: c for p, c in s_launches.items()
+              if "hybrid" in p or "batch" in p}, **r_launches}
+    jetson = {p: cnn.pop(p) for p in list(cnn) if p.startswith("jetson")}
+    spec = {"speculative_hybrid": x_launches}
+    feature = {p: c for p, c in s_launches.items() if "feature" in p}
+    int8 = q_launches
+    classic = {**b_launches,
+               **{p: c for p, c in s_launches.items() if "orb" in p}}
+    training = {"training": t_launches,
+                **{p: c for p, c in s_launches.items() if "train" in p}}
+    rules = {"match_nn": ({**cnn, **spec, **feature, **int8},
+                          {**jetson, **classic, **training}),
+             "fused_solve": ({**cnn, **feature, **int8, **classic},
+                             {**jetson, **spec, **training}),
+             "conv_bf16": ({**cnn, **jetson, **spec},
+                           {**feature, **int8, **classic, **training})}
+    unruled = set(cnn) | set(jetson) | set(spec) | set(feature) | set(
+        int8) | set(classic) | set(training)
+    if len(unruled) != sum(map(len, (cnn, jetson, spec, feature, int8,
+                                     classic, training))):
+        fail("kernel report: a path is in two classes")
+
     def counts(name):
-        # every path launches both kernels, but for the classic ones
-        # (binary descriptors never reach kernel 1) and the speculative one
-        # (no fused solve), as in the JAX package
-        by_path = {"per_frame": launches.get(name, 0),
-                   "hybrid": h_launches.get(name, 0),
-                   **{path: c.get(name, 0) for path, c in c_launches.items()},
-                   **{path: c.get(name, 0) for path, c in q_launches.items()},
-                   **{path: c.get(name, 0) for path, c in s_launches.items()
-                      if "orb" not in path},
-                   **{path: c.get(name, 0) for path, c in r_launches.items()}}
-        classic = {path: c.get(name, 0) for path, c in b_launches.items()}
-        classic.update({path: c.get(name, 0) for path, c in
-                        s_launches.items() if "orb" in path})
-        speculative = {"speculative_hybrid": x_launches.get(name, 0)}
-        never, also = ((classic, speculative) if name == "match_nn"
-                       else (speculative, classic))
-        stray = [path for path, count in never.items() if count]
+        need, never = rules[name]
+        stray = [path for path, c in never.items() if c.get(name, 0)]
         if stray:
             fail(f"{name} was launched on {stray}")
-        by_path.update(also)
-        missing = [path for path, count in by_path.items() if count == 0]
+        missing = [path for path, c in need.items() if not c.get(name, 0)]
         if missing:
             fail(f"{name} was not launched on {missing}")
-        by_path.update(never)
+        by_path = {path: c.get(name, 0) for path, c in {**need, **never}
+                   .items()}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
     print(json.dumps({"kernels": [
@@ -2982,7 +3363,15 @@ def main() -> None:
          "source": "spsvo_tpu_torch/csrc/fused_solve.cu",
          "replaces": "spsvo_tpu/ops/solver_pallas.py:383",
          **counts("fused_solve"), "max_abs_err": s_err,
-         **{k: s_t[k] for k in keys}, **k2_t, **k2_f31}]}), flush=True)
+         **{k: s_t[k] for k in keys}, **k2_t, **k2_f31},
+        {"name": "conv_bf16", "route": "cuda",
+         "source": "spsvo_tpu_torch/csrc/conv_bf16.cu",
+         "replaces": "spsvo_tpu/models/onnx_import.py:261",
+         "replaces_kind": "an XLA op (lax.conv_general_dilated, bf16 "
+         "operands, fp32 accumulation), not a Pallas kernel",
+         **counts("conv_bf16"), "max_abs_err": c_err,
+         **{k: c_t[k] for k in keys},
+         **{k: v for k, v in c_t.items() if k not in keys}}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,8 @@ The IR (`OnnxNode`, `OnnxGraph`) is the JAX package's
 of the hand-built graphs and of the ONNX exports (`models/onnx_import.py`):
 Conv (grouped and depthwise included, asymmetric pads), Relu, Clip,
 MaxPool (padded), BatchNormalization, Add, Sub, Mul, Div, Concat, ReduceL2,
-and ReduceL2 -> Div fused into one L2 normalisation.
+and ReduceL2 -> Div fused into one L2 normalisation, and Conv -> Relu into
+one conv.
 
 Layouts: the public contract is the JAX one, input (B, H, W, 1) in [0, 1]
 and outputs `output_det` (B, Hc, Wc, 65) / `output_desc` (B, Hc, Wc, 256),
@@ -23,10 +24,13 @@ the axes remapped as it remaps them; a tensor of another rank is held in
 its layout.
 
 bf16 semantics match the reference: the conv INPUT and WEIGHT are rounded
-to bfloat16, the products accumulate in fp32 and the bias is added in fp32.
-A conv on bf16 tensors would also round its output, so the operands are
-rounded, cast back to fp32, and convolved in fp32 (TF32 off, see
-`spsvo_tpu_torch/__init__.py`). BN, ReLU, pooling and the heads stay fp32.
+to bfloat16, the products accumulate in fp32 and the bias is added in fp32:
+`ops.conv_cuda.conv2d_bf16`, a hand-written tensor-core kernel on the card
+(batch-invariant: an image's output is the same bits at any batch size)
+and its plain version (operands rounded, cast back, an fp32 `F.conv2d` per
+image) on the CPU. A ReLU that is a conv's only consumer runs in the conv's
+epilogue (`fuse_conv_relu`). BN, pooling and the heads stay fp32; the L2
+normalisation sums its squares in a fixed order (`fixed_order_sum`).
 
 int8 (`models/quantize.py`): a conv whose weight buffer is int8 runs as an
 exact int8 x int8 -> int32 conv, with its `<w>#scale` per-channel weight
@@ -48,6 +52,8 @@ from torch import nn
 
 from spsvo_tpu_torch.models.quantize import (abs_quantile, int8_conv,
                                              quantize_activation)
+from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16
+from spsvo_tpu_torch.ops.postprocess import fixed_order_sum
 
 
 @dataclasses.dataclass
@@ -110,6 +116,40 @@ def fuse_l2_normalize(graph: OnnxGraph) -> List[OnnxNode]:
     return fused
 
 
+def fuse_conv_relu(nodes: List[OnnxNode],
+                   output_names: List[str]) -> List[OnnxNode]:
+    """Fold each Relu whose input is a Conv's output used by that Relu alone
+    (and not a graph output) into the Conv: the Conv takes the Relu's
+    output name and the attribute `fused_relu`, and the ReLU runs in the
+    conv's epilogue. The same function, bit for bit."""
+    consumers: Dict[str, int] = {}
+    for node in nodes:
+        for name in node.inputs:
+            consumers[name] = consumers.get(name, 0) + 1
+    convs = {n.outputs[0] for n in nodes if n.op == "Conv"}
+    relus = {n.inputs[0]: n for n in nodes
+             if (n.op == "Relu" and n.inputs[0] in convs
+                 and consumers[n.inputs[0]] == 1
+                 and n.inputs[0] not in output_names)}
+    fused: List[OnnxNode] = []
+    for node in nodes:
+        if node.op == "Conv" and node.outputs[0] in relus:
+            fused.append(OnnxNode(
+                "Conv", node.inputs, relus[node.outputs[0]].outputs,
+                dict(node.attrs, fused_relu={"i": 1})))
+        elif not (node.op == "Relu" and node.inputs[0] in relus):
+            fused.append(node)
+    return fused
+
+
+def _relu(x: torch.Tensor) -> torch.Tensor:
+    # with gradients on, max(x, 0) as the JAX package computes it: its
+    # gradient at exactly 0 is 1/2 (torch.maximum splits ties too);
+    # torch.relu's is 0
+    return (torch.maximum(x, x.new_zeros(())) if x.requires_grad
+            else torch.relu(x))
+
+
 def _pads(node: OnnxNode):
     """ONNX pads, (top, left, bottom, right)."""
     return [int(p) for p in node.attr("pads", [0, 0, 0, 0])]
@@ -121,21 +161,21 @@ def _conv(x, w, b, node: OnnxNode, bf16: bool, w_scale=None, a_scale=None,
     strides = [int(s) for s in node.attr("strides", [1, 1])]
     dilations = [int(d) for d in node.attr("dilations", [1, 1])]
     groups = int(node.attr("group", 1))
+    relu = bool(node.attr("fused_relu", 0))
     if w.dtype == torch.int8:
         y = int8_conv(x, w, w_scale, strides, pads, dilations, groups,
                       a_scale, x_q=x_q)
+    elif bf16:
+        return conv2d_bf16(x.contiguous(), w, b, strides, pads, dilations,
+                           groups, relu)
+    elif (top, left) == (bottom, right):
+        y = F.conv2d(x, w, None, strides, (top, left), dilations, groups)
     else:
-        if bf16:
-            x = x.to(torch.bfloat16).to(torch.float32)
-            w = w.to(torch.bfloat16).to(torch.float32)
-        if (top, left) == (bottom, right):
-            y = F.conv2d(x, w, None, strides, (top, left), dilations, groups)
-        else:
-            y = F.conv2d(F.pad(x, (left, right, top, bottom)), w, None,
-                         strides, 0, dilations, groups)
+        y = F.conv2d(F.pad(x, (left, right, top, bottom)), w, None,
+                     strides, 0, dilations, groups)
     if b is not None:
         y = y + b.to(torch.float32)[None, :, None, None]
-    return y
+    return _relu(y) if relu else y
 
 
 def _maxpool(x, node: OnnxNode):
@@ -174,7 +214,8 @@ class GraphModule(nn.Module):
                  param_dtypes: Optional[Dict[str, torch.dtype]] = None):
         super().__init__()
         self.graph = graph
-        self.nodes = fuse_l2_normalize(graph)
+        self.nodes = fuse_conv_relu(fuse_l2_normalize(graph),
+                                    graph.output_names)
         self.bf16 = bf16
         dtypes = {name: (param_dtypes or {}).get(name, torch.float32)
                   for name in param_shapes}
@@ -265,12 +306,7 @@ class GraphModule(nn.Module):
                 y = _conv(xin, get(w_name), b, node, self.bf16,
                           param(f"{w_name}#scale"), a_scale, x_q=x_q)
             elif op == "Relu":
-                xin = get(node.inputs[0])
-                # with gradients on, max(x, 0) as the JAX package computes
-                # it: its gradient at exactly 0 is 1/2 (torch.maximum splits
-                # ties too); torch.relu's is 0
-                y = (torch.maximum(xin, xin.new_zeros(()))
-                     if xin.requires_grad else torch.relu(xin))
+                y = _relu(get(node.inputs[0]))
             elif op == "Clip":
                 y = torch.clamp(get(node.inputs[0]),
                                 node.attr("min", float("-inf")),
@@ -302,8 +338,7 @@ class GraphModule(nn.Module):
                                        dim=_jax_axis(node.attr("axis", 1))))
             elif op == "L2Normalize":
                 xin = get(node.inputs[0]).to(torch.float32)
-                y = xin * torch.rsqrt(
-                    torch.sum(xin * xin, dim=1, keepdim=True) + 1e-12)
+                y = xin * torch.rsqrt(fixed_order_sum(xin * xin, 1) + 1e-12)
             elif op == "ReduceL2":
                 dims = tuple(_jax_axis(a) for a in node.attr("axes", [1]))
                 xin = jax_view(node.inputs[0]).to(torch.float32)

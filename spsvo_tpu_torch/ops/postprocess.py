@@ -7,6 +7,12 @@ with L2 normalisation, and the two sub-pixel refiners. Inputs and outputs
 keep the JAX layouts: heads NHWC,
 keypoints (x=col, y=row). Top-K is a stable descending sort, so equal scores
 keep the lowest index first, as `lax.top_k` does.
+
+Every step is batch-invariant on the card: the sums (the softmax's
+denominator, the descriptors' norms) run in a fixed pairwise order
+(`fixed_order_sum`) set by the summed length alone, where a library
+reduction's order follows its launch configuration, which follows the
+number of outputs, i.e. the batch.
 """
 
 from __future__ import annotations
@@ -27,12 +33,25 @@ class Keypoints(NamedTuple):
     desc: torch.Tensor
 
 
+def fixed_order_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over `dim` (kept, size 1) by a pairwise tree of element-wise
+    adds whose order depends on that length alone: the first half plus the
+    second, an odd last element carried, until one is left. The same bits
+    on every device and at every batch size."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        h = n // 2
+        s = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+        x = torch.cat([s, x.narrow(dim, 2 * h, 1)], dim) if n % 2 else s
+    return x
+
+
 def cell_softmax(det: torch.Tensor) -> torch.Tensor:
     """exp(x)/(sum(exp(x)) + 1e-5), computed stably as
     exp(x-m)/(sum(exp(x-m)) + 1e-5*exp(-m)). det: (B, Hc, Wc, 65)."""
     m = torch.amax(det, dim=-1, keepdim=True)
     e = torch.exp(det - m)
-    denom = torch.sum(e, dim=-1, keepdim=True) + 1e-5 * torch.exp(-m)
+    denom = fixed_order_sum(e, -1) + 1e-5 * torch.exp(-m)
     return e / denom
 
 
@@ -219,7 +238,7 @@ def sample_descriptors(desc_grid: torch.Tensor, xy: torch.Tensor,
            + gather(y0, x1) * ((1 - fy) * fx)
            + gather(y1, x0) * (fy * (1 - fx))
            + gather(y1, x1) * (fy * fx))
-    norm = torch.linalg.vector_norm(out, dim=-1, keepdim=True)
+    norm = torch.sqrt(fixed_order_sum(out * out, -1))
     return out / torch.clamp(norm, min=1e-12)
 
 

@@ -459,9 +459,36 @@ def test_sharded_orb_hybrid_equals_unsharded():
     assert (ref[1]["num_inliers"] > 10).all()
 
 
+def _assert_frontend_batch_invariant(model, x):
+    """`frontend_batch`'s Keypoints for the 16 images at batch 16 against
+    the images in the shards of a world-2 and a world-4 mesh: xy, score,
+    valid and desc bit for bit."""
+    cfg = _cfg(True)
+    with torch.no_grad():
+        whole = tsh.frontend_batch(model, x, cfg)
+        for world in (2, 4):
+            parts = [tsh.frontend_batch(model, x[a:b], cfg)
+                     for a, b in tmesh.shard_bounds(16, world)]
+            for name, got in zip(whole._fields, zip(*parts)):
+                assert torch.equal(torch.cat(got), getattr(whole, name)), (
+                    world, name)
+    assert whole.valid.sum() > 100
+
+
+def _frontend_model(precision, device, imgs):
+    """superpoint_pretrained with the bf16 trunk or the int8 one with
+    static scales calibrated on `imgs`."""
+    if precision == "bf16":
+        return tzoo.load_model("superpoint_pretrained", torch.bfloat16,
+                               device=device)
+    return tzoo.load_model("superpoint_pretrained", device=device, int8=True,
+                           int8_calibration=imgs[::2, ..., None])
+
+
 def test_trunk_is_batch_invariant_on_the_cpu():
     """What the CNN cases above rest on: the trunk gives a rank's images
-    the same bits at batch 2N/w as the unsharded run at 2N."""
+    the same bits at batch 2N/w as the unsharded run at 2N, and so does the
+    whole front end (`frontend_batch`'s Keypoints)."""
     model = tzoo.load_model("superpoint_pretrained", device="cpu")
     x = torch.as_tensor(_data()["imgs"][:8].reshape(16, 96, 320, 1))
     with torch.no_grad():
@@ -469,6 +496,29 @@ def test_trunk_is_batch_invariant_on_the_cpu():
         parts = [model(x[a:b]) for a, b in tmesh.shard_bounds(16, 4)]
     for k, v in whole.items():
         assert torch.equal(v, torch.cat([p[k] for p in parts])), k
+    _assert_frontend_batch_invariant(model, x[..., 0])
+
+
+@pytest.mark.parametrize("precision", ["bf16", "int8_static"])
+def test_frontend_is_batch_invariant_on_the_cpu(precision):
+    """The fp32 case above, for the bf16 trunk and the int8 trunk with
+    static scales (dynamic scales take the batch's maximum, in the JAX
+    package too)."""
+    x = torch.as_tensor(_data()["imgs"][:8].reshape(16, 96, 320))
+    _assert_frontend_batch_invariant(_frontend_model(precision, "cpu", x), x)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["bf16", "int8_static"])
+def test_frontend_is_batch_invariant_on_the_card(precision):
+    """On the card: the bf16 convolutions run kernel 3, whose sums do not
+    depend on the batch, and the postprocess sums in a fixed order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the conv kernel has no CPU mode")
+    imgs, _, _ = _corridor(8, 188, 620, 96, 320)
+    x = torch.as_tensor(imgs.reshape(16, 96, 320)).cuda()
+    _assert_frontend_batch_invariant(_frontend_model(precision, "cuda", x),
+                                     x)
 
 
 def test_sharded_plain_hybrid_matches_the_jax_mesh_hybrid():

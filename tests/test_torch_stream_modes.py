@@ -349,8 +349,10 @@ def test_cuda_step_graph_equals_eager_and_owns_its_scratch(change):
 @pytest.mark.gpu
 def test_cuda_batch_mode_is_one_solver_launch():
     """On the card: batch mode launches the matcher once at B=2N-1 and the
-    fused solver once at F=N-1; every frame of that launch equals its own
-    F=1 launch bit for bit and agrees with the plain version."""
+    fused solver once at F=N-1 (and the bf16 conv kernel once per conv of
+    the one trunk call over the 2N images); every frame of that launch
+    equals its own F=1 launch bit for bit and agrees with the plain
+    version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from spsvo_tpu_torch import _build
@@ -369,7 +371,8 @@ def test_cuda_batch_mode_is_one_solver_launch():
     _build.reset_launches()
     batch(reps, P_l, P_r, gumbel=gumbel)
     torch.cuda.synchronize()
-    assert _build.launches == {"match_nn": 1, "fused_solve": 1}
+    assert _build.launches == {"match_nn": 1, "fused_solve": 1,
+                               "conv_bf16": 12}
     assert _build.shapes["match_nn"][0] == 2 * n - 1
     assert _build.shapes["fused_solve"][0] == n - 1
     # the same tiles again: F=31 against 31 launches at F=1 and the plain
