@@ -16,16 +16,23 @@ limit, then the result line:
   4. kernel 2 (fused solver) against its plain version on the card, S=256,
      L=128, on synthetic frames with known motion and 15% outliers: both
      winner branches, the gate fallback and the GLS (weighted LM) pass;
- 4b. kernel 3 (the bf16 implicit-GEMM convolution) on every conv of
+ 4b. kernel 3 (the bf16 implicit-GEMM convolution: the dense TMA + wgmma
+     route and the generic mma.sync route) on every conv of
      superpoint_pretrained and sp_resnet18 fed the corridor's own
      activations, at 120x392 (B=64) and 360x1176 (B=16), and on the ONNX
      families' forms (stride 2, asymmetric pads, dilation 2, groups 2,
-     depthwise, C_in 1, 1x1): within the sum-order bound CONV_SUM_RTOL of
-     its plain version (run in fp64), the bias and ReLU epilogue bit for
-     bit, every 2-image slice bit for bit the batch's output; per layer and
-     for the trunk (B=2 and 64 at 120x392, 16 at 360x1176) its ms, the
-     plain version's, cuDNN's fp32 conv on pre-rounded operands
-     (library_ms) and the bound;
+     depthwise, C_in 1, 1x1, C 48): within the sum-order bound
+     CONV_SUM_RTOL of its plain version (run in fp64), the bias and ReLU
+     epilogue bit for bit, every 2-image slice bit for bit the batch's
+     output; the bf16 NHWC output, the bf16 NHWC input and the fused 2x2
+     pool bit for bit the fp32 route rounded (and pooled), and the layer as
+     the graph stores it (its slices too); per layer and for the trunk
+     (B=2 and 64 at 120x392, 16 at 360x1176), as the graph runs it, its
+     ms, the plain version's, cuDNN's fp32 conv on pre-rounded operands
+     (library_ms), F.conv2d on bf16 channels-last operands
+     (library_bf16_ms), the fp32-bytes bound (bound_ms) and the
+     minimal bound (bound_min_ms: bf16 inputs and weights, the stored
+     output);
  4c. the front end's batch invariance: the bf16 flagship's on the
      corridor's 64 images bit for bit at batch 64, 32, 16 and 2 and per
      frame through `superpoint_frontend` with model_batch_size 2 and 1;
@@ -34,7 +41,8 @@ limit, then the result line:
   5. the per-frame path: `VisualOdometry.process` with the flagship
      composition on superpoint_pretrained (full width, committed weights)
      over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
-     accuracy bounds and the kernels' launch counts;
+     accuracy bounds and the kernels' launch counts, kernel 3's by route
+     (11 dense + 1 generic per trunk call, here and in phase 6);
   6. the online hybrid (whole-sequence mode,
      `parallel.sharding.build_online_hybrid`) on the same corridor and
      configuration, its frames preprocessed on the card: the eager run's
@@ -565,6 +573,7 @@ CONV_SYNTHETIC = [
     ("depthwise_s2_asym", 32, 32, 3, 2, (0, 0, 1, 1), 1, 32),
     ("cin1_s2", 1, 32, 3, 2, (1, 1, 1, 1), 1, 1),
     ("pointwise", 96, 24, 1, 1, (0, 0, 0, 0), 1, 1),
+    ("dense_c48", 48, 32, 3, 1, (1, 1, 1, 1), 1, 1),
 ]
 # (H, W, images) of the trained trunks' checks: the flagship's and the
 # reference composition's resolutions at their front ends' batches
@@ -572,14 +581,16 @@ CONV_SHAPES = ((120, 392, 64), (360, 1176, 16))
 
 
 def conv_layers(dev, model, x_nhwc):
-    """Every conv of `model` (its fused node list) with the input
-    activation the fp32 trunk gives it on `x_nhwc`: [(weight name, x NCHW,
-    w, b, strides, pads, dilations, groups, relu)]."""
+    """Every conv of `model` as its bf16 forward runs it (`bf16_nodes`:
+    ReLU and pools fused) with the input activation the fp32 trunk gives
+    it on `x_nhwc`: [(weight name, x NCHW fp32, w, b, strides, pads,
+    dilations, groups, relu, store)], store = {"in_bf16", "out_bf16",
+    "pool"}: how the graph holds its input and writes its output."""
     import torch
 
     from spsvo_tpu_torch.models import zoo
     from spsvo_tpu_torch.models.graph import OnnxGraph
-    convs = [n for n in model.nodes if n.op == "Conv"]
+    convs = [n for n in model.bf16_nodes if n.op == "Conv"]
     names = list(dict.fromkeys(n.inputs[0] for n in convs))
     state = {k: v.clone() for k, v in model.state_dict().items()}
     probe = zoo.model_from_state(
@@ -598,20 +609,39 @@ def conv_layers(dev, model, x_nhwc):
                     [int(v) for v in node.attr("pads", [0, 0, 0, 0])],
                     [int(v) for v in node.attr("dilations", [1, 1])],
                     int(node.attr("group", 1)),
-                    bool(node.attr("fused_relu", 0))))
+                    bool(node.attr("fused_relu", 0)),
+                    {"in_bf16": node.inputs[0] in model.stored_bf16,
+                     "out_bf16": bool(node.attr("store_bf16", 0)),
+                     "pool": bool(node.attr("fused_pool", 0))}))
     return out
 
 
+def stored_call(x, w, b, geo, relu, store):
+    """Kernel 3 on a layer as the graph runs it: its input held as
+    `store` says, its output written so."""
+    from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, to_bf16_nhwc
+    xs = to_bf16_nhwc(x) if store["in_bf16"] else x
+    return conv2d_bf16(xs, w, b, *geo, relu=relu, out_bf16=store["out_bf16"],
+                       pool=store["pool"])
+
+
 def check_conv(tag, x, w, b, strides, pads, dilations, groups, relu,
-               slice_b: int = 2):
+               store=None, slice_b: int = 2):
     """Kernel 3 against its plain version on one layer's inputs: the sum
     within CONV_SUM_RTOL of the magnitude conv (plain in fp64), the
     epilogue bit for bit, each `slice_b`-image slice of the batch bit for
-    bit the batch's output. Fails on a miss; returns the report."""
+    bit the batch's output; the bf16 NHWC output (and, on the dense route,
+    the bf16 NHWC input and the fused 2x2 pool) bit for bit the fp32
+    output rounded (and pooled); with `store`, the layer as the graph runs
+    it bit for bit the same, slices included. Fails on a miss; returns the
+    report."""
     import torch
+    import torch.nn.functional as F
 
-    from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, conv2d_bf16_plain
+    from spsvo_tpu_torch.ops.conv_cuda import (conv2d_bf16, conv2d_bf16_plain,
+                                               route, to_bf16_nhwc)
     geo = (strides, pads, dilations, groups)
+    kind = route(x.shape[1], w.shape, strides, dilations, groups)
     with torch.no_grad():
         y0 = conv2d_bf16(x, w, None, *geo)
         y = conv2d_bf16(x, w, b, *geo, relu=relu)
@@ -633,49 +663,105 @@ def check_conv(tag, x, w, b, strides, pads, dilations, groups, relu,
         sliced = all(torch.equal(conv2d_bf16(x[i:i + slice_b], w, b, *geo,
                                              relu=relu), y[i:i + slice_b])
                      for i in range(0, n, slice_b))
-    rep = {"layer": tag, "x": list(x.shape), "w": list(w.shape),
-           "strides": list(strides), "pads": list(pads),
+        # the stored formats against the fp32 route, rounded (and pooled)
+        y_bf16 = to_bf16_nhwc(y)
+        stored = {"bf16_out_bitwise": torch.equal(
+            conv2d_bf16(x, w, b, *geo, relu=relu, out_bf16=True), y_bf16)}
+        if kind == "dense":
+            xb = to_bf16_nhwc(x)
+            stored["bf16_in_bitwise"] = torch.equal(
+                conv2d_bf16(xb, w, b, *geo, relu=relu), y)
+            if min(y.shape[2:]) >= 2:
+                stored["pool_bitwise"] = torch.equal(
+                    conv2d_bf16(xb, w, b, *geo, relu=relu, out_bf16=True,
+                                pool=True),
+                    to_bf16_nhwc(F.max_pool2d(y, 2, 2)))
+        del y_bf16
+        if store is not None:
+            want = F.max_pool2d(y, 2, 2) if store["pool"] else y
+            want = to_bf16_nhwc(want) if store["out_bf16"] else want
+            got = stored_call(x, w, b, geo, relu, store)
+            stored["as_stored_bitwise"] = torch.equal(got, want)
+            stored[f"as_stored_slices_of_{slice_b}_bitwise"] = all(
+                torch.equal(stored_call(x[i:i + slice_b], w, b, geo, relu,
+                                        store), got[i:i + slice_b])
+                for i in range(0, n, slice_b))
+            del got, want
+    rep = {"layer": tag, "route": kind, "x": list(x.shape),
+           "w": list(w.shape), "strides": list(strides), "pads": list(pads),
            "dilations": list(dilations), "groups": groups, "relu": relu,
+           "store": store,
            "max_abs_err": float(err.max()), "err_over_bound_max": ratio,
            "max_abs_diff_vs_plain_fp32": err32, "epilogue_bitwise": epilogue,
-           f"slices_of_{slice_b}_bitwise": sliced}
-    if not (within and epilogue and sliced):
+           f"slices_of_{slice_b}_bitwise": sliced, **stored}
+    if not (within and epilogue and sliced and all(stored.values())):
         fail(f"phase4b: conv_bf16 {rep}")
     return rep
 
 
 def conv_bound(x, w, y):
-    """Kernel 3: 2 * outputs * K multiply-adds on the bf16 tensor cores;
-    x, w, bias read once and y written once, fp32."""
+    """Kernel 3 counted in fp32 bytes: 2 * outputs * K multiply-adds on the
+    bf16 tensor cores; x, w, bias read once and y written once, fp32."""
     k = w.shape[1] * w.shape[2] * w.shape[3]
     n_bytes = 4 * (x.numel() + w.numel() + w.shape[0] + y.numel())
     return n_bytes, 2.0 * y.numel() * k
 
 
-def time_conv(x, w, b, strides, pads, dilations, groups, relu, iters):
-    """Kernel 3, its plain version and cuDNN's fp32 conv on pre-rounded
-    operands (the route the kernel replaced, the same function but the
-    ReLU), each from a CUDA graph; with the layer's bytes and operations."""
+def conv_bound_min(x, w, stored):
+    """The minimal bytes of the layer as the graph runs it: bf16 x and w
+    read once, the fp32 bias, the stored output (`stored`: bf16 NHWC,
+    pooled where fused, or fp32) written once."""
+    out = stored.numel() * stored.element_size()
+    return 2 * (x.numel() + w.numel()) + 4 * w.shape[0] + out
+
+
+def time_conv(x, w, b, strides, pads, dilations, groups, relu, store,
+              iters):
+    """Kernel 3 on the layer as the graph runs it (`store`: the input held
+    as the graph holds it, made before the clock starts), its plain
+    version on the same stored input and output, cuDNN's fp32 conv on
+    pre-rounded operands (the route kernel 3 replaced: the same function but
+    the ReLU, the pool and the rounding of the output) and F.conv2d on
+    bf16 channels-last operands with a bf16 bias (the nearest single call
+    with a bf16 output), each from a CUDA graph; with the layer's bytes
+    (the fp32 count and the minimal one) and operations."""
     import torch
     import torch.nn.functional as F
 
-    from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, conv2d_bf16_plain
+    from spsvo_tpu_torch.ops.conv_cuda import (conv2d_bf16, conv2d_bf16_plain,
+                                               route, to_bf16_nhwc)
     geo = (strides, pads, dilations, groups)
     xr = x.to(torch.bfloat16).float()
     wr = w.to(torch.bfloat16).float()
+    xb, wb = to_bf16_nhwc(x), to_bf16_nhwc(w)
+    bb = None if b is None else b.to(torch.bfloat16)
+    xs = xb if store["in_bf16"] else x
     pad = (pads[0], pads[1])
     if pads[:2] != pads[2:]:
         raise ValueError("time_conv: the trunks' pads are symmetric")
+    kw = {"relu": relu, "out_bf16": store["out_bf16"], "pool": store["pool"]}
     with torch.no_grad():
-        y = conv2d_bf16(x, w, b, *geo, relu=relu)
+        y = F.conv2d(xr, wr, b, strides, pad, dilations, groups)
+        ys = conv2d_bf16(xs, w, b, *geo, **kw)
         n_bytes, ops = conv_bound(x, w, y)
-        return {"ms": graph_ms(lambda: conv2d_bf16(x, w, b, *geo, relu=relu),
-                               iters),
-                "plain_ms": graph_ms(lambda: conv2d_bf16_plain(
-                    x, w, b, *geo, relu=relu), iters),
-                "library_ms": graph_ms(lambda: F.conv2d(
-                    xr, wr, b, strides, pad, dilations, groups), iters),
-                "bytes": n_bytes, "ops": ops}
+        t = {"route": route(x.shape[1], w.shape, strides, dilations, groups),
+             "store": store,
+             "ms": graph_ms(lambda: conv2d_bf16(xs, w, b, *geo, **kw),
+                            iters),
+             "plain_ms": graph_ms(lambda: conv2d_bf16_plain(
+                 xs, w, b, *geo, **kw), iters),
+             "library_ms": graph_ms(lambda: F.conv2d(
+                 xr, wr, b, strides, pad, dilations, groups), iters),
+             "library_bf16_ms": graph_ms(lambda: F.conv2d(
+                 xb, wb, bb, strides, pad, dilations, groups), iters),
+             "bytes": n_bytes, "bytes_min": conv_bound_min(x, w, ys),
+             "ops": ops}
+    t["bound_ms"], t["bound_by"] = bound(t["bytes"], ops, "bf16")
+    t["bound_min_ms"], t["bound_min_by"] = bound(t["bytes_min"], ops, "bf16")
+    t["share_of_min_bound"] = t["bound_min_ms"] / t["ms"]
+    t["ms_over_library_bf16"] = t["ms"] / t["library_bf16_ms"]
+    return t
+
 
 
 def phase_conv(dev, corridor):
@@ -707,7 +793,9 @@ def phase_conv(dev, corridor):
                 reps.append(rep)
             say("phase4b", model=prefix, hw=[h, w], B=n_img,
                 check="every conv vs plain (fp64) within the sum-order "
-                "bound, epilogue and B=2 slices bit for bit",
+                "bound, epilogue and B=2 slices bit for bit; bf16 NHWC "
+                "output and input, fused pool and the layer as the graph "
+                "stores it (slices too) bit for bit the fp32 route rounded",
                 rtol=CONV_SUM_RTOL, layers=reps)
             if prefix != "superpoint_pretrained":
                 continue
@@ -717,17 +805,27 @@ def phase_conv(dev, corridor):
                 iters = 20 if b_img == 2 else 5
                 per = {}
                 for layer in conv_layers(dev, model, xb):
-                    t = time_conv(*layer[1:], iters)
-                    t["bound_ms"], t["bound_by"] = bound(t["bytes"], t["ops"],
-                                                         "bf16")
-                    per[layer[0]] = t
+                    per[layer[0]] = time_conv(*layer[1:], iters)
                 tot = {k: sum(t[k] for t in per.values())
-                       for k in ("ms", "plain_ms", "library_ms", "bytes",
+                       for k in ("ms", "plain_ms", "library_ms",
+                                 "library_bf16_ms", "bytes", "bytes_min",
                                  "ops")}
                 tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"],
                                                          tot["ops"], "bf16")
+                tot["bound_min_ms"], tot["bound_min_by"] = bound(
+                    tot["bytes_min"], tot["ops"], "bf16")
                 tot["bound_ms_sum_of_layers"] = sum(t["bound_ms"]
                                                     for t in per.values())
+                tot["bound_min_ms_sum_of_layers"] = sum(
+                    t["bound_min_ms"] for t in per.values())
+                tot["share_of_min_bound"] = (tot["bound_min_ms_sum_of_layers"]
+                                             / tot["ms"])
+                tot["launches_by_route"] = {
+                    r: sum(t["route"] == r for t in per.values())
+                    for r in ("dense", "generic")}
+                tot["slower_than_library_bf16"] = {
+                    k: t["ms_over_library_bf16"] for k, t in per.items()
+                    if t["ms_over_library_bf16"] > 1}
                 tot["trunk_forward_ms"] = trunk_ms(model, xb)
                 say("phase4b", model=prefix, hw=[h, w], B=b_img,
                     timing="per layer, CUDA graphs", layers=per, trunk=tot)
@@ -756,10 +854,15 @@ def phase_conv(dev, corridor):
     say("phase4b", result="pass", max_abs_err=worst,
         phase4b_s=time.perf_counter() - t_start)
     return worst, {"ms": main["ms"], "plain_ms": main["plain_ms"],
-                   "bound_ms": main["bound_ms"],
-                   "bound_by": main["bound_by"],
+                   "bound_ms": main["bound_min_ms"],
+                   "bound_by": main["bound_min_by"],
                    "library_ms": main["library_ms"],
+                   "library_bf16_ms": main["library_bf16_ms"],
+                   "bound_ms_fp32_bytes": main["bound_ms"],
+                   "bound_ms_sum_of_layers": main[
+                       "bound_min_ms_sum_of_layers"],
                    "trunk_forward_ms": main["trunk_forward_ms"],
+                   "launches_by_route_per_trunk": main["launches_by_route"],
                    "ms_b2": timing[(h0, 2)]["ms"],
                    "ms_360x1176_b16": timing[(h1, b1)]["ms"]}
 
@@ -902,7 +1005,8 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     frames, gt, P_l, P_r, render_s = corridor
     n = n or len(frames)
     frames, gt = frames[:n], gt[:n]
-    vo = VisualOdometry(cfg or flagship_cfg(), device=dev, seed=0)
+    cfg = cfg or flagship_cfg()
+    vo = VisualOdometry(cfg, device=dev, seed=0)
     torch.cuda.synchronize()
     _build.reset_launches()
     infos = []
@@ -913,6 +1017,8 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
         infos.append(info)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
+    routes = check_routes(phase, cfg.model_name_prefix, launches,
+                          _build.routes)
     kps = [i["num_keypoints_left"] for i in infos[1:]]
     inl = [i["num_inliers"] for i in infos[1:]]
     lat_ms = [i["latency_s"] * 1e3 for i in infos[4:]]
@@ -938,6 +1044,7 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     if launches.get("fused_solve", 0) < n - 1:
         fail(f"{phase}: fused_solve launched "
              f"{launches.get('fused_solve', 0)} times, expected >= {n - 1}")
+    main_path_routes[phase] = routes
     return launches, float(np.median(lat_ms))
 
 
@@ -1174,8 +1281,11 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
         if i == 0:
             launches = dict(_build.launches)
             shapes = dict(_build.shapes)
+            routes = dict(_build.routes)
     say(phase, frames=n, preprocess_ms=preprocess_ms, launches=launches,
         shapes={k: list(v) for k, v in shapes.items()})
+    main_path_routes[phase] = check_routes(phase, cfg.model_name_prefix,
+                                           launches, routes)
     if launches.get("match_nn", 0) != 1 or shapes["match_nn"][0] != 2 * n - 1:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} times "
              f"at {shapes.get('match_nn')}, expected once at B={2 * n - 1}")
@@ -1335,6 +1445,26 @@ def check_counts(tag: str, launches, want) -> None:
 # frame), and it is what fails when a stage is half broken.
 BATCH_DRIFT_LIMIT = 25.0
 BATCH_PAIR_ERR_LIMIT_M = 0.10
+
+
+TRUNK_ROUTES = {"dense": 11, "generic": 1}   # superpoint_pretrained's 12
+main_path_routes: dict = {}                  # phase -> {route: launches}
+
+
+def check_routes(phase: str, prefix: str, launches, routes) -> dict:
+    """The flagship trunk's conv launches by route: 11 dense and 1 generic
+    (conv1a) per trunk call. Returns {route: launches}."""
+    got = {k.split(".", 1)[1]: v for k, v in routes.items()
+           if k.startswith("conv_bf16.")}
+    calls = launches.get("conv_bf16", 0) // sum(TRUNK_ROUTES.values())
+    say(phase, conv_bf16_launches_by_route=got, trunk_calls=calls,
+        per_trunk_call=TRUNK_ROUTES)
+    if prefix == "superpoint_pretrained":
+        want = {r: n * calls for r, n in TRUNK_ROUTES.items() if calls}
+        if (got != want or calls * sum(TRUNK_ROUTES.values())
+                != launches.get("conv_bf16", 0)):
+            fail(f"{phase}: conv_bf16 routes {got}, expected {want}")
+    return got
 
 
 def pair_errors_m(poses, gt) -> np.ndarray:
@@ -3369,7 +3499,10 @@ def main() -> None:
          "replaces": "spsvo_tpu/models/onnx_import.py:261",
          "replaces_kind": "an XLA op (lax.conv_general_dilated, bf16 "
          "operands, fp32 accumulation), not a Pallas kernel",
-         **counts("conv_bf16"), "max_abs_err": c_err,
+         **counts("conv_bf16"),
+         "launches_by_route": {p: main_path_routes.get(p) for p in
+                               ("phase5", "phase6")},
+         "max_abs_err": c_err,
          **{k: c_t[k] for k in keys},
          **{k: v for k, v in c_t.items() if k not in keys}}]}), flush=True)
     print(gpu, flush=True)

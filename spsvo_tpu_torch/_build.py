@@ -12,7 +12,10 @@ to `launches`, or, while the stream is being captured into a CUDA graph
 (nothing runs then), one to `captured`. The owner of a graph keeps what its
 capture added to `captured` (`captured_since`) and hands it to
 `count_replay` at every replay, which is when those launches run. `shapes`
-holds the shape of each wrapper's last call.
+holds the shape of each wrapper's last call. A wrapper with several
+kernels names the one it launched (`route`): `routes` counts those as
+"<name>.<route>", beside `launches[name]`, and `captured` holds them under
+the same keys until a replay moves them to `routes`.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 launches: collections.Counter = collections.Counter()   # ran on the card
+routes: collections.Counter = collections.Counter()     # "<name>.<route>"
 captured: collections.Counter = collections.Counter()   # recorded in graphs
 shapes: Dict[str, tuple] = {}    # name -> shape of the last call
 build_log: Dict[str, dict] = {}   # name -> {"seconds", "cached", "ptxas"}
@@ -45,19 +49,25 @@ _locks: Dict[str, threading.Lock] = {}   # one per kernel: builds overlap
 
 def reset_launches() -> None:
     launches.clear()
+    routes.clear()
     captured.clear()
     shapes.clear()
 
 
-def count_launch(name: str, shape: tuple) -> None:
+def count_launch(name: str, shape: tuple, route: str = "") -> None:
     """One call of the wrapper `name` that launched (or, under capture,
-    recorded) its kernel at `shape`."""
+    recorded) its kernel at `shape`; `route` names which of its kernels."""
     import torch
     shapes[name] = shape
+    tagged = f"{name}.{route}" if route else ""
     if torch.cuda.is_current_stream_capturing():
         captured[name] += 1
+        if tagged:
+            captured[tagged] += 1
     else:
         launches[name] += 1
+        if tagged:
+            routes[tagged] += 1
 
 
 def captured_since(before: collections.Counter) -> collections.Counter:
@@ -67,7 +77,8 @@ def captured_since(before: collections.Counter) -> collections.Counter:
 
 def count_replay(recorded: collections.Counter) -> None:
     """A graph holding the `recorded` launches was replayed once."""
-    launches.update(recorded)
+    for key, n in recorded.items():
+        (routes if "." in key else launches)[key] += n
 
 
 def nvcc_path() -> str:

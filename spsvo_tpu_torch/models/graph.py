@@ -29,8 +29,19 @@ to bfloat16, the products accumulate in fp32 and the bias is added in fp32:
 (batch-invariant: an image's output is the same bits at any batch size)
 and its plain version (operands rounded, cast back, an fp32 `F.conv2d` per
 image) on the CPU. A ReLU that is a conv's only consumer runs in the conv's
-epilogue (`fuse_conv_relu`). BN, pooling and the heads stay fp32; the L2
-normalisation sums its squares in a fixed order (`fixed_order_sum`).
+epilogue (`fuse_conv_relu`). BN, Add and the heads' outputs stay fp32; the
+L2 normalisation sums its squares in a fixed order (`fixed_order_sum`).
+
+bf16 storage (`plan_bf16_storage`, serving only): a tensor that a bf16 conv
+produces (directly or through MaxPools) and that only dense-route bf16
+convs consume (directly or through MaxPools), and that is not a graph
+output, is rounded to bf16 at its producer and held NHWC (channels-last).
+That is bit for bit the fp32 graph: the consumer rounds to bf16 anyway,
+rounding is idempotent, and round-to-nearest-even is monotone, so it
+commutes with max. A conv whose only consumer is an unpadded 2x2/2 MaxPool
+so stored pools in its epilogue (`fuse_conv_pool`). The plan is off for
+fp32 and int8 graphs, while gradients are recorded, and while
+`capture_conv_inputs` calibrates int8 scales on the fp32 activations.
 
 int8 (`models/quantize.py`): a conv whose weight buffer is int8 runs as an
 exact int8 x int8 -> int32 conv, with its `<w>#scale` per-channel weight
@@ -52,7 +63,7 @@ from torch import nn
 
 from spsvo_tpu_torch.models.quantize import (abs_quantile, int8_conv,
                                              quantize_activation)
-from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16
+from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, route, to_bf16_nhwc
 from spsvo_tpu_torch.ops.postprocess import fixed_order_sum
 
 
@@ -142,6 +153,89 @@ def fuse_conv_relu(nodes: List[OnnxNode],
     return fused
 
 
+def _consumers(nodes: List[OnnxNode]) -> Dict[str, List[OnnxNode]]:
+    out: Dict[str, List[OnnxNode]] = {}
+    for node in nodes:
+        for name in node.inputs:
+            out.setdefault(name, []).append(node)
+    return out
+
+
+def bf16_storage(nodes: List[OnnxNode], output_names: List[str],
+                 dense: Set[str]) -> Set[str]:
+    """The tensors held as bf16 NHWC: produced by a Conv (all convs of the
+    list are bf16 ones) or by a MaxPool of such a tensor's producer chain,
+    not a graph output, and consumed only as the input of a Conv whose
+    weight is in `dense` (the dense route) or by MaxPools whose outputs are
+    held so."""
+    producer = {o: n for n in nodes for o in n.outputs}
+    consumers = _consumers(nodes)
+
+    def from_conv(name: str) -> bool:
+        p = producer.get(name)
+        return p is not None and (p.op == "Conv" or (
+            p.op == "MaxPool" and from_conv(p.inputs[0])))
+
+    def held(name: str) -> bool:
+        cs = consumers.get(name, [])
+        if name in output_names or not cs or not from_conv(name):
+            return False
+        return all((c.op == "Conv" and c.inputs[0] == name
+                    and name not in c.inputs[1:] and c.inputs[1] in dense)
+                   or (c.op == "MaxPool" and held(c.outputs[0]))
+                   for c in cs)
+    return {o for n in nodes for o in n.outputs if held(o)}
+
+
+def _pool_2x2(node: OnnxNode) -> bool:
+    return (node.op == "MaxPool"
+            and [int(k) for k in node.attr("kernel_shape", [])] == [2, 2]
+            and [int(k) for k in node.attr("strides", [2, 2])] == [2, 2]
+            and not any(_pads(node))
+            and not int(node.attr("ceil_mode", 0))
+            and [int(d) for d in node.attr("dilations", [1, 1])] == [1, 1])
+
+
+def fuse_conv_pool(nodes: List[OnnxNode], output_names: List[str],
+                   dense: Set[str], held: Set[str]) -> List[OnnxNode]:
+    """Fold each unpadded 2x2/2 MaxPool whose input is a dense-route Conv's
+    output used by that pool alone (and not a graph output), and whose
+    output is `held` as bf16, into the Conv: the Conv takes the pool's
+    output name and the attribute `fused_pool`, and writes only the pooled
+    bf16 tensor. The same function, bit for bit: rounding commutes with
+    max, and an odd last row or column is dropped as the pool drops it."""
+    consumers = _consumers(nodes)
+    convs = {n.outputs[0] for n in nodes
+             if n.op == "Conv" and n.inputs[1] in dense}
+    pools = {n.inputs[0]: n for n in nodes
+             if (_pool_2x2(n) and n.inputs[0] in convs
+                 and len(consumers[n.inputs[0]]) == 1
+                 and n.inputs[0] not in output_names
+                 and n.outputs[0] in held)}
+    fused: List[OnnxNode] = []
+    for node in nodes:
+        if node.op == "Conv" and node.outputs[0] in pools:
+            fused.append(OnnxNode(
+                "Conv", node.inputs, pools[node.outputs[0]].outputs,
+                dict(node.attrs, fused_pool={"i": 1})))
+        elif not (node.op == "MaxPool" and node.inputs[0] in pools):
+            fused.append(node)
+    return fused
+
+
+def plan_bf16_storage(nodes: List[OnnxNode], output_names: List[str],
+                      dense: Set[str]):
+    """(node list, held tensors): `bf16_storage` marked on every producer
+    of a held tensor (attribute `store_bf16`), 2x2 pools fused
+    (`fuse_conv_pool`)."""
+    held = bf16_storage(nodes, output_names, dense)
+    planned = [OnnxNode(n.op, n.inputs, n.outputs,
+                        dict(n.attrs, store_bf16={"i": 1}))
+               if n.outputs[0] in held else n
+               for n in fuse_conv_pool(nodes, output_names, dense, held)]
+    return planned, {o for n in planned for o in n.outputs if o in held}
+
+
 def _relu(x: torch.Tensor) -> torch.Tensor:
     # with gradients on, max(x, 0) as the JAX package computes it: its
     # gradient at exactly 0 is 1/2 (torch.maximum splits ties too);
@@ -166,8 +260,11 @@ def _conv(x, w, b, node: OnnxNode, bf16: bool, w_scale=None, a_scale=None,
         y = int8_conv(x, w, w_scale, strides, pads, dilations, groups,
                       a_scale, x_q=x_q)
     elif bf16:
-        return conv2d_bf16(x.contiguous(), w, b, strides, pads, dilations,
-                           groups, relu)
+        return conv2d_bf16(
+            x if x.dtype == torch.bfloat16 else x.contiguous(), w, b,
+            strides, pads, dilations, groups, relu,
+            out_bf16=bool(node.attr("store_bf16", 0)),
+            pool=bool(node.attr("fused_pool", 0)))
     elif (top, left) == (bottom, right):
         y = F.conv2d(x, w, None, strides, (top, left), dilations, groups)
     else:
@@ -233,6 +330,44 @@ class GraphModule(nn.Module):
             mod.register_buffer(leaf, torch.zeros(shape, dtype=dtypes[name]))
         self._param_names = set(param_shapes)
         self._requant = self._requant_keys(dtypes)
+        self._conv_w = conv_w
+        # bf16 storage (serving): on for a bf16 graph without int8 convs;
+        # the conv weights that take the dense route
+        self._plan_on = bf16 and not any(dtypes[w] == torch.int8
+                                         for w in conv_w)
+        self._dense = set()
+        for n in graph.nodes:
+            if n.op == "Conv":
+                kh, kw, cg, cout = param_shapes[n.inputs[1]]
+                groups = int(n.attr("group", 1))
+                if route(cg * groups, (cout, cg, kh, kw),
+                         n.attr("strides", [1, 1]),
+                         n.attr("dilations", [1, 1]), groups) == "dense":
+                    self._dense.add(n.inputs[1])
+        self._plan = None
+
+    def _planned(self):
+        """(`nodes`, bf16 node list, held tensors), made again whenever
+        `nodes` is replaced."""
+        if self._plan is None or self._plan[0] is not self.nodes:
+            planned, held = ((self.nodes, set()) if not self._plan_on else
+                             plan_bf16_storage(self.nodes,
+                                               self.graph.output_names,
+                                               self._dense))
+            self._plan = (self.nodes, planned, held)
+        return self._plan
+
+    @property
+    def bf16_nodes(self) -> List[OnnxNode]:
+        """The node list a bf16 serving forward runs: `nodes` with the
+        producers of bf16-held tensors marked `store_bf16` and 2x2 pools
+        fused (`plan_bf16_storage`); `nodes` itself when the plan is off."""
+        return self._planned()[1]
+
+    @property
+    def stored_bf16(self) -> Set[str]:
+        """The tensors a bf16 serving forward holds as bf16 NHWC."""
+        return self._planned()[2]
 
     def _requant_keys(self, dtypes) -> Dict[str, str]:
         """{tensor: `<w>#ascale`} for each node output that flows only into
@@ -262,7 +397,13 @@ class GraphModule(nn.Module):
                 capture_quantile: Optional[float] = None):
         """`capture_conv_inputs=True` returns `(outputs, {conv weight name:
         absmax of its input})`, or with `capture_quantile` (e.g. 0.999)
-        that |x| quantile: the hook of int8 calibration."""
+        that |x| quantile: the hook of int8 calibration. A bf16 graph runs
+        `bf16_nodes` (bf16 storage, fused pools) unless it captures or
+        records gradients; the outputs are the same bits either way."""
+        planned = (self._plan_on and not capture_conv_inputs
+                   and not (torch.is_grad_enabled() and (
+                       x.requires_grad or any(self.get_buffer(w).requires_grad
+                                              for w in self._conv_w))))
         env: Dict[str, torch.Tensor] = {
             self.graph.input_names[0]: x.permute(0, 3, 1, 2).to(torch.float32)}
         qenv: Dict[str, torch.Tensor] = {}     # int8 at the producer
@@ -290,7 +431,7 @@ class GraphModule(nn.Module):
             # the JAX interpreter's broadcasting of parameters against NHWC
             return from_jax(fn(jax_view(a_name), jax_view(b_name)))
 
-        for node in self.nodes:
+        for node in (self.bf16_nodes if planned else self.nodes):
             op = node.op
             if op == "Conv":
                 w_name = node.inputs[1]
@@ -319,6 +460,8 @@ class GraphModule(nn.Module):
                         self._requant[node.outputs[0]])
                 else:
                     y = _maxpool(get(node.inputs[0]), node)
+                    if node.attr("store_bf16", 0):
+                        y = to_bf16_nhwc(y)
             elif op == "BatchNormalization":
                 xin = get(node.inputs[0])
                 gamma, beta, mean, var = (get(n) for n in node.inputs[1:5])

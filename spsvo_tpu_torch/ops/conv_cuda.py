@@ -1,23 +1,36 @@
-"""bf16 convolution: the CUDA kernel `csrc/conv_bf16.cu` and its plain
+"""bf16 convolution: the CUDA kernels of `csrc/conv_bf16.cu` and their plain
 PyTorch version.
 
 Replaces an XLA op, not a Pallas kernel: the bf16 branch of
 `spsvo_tpu.models.onnx_import._conv`, `lax.conv_general_dilated` on bf16
 operands with `preferred_element_type=float32` (exact bf16 products, fp32
-sums, fp32 result), then the bias, and the ReLU where the graph fused one
-into the conv (`models.graph.fuse_conv_relu`).
+sums, fp32 result), then the bias, the ReLU where the graph fused one into
+the conv (`models.graph.fuse_conv_relu`) and the 2x2/2 max-pool where it
+fused one (`models.graph.fuse_conv_pool`).
 
-The kernel is an implicit GEMM on the tensor cores (mma.sync bf16 -> fp32)
-that reads the fp32 NCHW activation and the fp32 OIHW weight as the graph
-holds them and rounds both to bf16 as it loads them. Its order of summation
-is fixed by the layer alone (no split-K, one tile configuration), so an
-image's output is the same bits at any batch size: the front end is
-batch-invariant on the card, as the JAX package's is.
+Two routes, chosen from the layer's attributes alone (`route`):
+- "dense": groups 1, stride 1, dilation 1, a 1x1 or 3x3 kernel and C a
+  multiple of 16. A TMA-fed, warp-specialised wgmma implicit GEMM that
+  reads the activation as bf16 NHWC and the weight as a packed bf16
+  (Cout, KH, KW, C) copy (`packed_weight`). An fp32 NCHW input is first
+  rounded into a bf16 NHWC copy (`to_bf16_nhwc`), exactly as the kernel
+  would round it.
+- "generic": every other form (C = 1, strides, dilations, groups). The
+  first version's mma.sync kernel: fp32 NCHW activation and fp32 OIHW weight, rounded to
+  bf16 as they are loaded.
 
-`conv2d_bf16` launches the kernel for CUDA tensors and uses the plain
-version (`conv2d_bf16_plain`: round, cast back, `F.conv2d` per image, bias,
-ReLU) only for CPU tensors; it never falls back. The bf16 trunk is never
-differentiated (training runs fp32), so a gradient is refused.
+Either writes fp32 NCHW, or with `out_bf16` the result rounded to bf16 and
+stored NHWC (a channels-last tensor of logical shape (N, Cout, OH, OW)),
+which is what the next bf16 conv reads; the dense route can also pool 2x2
+in its epilogue (`pool`). Each element's order of summation is fixed by
+the layer form (C, Cout, KH, KW), never by N, H or W, so an image's output
+is the same bits at any batch size: the front end is batch-invariant on
+the card, as the JAX package's is.
+
+`conv2d_bf16` launches a kernel for CUDA tensors and uses the plain version
+(`conv2d_bf16_plain`: round, cast back, `F.conv2d` per image, bias, ReLU,
+pool, round) only for CPU tensors; it never falls back. The bf16 trunk is
+never differentiated (training runs fp32), so a gradient is refused.
 """
 
 from __future__ import annotations
@@ -32,22 +45,66 @@ from spsvo_tpu_torch import _build
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_CL = torch.channels_last
+
+
+def route(c: int, w_shape: Sequence[int], strides: Sequence[int],
+          dilations: Sequence[int], groups: int) -> str:
+    """"dense" or "generic": the kernel a conv of C input channels and an
+    OIHW weight of `w_shape` runs on, from its attributes alone."""
+    _, _, kh, kw = w_shape
+    dense = (int(groups) == 1 and tuple(strides) == (1, 1)
+             and tuple(dilations) == (1, 1) and kh == kw and kh in (1, 3)
+             and c % 16 == 0)
+    return "dense" if dense else "generic"
+
+
+def to_bf16_nhwc(x: torch.Tensor) -> torch.Tensor:
+    """`x` rounded to bf16 (round to nearest even) and stored NHWC: the
+    activation format the dense route reads."""
+    return x.to(torch.bfloat16).contiguous(memory_format=_CL)
+
+
+def is_bf16_nhwc(x: torch.Tensor) -> bool:
+    return (x.dtype == torch.bfloat16 and x.dim() == 4
+            and x.is_contiguous(memory_format=_CL))
+
+
+def packed_weight(w: torch.Tensor) -> torch.Tensor:
+    """The dense route's weight: `w` (Cout, C, KH, KW) rounded to bf16 and
+    laid out (Cout, KH, KW, C). Kept on `w` itself and rebuilt when `w`'s
+    version counter or storage changes, so a `load_state_dict`, an in-place
+    update or a move to another device never leaves a stale copy (an
+    inference tensor has no version counter: packed at every call)."""
+    if w.is_inference():
+        return w.detach().to(torch.bfloat16).permute(0, 2, 3, 1).contiguous()
+    key = (w._version, w.data_ptr(), w.device)
+    held = getattr(w, "_conv_bf16_packed", None)
+    if held is None or held[0] != key:
+        held = (key, w.detach().to(torch.bfloat16).permute(0, 2, 3, 1)
+                .contiguous())
+        w._conv_bf16_packed = held
+    return held[1]
 
 
 def conv2d_bf16_plain(x: torch.Tensor, w: torch.Tensor,
                       b: Optional[torch.Tensor], strides: Sequence[int],
                       pads: Sequence[int], dilations: Sequence[int],
-                      groups: int, relu: bool = False) -> torch.Tensor:
-    """Plain version: both operands rounded to bf16 and cast back to their
-    float type (fp32 on the main path; fp64 gives the exact sums), a float
-    convolution (TF32 off) per image, the bias, the ReLU. `pads` are
-    ONNX's (top, left, bottom, right). One image per call: a library picks
-    its algorithm, and so its order of summation, by the batch size (the
-    CPU's 1x1 convs do), so an image's output depends on the image alone
-    only if it is convolved alone."""
+                      groups: int, relu: bool = False, out_bf16: bool = False,
+                      pool: bool = False) -> torch.Tensor:
+    """Plain version: both operands rounded to bf16 and cast back (to fp64
+    for an fp64 `x`, which gives the exact sums, else fp32), a float
+    convolution (TF32 off) per image on the NCHW layout whatever `x`'s
+    storage, the bias, the ReLU, the 2x2/2 max-pool if `pool`, and the
+    result rounded to bf16 NHWC if `out_bf16`. `pads` are ONNX's (top,
+    left, bottom, right). One image per call: a library picks its
+    algorithm, and so its order of summation, by the batch size (the CPU's
+    1x1 convs do), so an image's output depends on the image alone only if
+    it is convolved alone."""
     top, left, bottom, right = pads
-    x = x.to(torch.bfloat16).to(x.dtype)
-    w = w.to(torch.bfloat16).to(x.dtype)
+    dtype = torch.float64 if x.dtype == torch.float64 else torch.float32
+    x = x.to(torch.bfloat16).to(dtype).contiguous()
+    w = w.to(torch.bfloat16).to(dtype)
 
     def conv(xi):
         if (top, left) == (bottom, right):
@@ -58,7 +115,11 @@ def conv2d_bf16_plain(x: torch.Tensor, w: torch.Tensor,
     y = torch.cat([conv(x[i:i + 1]) for i in range(x.shape[0])])
     if b is not None:
         y = y + b.to(y.dtype)[None, :, None, None]
-    return torch.relu(y) if relu else y
+    if relu:
+        y = torch.relu(y)
+    if pool:
+        y = F.max_pool2d(y, 2, 2)
+    return to_bf16_nhwc(y) if out_bf16 else y
 
 
 def out_hw(h: int, w: int, kh: int, kw: int, strides, pads, dilations):
@@ -68,20 +129,31 @@ def out_hw(h: int, w: int, kh: int, kw: int, strides, pads, dilations):
             (w + left + right - dilations[1] * (kw - 1) - 1) // strides[1] + 1)
 
 
-def _check(x, w, b, strides, pads, dilations, groups) -> None:
-    """The kernel's contract, checked on the host for every device."""
+def _check(x, w, b, strides, pads, dilations, groups, out_bf16,
+           pool) -> str:
+    """The kernels' contract, checked on the host for every device.
+    Returns the route."""
     ts = (x, w) if b is None else (x, w, b)
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError("conv2d_bf16 takes float32 x, w and bias, got "
-                        f"{[t.dtype for t in ts]}")
+    if w.dtype != torch.float32 or (b is not None
+                                    and b.dtype != torch.float32):
+        raise TypeError("conv2d_bf16 takes float32 w and bias, got "
+                        f"{[t.dtype for t in ts[1:]]}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("conv2d_bf16 takes float32 NCHW or bfloat16 NHWC x, "
+                        f"got {x.dtype}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
         raise RuntimeError("conv2d_bf16 has no gradient: the bf16 trunk is "
                            "never differentiated (training runs fp32)")
     if x.dim() != 4 or w.dim() != 4:
         raise ValueError(f"conv2d_bf16: x {tuple(x.shape)} and w "
                          f"{tuple(w.shape)} must be 4-D (NCHW, OIHW)")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("conv2d_bf16: x, w and bias must be contiguous")
+    if x.dtype == torch.float32 and not x.is_contiguous():
+        raise ValueError("conv2d_bf16: a float32 x must be contiguous NCHW")
+    if x.dtype == torch.bfloat16 and not is_bf16_nhwc(x):
+        raise ValueError("conv2d_bf16: a bfloat16 x must be stored NHWC "
+                         "(channels_last)")
+    if not all(t.is_contiguous() for t in ts[1:]):
+        raise ValueError("conv2d_bf16: w and bias must be contiguous")
     if len({t.device for t in ts}) != 1:
         raise ValueError("conv2d_bf16: x, w and bias on different devices")
     if (len(strides), len(pads), len(dilations)) != (2, 4, 2) or \
@@ -96,14 +168,25 @@ def _check(x, w, b, strides, pads, dilations, groups) -> None:
     if b is not None and tuple(b.shape) != (cout,):
         raise ValueError(f"conv2d_bf16: bias {tuple(b.shape)} for {cout} "
                          "output channels")
-    if min(out_hw(h, wd, kh, kw, strides, pads, dilations)) < 1:
+    oh, ow = out_hw(h, wd, kh, kw, strides, pads, dilations)
+    if min(oh, ow) < 1:
         raise ValueError("conv2d_bf16: empty output")
+    kind = route(c, w.shape, strides, dilations, groups)
+    if x.dtype == torch.bfloat16 and kind != "dense":
+        raise ValueError("conv2d_bf16: the generic route (C=1, strides, "
+                         "dilations, groups) takes float32 NCHW x, got "
+                         "bfloat16 NHWC")
+    if pool and (kind != "dense" or not out_bf16 or min(oh, ow) < 2):
+        raise ValueError("conv2d_bf16: the fused 2x2 pool needs the dense "
+                         f"route, a bf16 output and a 2x2 output, got route "
+                         f"{kind}, out_bf16 {out_bf16}, output {oh}x{ow}")
+    return kind
 
 
-def _lib():
-    fn = _build.load("conv_bf16").conv_bf16_launch
+def _lib(fn_name: str, n_int: int):
+    fn = getattr(_build.load("conv_bf16"), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [_P, _P, _P, _P] + [_I] * 17 + [_P]
+        fn.argtypes = [_P, _P, _P, _P] + [_I] * n_int + [_P]
         fn.restype = ctypes.c_int
     return fn
 
@@ -111,29 +194,50 @@ def _lib():
 def conv2d_bf16(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 strides: Sequence[int], pads: Sequence[int],
                 dilations: Sequence[int], groups: int,
-                relu: bool = False) -> torch.Tensor:
-    """y = bias + conv(bf16(x), bf16(w)) summed in fp32, ReLU'd if `relu`.
-    x (N, C, H, W), w (Cout, C/groups, KH, KW), b (Cout,) or None, all
-    float32 and contiguous; `pads` (top, left, bottom, right). Returns
-    (N, Cout, OH, OW) float32."""
+                relu: bool = False, out_bf16: bool = False,
+                pool: bool = False) -> torch.Tensor:
+    """y = bias + conv(bf16(x), bf16(w)) summed in fp32, ReLU'd if `relu`,
+    max-pooled 2x2/2 if `pool`. x (N, C, H, W) float32 contiguous, or
+    bfloat16 stored NHWC (dense route only); w (Cout, C/groups, KH, KW) and
+    b (Cout,) or None, float32 and contiguous; `pads` (top, left, bottom,
+    right). Returns (N, Cout, OH, OW) float32 contiguous, or with
+    `out_bf16` bfloat16 stored NHWC (pooled: (N, Cout, OH//2, OW//2))."""
     strides, pads, dilations = (tuple(int(v) for v in a)
                                 for a in (strides, pads, dilations))
-    _check(x, w, b, strides, pads, dilations, int(groups))
+    kind = _check(x, w, b, strides, pads, dilations, int(groups),
+                  bool(out_bf16), bool(pool))
     if x.device.type == "cpu":
         return conv2d_bf16_plain(x, w, b, strides, pads, dilations, groups,
-                                 relu)
+                                 relu, out_bf16, pool)
     if x.device.type != "cuda":
         raise ValueError(f"conv2d_bf16: no kernel for {x.device}")
     n, c, h, wd = x.shape
     cout, _, kh, kw = w.shape
     oh, ow = out_hw(h, wd, kh, kw, strides, pads, dilations)
-    y = torch.empty((n, cout, oh, ow), dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        err = _lib()(x.data_ptr(), w.data_ptr(),
-                     None if b is None else b.data_ptr(), y.data_ptr(),
-                     n, c, h, wd, cout, kh, kw, oh, ow, *strides, pads[0],
-                     pads[1], *dilations, int(groups), int(bool(relu)),
-                     torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check_status(err, "conv_bf16")
-    _build.count_launch("conv_bf16", (n, c, h, wd, cout, kh, kw))
+    dev = x.device
+    if pool:
+        y = torch.empty((n, cout, oh // 2, ow // 2), dtype=torch.bfloat16,
+                        device=dev, memory_format=_CL)
+    elif out_bf16:
+        y = torch.empty((n, cout, oh, ow), dtype=torch.bfloat16, device=dev,
+                        memory_format=_CL)
+    else:
+        y = torch.empty((n, cout, oh, ow), dtype=torch.float32, device=dev)
+    bias = None if b is None else b.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if kind == "dense":
+            xs = x if x.dtype == torch.bfloat16 else to_bf16_nhwc(x)
+            err = _lib("conv_bf16_dense_launch", 13)(
+                xs.data_ptr(), packed_weight(w).data_ptr(), bias,
+                y.data_ptr(), n, c, h, wd, cout, kh, kw, oh, ow, pads[0],
+                pads[1], int(bool(relu)), 2 if pool else int(bool(out_bf16)),
+                stream)
+        else:
+            err = _lib("conv_bf16_launch", 18)(
+                x.data_ptr(), w.data_ptr(), bias, y.data_ptr(), n, c, h, wd,
+                cout, kh, kw, oh, ow, *strides, pads[0], pads[1], *dilations,
+                int(groups), int(bool(relu)), int(bool(out_bf16)), stream)
+    _build.check_status(err, f"conv_bf16 ({kind})")
+    _build.count_launch("conv_bf16", (n, c, h, wd, cout, kh, kw), route=kind)
     return y

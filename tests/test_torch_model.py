@@ -154,3 +154,116 @@ def test_graph_fuses_l2_normalize_and_clamps_bn_variance(rng):
     assert torch.isfinite(out["output_det"]).all()
     norms = torch.linalg.vector_norm(out["output_desc"], dim=-1)
     np.testing.assert_allclose(norms.numpy(), 1.0, atol=1e-5)
+
+
+# ---- bf16 storage (graph.plan_bf16_storage): conv-to-conv activations held
+# as bf16 NHWC, 2x2 pools fused into the convs' epilogues ----
+
+@pytest.fixture
+def one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _seeded_sp_resnet18_state(rng):
+    """sp_resnet18 with He-normal convs and BN statistics and affine
+    parameters perturbed, so every BatchNormalization (an fp32 input to the
+    next conv) and every Add is non-trivial."""
+    builder = tzoo.build_sp_resnet18()
+    params = builder.init_params(torch.Generator().manual_seed(7))
+    for name in params:
+        if ".bn" in name or name.startswith("stem.bn"):
+            if name.endswith((".running_mean", ".bias")):
+                params[name] = rng.normal(0, 0.1, params[name].shape
+                                          ).astype(np.float32)
+            elif name.endswith((".running_var", ".weight")):
+                params[name] = rng.uniform(0.5, 1.5, params[name].shape
+                                           ).astype(np.float32)
+    return builder.build(), tzoo.params_from_jax(
+        params, tgraph.conv_weight_names(builder.build()))
+
+
+def _bf16_model_and_state(prefix, rng):
+    if prefix == "sp_resnet18":
+        graph, state = _seeded_sp_resnet18_state(rng)
+    else:
+        m = tzoo.load_model(prefix, torch.bfloat16, device="cpu")
+        graph, state = m.graph, dict(m.state_dict())
+    return tzoo.model_from_state(graph, state, bf16=True, device="cpu"), state
+
+
+@pytest.mark.parametrize("prefix,n_stored,n_pools", [
+    ("superpoint_pretrained", 10, 3), ("sp_resnet18", 2, 0)])
+def test_bf16_storage_is_bitwise_the_fp32_storage(rng, one_torch_thread,
+                                                  prefix, n_stored, n_pools):
+    """The plan on against the same graph with it off, bit for bit, at a
+    size whose pooled maps have odd H and W (44x70 -> 22x35 -> 11x17 ->
+    5x8: the fused pools drop the last row and column as MaxPool does).
+    superpoint_pretrained: ten conv-to-conv tensors held bf16 and conv1b,
+    conv2b, conv3b pooled in their epilogues; the seeded sp_resnet18: BN
+    and Add inputs stay fp32 (its dense convs round a copy), only the
+    heads' 3x3 outputs are held bf16."""
+    on, state = _bf16_model_and_state(prefix, rng)
+    off = tzoo.model_from_state(on.graph, state, bf16=True, device="cpu")
+    off._plan_on = False
+    assert len(on.stored_bf16) == n_stored
+    assert sum(bool(n.attr("fused_pool", 0)) for n in on.bf16_nodes
+               ) == n_pools
+    assert all(name not in on.stored_bf16 for name in on.graph.output_names)
+    x = torch.as_tensor(rng.random((2, 44, 70, 1)).astype(np.float32))
+    with torch.no_grad():
+        a, b = on(x), off(x)
+    for k in ("output_det", "output_desc"):
+        assert a[k].dtype == torch.float32 and a[k].is_contiguous()
+        assert torch.equal(a[k], b[k]), k
+
+
+def _recording(monkeypatch):
+    calls = []
+    real = tgraph.conv2d_bf16
+
+    def rec(x, *args, out_bf16=False, pool=False, **kw):
+        calls.append((x.dtype, out_bf16, pool))
+        return real(x, *args, out_bf16=out_bf16, pool=pool, **kw)
+    monkeypatch.setattr(tgraph, "conv2d_bf16", rec)
+    return calls
+
+
+def test_bf16_storage_off_for_captures_and_gradients(rng, one_torch_thread,
+                                                     monkeypatch):
+    """int8 calibration's capture sees fp32 activations and fp32 outputs,
+    as before the plan; a forward that records gradients runs the plan off
+    too (and the bf16 conv then refuses the gradient, as it always has);
+    a serving forward stores bf16 and pools in the epilogue."""
+    model = tzoo.load_model("superpoint_pretrained", torch.bfloat16,
+                            device="cpu")
+    calls = _recording(monkeypatch)
+    x = torch.as_tensor(rng.random((1, 32, 48, 1)).astype(np.float32))
+    with torch.no_grad():
+        served = model(x)
+        assert {c[0] for c in calls} == {torch.float32, torch.bfloat16}
+        assert sum(c[2] for c in calls) == 3
+        calls.clear()
+        captured_out, captured = model(x, capture_conv_inputs=True)
+    assert calls and all(c == (torch.float32, False, False) for c in calls)
+    assert len(captured) == 12
+    for k in served:
+        assert torch.equal(served[k], captured_out[k]), k
+    calls.clear()
+    params = {k: v.clone().requires_grad_(True)
+              for k, v in model.state_dict().items()}
+    with pytest.raises(RuntimeError, match="no gradient"):
+        tzoo.apply_fn(model)(params, x)
+    assert calls == [(torch.float32, False, False)]
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8", "int8_bf16"])
+def test_bf16_storage_off_for_fp32_and_int8_graphs(kind):
+    model = tzoo.load_model(
+        "superpoint_pretrained",
+        torch.float32 if kind != "int8_bf16" else torch.bfloat16,
+        device="cpu", int8=kind != "fp32")
+    assert model.bf16_nodes is model.nodes
+    assert not model.stored_bf16
