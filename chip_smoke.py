@@ -8,7 +8,7 @@ Phases, one line each, then the kernel report and the card's name and power
 limit, then the result line:
 
   1. environment: torch / CUDA / nvcc versions and the card;
-  2. build the three hand-written kernels from spsvo_tpu_torch/csrc/
+  2. build the four hand-written kernels from spsvo_tpu_torch/csrc/
      (nvcc, side by side);
   3. kernel 1 (fused mutual-NN matcher) against its plain PyTorch version
      on the card, B=2, K=512, D=256, bf16 and fp32, invalid slots and
@@ -33,11 +33,21 @@ limit, then the result line:
      (library_bf16_ms), the fp32-bytes bound (bound_ms) and the
      minimal bound (bound_min_ms: bf16 inputs and weights, the stored
      output);
- 4c. the front end's batch invariance: the bf16 flagship's on the
-     corridor's 64 images bit for bit at batch 64, 32, 16 and 2 and per
-     frame through `superpoint_frontend` with model_batch_size 2 and 1;
-     superpoint_jetson's at 360x1176 at chunk 16 and 2; and, as a reading
-     only, the fp32 route's (superpoint_laptop, cuDNN) at chunk 16 and 2;
+ 4b-fp32. kernel 4 (the fp32 implicit-GEMM convolution, FFMA on the CUDA
+     cores) on every conv of superpoint_pretrained at 120x392 (B=64 and
+     B=2) and of sp_resnet18 at 360x1176 (B=2) fed the corridor's own
+     activations, and on the ONNX families' forms: within CONV_SUM_RTOL of
+     the magnitude conv of its plain version run in fp64, the epilogue bit
+     for bit, every 2-image slice (1-image at B=2) bit for bit the batch's
+     output; per layer and per trunk its ms, the plain version's, cuDNN's
+     batched fp32 conv with TF32 off (library_ms) and the bound (fp32
+     bytes at 3.35 TB/s, 2·outputs·K at 67 TFLOP/s);
+ 4c. the front end's batch invariance: the bf16 flagship's and config
+     (a)'s (the flagship at FP32, kernel 4) on the corridor's 64 images
+     bit for bit at batch 64, 32, 16 and 2 and per frame through
+     `superpoint_frontend` with model_batch_size 2 and 1;
+     superpoint_jetson's at 360x1176 at chunk 16 and 2;
+     superpoint_laptop's (FP32, sp_resnet18) at chunk 16, 2 and 1;
   5. the per-frame path: `VisualOdometry.process` with the flagship
      composition on superpoint_pretrained (full width, committed weights)
      over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
@@ -56,6 +66,12 @@ limit, then the result line:
      the per-frame `superpoint_frontend`'s, and against the sequence scan
      on equal noise equal match counts per pair and translations within
      SCAN_T_ATOL_M;
+  6 fp32. phases 5 and 6 for config (a), with all their checks, kernel 4
+     once per conv of each trunk call and kernel 3 never; then
+     superpoint_laptop on the first 8 frames through `process` and the
+     hybrid (graph replay bit for bit its eager run, front end bit for bit
+     the per-frame one, drift under 5%, kernel 4 alone), ms per frame and
+     the hybrid's graph ms;
   7. the run CLI and the evaluation harness over the same corridor written
      as a KITTI tree (`sequences/00/image_0|1/*.png`, `calib.txt`, a
      ground-truth pose file) by the package's own PNG writer:
@@ -95,7 +111,8 @@ limit, then the result line:
      `torch._int_mm`, no kernel of its own) on superpoint_pretrained at the
      flagship's 120x392: b. the static scales calibrated at the 99.9 |x|
      percentile on the corridor's frames [::8], left and right, on the
-     card and on the CPU (equal to 1e-6 relative); a. every conv of the
+     card and on the CPU (equal to 1e-6 relative; the card's fp32
+     forward runs kernel 4, the CPU's its plain version); a. every conv of the
      trunk, dynamic and static, fed the card's own input activation: the
      quantized input, the int32 accumulators and the dequantized output
      equal on the card and the CPU, bit for bit; c. the online hybrid with
@@ -119,13 +136,16 @@ limit, then the result line:
      loss down, ms per step, peak memory; c. one `train_step` and one
      distillation step at 120x392, batch 2, on the card and on the CPU from
      equal parameters and draws: loss, gradients, updated parameters;
-     d. neither kernel launched in phase 10;
+     d. of the hand-written kernels only kernel 4 launched in phase 10
+     (the forwards that record no gradient: the teacher, agreement,
+     pseudo-labels), and none by a `train_step`, which records them;
  11. frame sharding over a device mesh (parallel/mesh.py, one process per
      GPU on torch.distributed) on phase 5's corridor at the flagship's
      width: a. no process group left by the earlier phases; the hybrid on
      a mesh of one over an NCCL group of one in this process against the
      run without a mesh bit for bit, its CUDA graph against its eager run,
-     and its launches; b-f in ranks started by `mesh.spawn`: NCCL over min(4, cards) cards where there are two or
+     and its launches, and so config (a)'s (FP32, kernel 4); b-f in ranks
+     started by `mesh.spawn`: NCCL over min(4, cards) cards where there are two or
      more, else two gloo ranks sharing this card (a correctness run, not a
      scaling one). b. the feature-input hybrid with landmark fusion on and
      off fed the unsharded front end's keypoints, equal to the unsharded
@@ -134,7 +154,8 @@ limit, then the result line:
      batch-invariant: phase 4c), phase 6's drift, keypoint and inlier bounds, kernel 1 against its
      plain version at the rank's B, every scan step against the plain
      body, graphs (one per stretch between collectives) against eager;
-     c. the batch mode (bit for bit as the CNN hybrid, 7d's bounds, one
+     config (a)'s hybrid bit for bit the unsharded run, its graphs
+     against eager, kernel 4's launches; c. the batch mode (bit for bit as the CNN hybrid, 7d's bounds, one
      launch of each kernel per rank, kernel 2 at the rank's F against its
      plain version); d. the ORB hybrid of 8b, bit for bit (its drift
      bound, scan steps, graphs); e. `build_sharded_train_step`
@@ -173,19 +194,26 @@ tensor cores, 67 TFLOP/s fp32), from this run's shapes and data;
 the fp32 distance matrix by `torch.baddbmm`, without any argmin).
 The kernel report gives each kernel's launches per path ("per_frame",
 "hybrid", phase 7's "cli_frame", "cli_hybrid", "batch", "sequence_scan",
-"stream", "jetson_frame", "jetson_hybrid", phase 8's "orb_hybrid_*",
+"stream", "jetson_frame", "jetson_hybrid", phase 6 fp32's
+"fp32_per_frame", "fp32_hybrid", "laptop_per_frame", "laptop_hybrid",
+phase 8's "orb_hybrid_*",
 "classic_process", "classic_stream", "harness_orb", "feature_hybrid",
-phase 9's "int8_hybrid", "int8_per_frame", phase 10's "training", phase
-11's "sharded_*" per rank "_rN", and phase 12's "speculative_hybrid",
+phase 9's "int8_hybrid", "int8_per_frame", "int8_calibration", phase
+10's "training" (the whole phase) and "train_step", phase 11's
+"sharded_*" per rank "_rN", and phase 12's "speculative_hybrid",
 "landmark_refine_hybrid", "landmark_refine_process"), each counted from
 zero over that path's run; "launches" is their sum. A kernel must launch
 on every path that runs its stage and never elsewhere, as in the JAX
 package: kernel 1 not on the classic paths (binary descriptors are matched
 by a Hamming matrix product outside it); kernel 2 not on the speculative
-path (it refines its winners op by op); neither on superpoint_jetson's (its
-configuration turns both off, as the reference's); kernel 3 on
-every bf16 CNN path and never on the feature-input, int8, classic and
-training paths; no kernel runs in training. A count is a launch that ran on the card: a wrapper's call
+path (it refines its winners op by op); neither on superpoint_jetson's nor
+on superpoint_laptop's (their configurations turn both off, as the
+reference's); kernel 3 on every bf16 CNN path and never on the FP32,
+feature-input, int8, classic and training paths; kernel 4 on every FP32
+CNN path and on the forwards that record no gradient (phase 10's teacher,
+agreement and pseudo-labels, int8 calibration), never on the bf16, int8,
+classic and feature-input paths nor in a `train_step`, whose convs record
+gradients. A count is a launch that ran on the card: a wrapper's call
 under CUDA-graph capture is recorded with the graph and counted at every
 replay.
 
@@ -197,6 +225,7 @@ import collections
 import csv
 import dataclasses
 import datetime
+import gc
 import json
 import os
 import subprocess
@@ -867,6 +896,187 @@ def phase_conv(dev, corridor):
                    "ms_360x1176_b16": timing[(h1, b1)]["ms"]}
 
 
+# ---- phase 4b-fp32: kernel 4, the fp32 convolution ----
+
+# (model, H, W, batches) of kernel 4's checks: config (a)'s
+# superpoint_pretrained at its front end's 64 images and at a pair, and
+# superpoint_laptop's sp_resnet18 at its resolution, a pair. The sums are
+# held to CONV_SUM_RTOL of the magnitude conv of the fp64 plain version,
+# as kernel 3's: fp32 products summed in fp32 in one FMA chain per element
+# (K <= 2304), against exact sums.
+CONV_FP32_SHAPES = (("superpoint_pretrained", 120, 392, (64, 2)),
+                    ("sp_resnet18", 360, 1176, (2,)))
+# convs per trunk call: the launches of kernel 3 or 4 per forward
+CONVS_PER_TRUNK = {"superpoint_pretrained": 12, "sp_resnet18": 18}
+
+
+def fp32_cfg():
+    """Config (a): the flagship composition at FP32 on
+    superpoint_pretrained (120x392, K=512, landmark fusion, kernels 1, 2
+    and 4)."""
+    from spsvo_tpu_torch.config import Precision
+    return dataclasses.replace(flagship_cfg(), precision=Precision.FP32)
+
+
+def check_conv_fp32(tag, x, w, b, strides, pads, dilations, groups, relu):
+    """Kernel 4 against its plain version on one layer's inputs: the sums
+    within CONV_SUM_RTOL of the magnitude conv (plain in fp64), the
+    epilogue (bias, ReLU) bit for bit, every 2-image slice of the batch
+    (1-image at B=2) bit for bit the batch's output. Fails on a miss;
+    returns the report."""
+    import torch
+
+    from spsvo_tpu_torch.ops.conv_cuda import conv2d_fp32, conv2d_fp32_plain
+    geo = (strides, pads, dilations, groups)
+    with torch.no_grad():
+        y0 = conv2d_fp32(x, w, None, *geo)
+        y = conv2d_fp32(x, w, b, *geo, relu=relu)
+        torch.cuda.synchronize()
+        xd, wd = x.double(), w.double()
+        ref = conv2d_fp32_plain(xd, wd, None, *geo)
+        mag = conv2d_fp32_plain(xd.abs(), wd.abs(), None, *geo)
+        err = (y0.double() - ref).abs()
+        limit = CONV_SUM_RTOL * mag + 1e-30
+        ratio = float((err / limit).max())
+        within = bool((err <= limit).all())
+        del xd, wd, ref, mag, limit
+        want = y0 if b is None else y0 + b[None, :, None, None]
+        epilogue = torch.equal(y, torch.relu(want) if relu else want)
+        plain32 = conv2d_fp32_plain(x, w, b, *geo, relu=relu)
+        err32 = float((y - plain32).abs().max())
+        del plain32, want
+        n = x.shape[0]
+        sb = 2 if n > 2 else 1
+        sliced = all(torch.equal(conv2d_fp32(x[i:i + sb], w, b, *geo,
+                                             relu=relu), y[i:i + sb])
+                     for i in range(0, n, sb))
+    rep = {"layer": tag, "x": list(x.shape), "w": list(w.shape),
+           "strides": list(strides), "pads": list(pads),
+           "dilations": list(dilations), "groups": groups, "relu": relu,
+           "max_abs_err": float(err.max()), "err_over_bound_max": ratio,
+           "max_abs_diff_vs_plain_fp32": err32, "epilogue_bitwise": epilogue,
+           f"slices_of_{sb}_bitwise": sliced}
+    if not (within and epilogue and sliced):
+        fail(f"phase4b-fp32: conv_fp32 {rep}")
+    return rep
+
+
+def time_conv_fp32(x, w, b, strides, pads, dilations, groups, relu, iters):
+    """Kernel 4 on one layer, its plain version (F.conv2d per image, bias,
+    ReLU) and cuDNN's batched fp32 conv with the bias (TF32 off: the
+    library call, without the ReLU), each from a CUDA graph; with the
+    layer's fp32 bytes (x, w, bias read once, y written once) and its
+    2·outputs·K operations at the fp32 FFMA peak."""
+    import torch
+    import torch.nn.functional as F
+
+    from spsvo_tpu_torch.ops.conv_cuda import conv2d_fp32, conv2d_fp32_plain
+    geo = (strides, pads, dilations, groups)
+    if pads[:2] != pads[2:]:
+        raise ValueError("time_conv_fp32: the trunks' pads are symmetric")
+    with torch.no_grad():
+        y = conv2d_fp32(x, w, b, *geo, relu=relu)
+        n_bytes, ops = conv_bound(x, w, y)
+        t = {"ms": graph_ms(lambda: conv2d_fp32(x, w, b, *geo, relu=relu),
+                            iters),
+             "plain_ms": graph_ms(lambda: conv2d_fp32_plain(
+                 x, w, b, *geo, relu=relu), iters),
+             "library_ms": graph_ms(lambda: F.conv2d(
+                 x, w, b, strides, tuple(pads[:2]), dilations, groups),
+                 iters),
+             "bytes": n_bytes, "ops": ops}
+    t["bound_ms"], t["bound_by"] = bound(n_bytes, ops, "fp32")
+    t["share_of_bound"] = t["bound_ms"] / t["ms"]
+    t["ms_over_library"] = t["ms"] / t["library_ms"]
+    return t
+
+
+def phase_conv_fp32(dev, corridor):
+    """Phase 4b-fp32: kernel 4 on every conv of superpoint_pretrained at
+    120x392 (B=64 and B=2) and of sp_resnet18 at 360x1176 (B=2), fed the
+    corridor's own activations, and on the ONNX families' synthetic forms:
+    held by `check_conv_fp32`, and each layer timed with its plain version
+    and cuDNN fp32 (TF32 off). Returns (largest error against the fp64
+    plain version, the kernel report's timing at superpoint_pretrained
+    B=64)."""
+    import torch
+
+    from spsvo_tpu_torch.models import zoo
+    from spsvo_tpu_torch.ops import image as image_ops
+    t_start = time.perf_counter()
+    tf32 = [torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32]
+    if tf32 != [False, False]:
+        fail(f"phase4b-fp32: TF32 is on {tf32}")
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in corridor[0]])
+                          ).to(dev)
+    worst = 0.0
+    timing = {}
+    for prefix, h, w, batches in CONV_FP32_SHAPES:
+        model = zoo.load_model(prefix, device=dev)
+        x_all = image_ops.preprocess_image(raw, h, w).reshape(-1, h, w)
+        for n_img in batches:
+            x = x_all[:n_img, ..., None]
+            layers = conv_layers(dev, model, x)
+            reps = [check_conv_fp32(*layer[:9]) for layer in layers]
+            worst = max([worst] + [r["max_abs_err"] for r in reps])
+            say("phase4b-fp32", model=prefix, hw=[h, w], B=n_img,
+                check="every conv vs plain (fp64) within the sum-order "
+                "bound, epilogue and 2-image (B=2: 1-image) slices bit for "
+                "bit", rtol=CONV_SUM_RTOL, layers=reps)
+            iters = 3 if n_img * h * w > 2 * 360 * 1176 else 10
+            per = {layer[0]: time_conv_fp32(*layer[1:9], iters)
+                   for layer in layers}
+            tot = {k: sum(t[k] for t in per.values())
+                   for k in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+            tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"],
+                                                     tot["ops"], "fp32")
+            tot["bound_ms_sum_of_layers"] = sum(t["bound_ms"]
+                                                for t in per.values())
+            tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+            tot["ms_over_library"] = tot["ms"] / tot["library_ms"]
+            tot["launches_per_trunk"] = len(per)
+            tot["trunk_forward_ms"] = trunk_ms(model, x)
+            say("phase4b-fp32", model=prefix, hw=[h, w], B=n_img,
+                timing="per layer, CUDA graphs", layers=per, trunk=tot)
+            timing[(prefix, n_img)] = tot
+            del x, layers
+        del model, x_all
+        torch.cuda.empty_cache()
+
+    gen = torch.Generator(dev).manual_seed(5)
+    reps = []
+    for name, c, cout, k, s, pads, d, g in CONV_SYNTHETIC:
+        x = torch.relu(torch.randn((4, c, 60, 196), generator=gen,
+                                   device=dev))
+        w = torch.randn((cout, c // g, k, k), generator=gen, device=dev) * (
+            2.0 / (c // g * k * k)) ** 0.5
+        b = torch.randn((cout,), generator=gen, device=dev) * 0.1
+        for relu in (False, True):
+            rep = check_conv_fp32(name, x, w, b, [s, s], list(pads), [d, d],
+                                  g, relu)
+            worst = max(worst, rep["max_abs_err"])
+            reps.append(rep)
+    say("phase4b-fp32", check="the ONNX families' conv forms, B=4 at 60x196",
+        rtol=CONV_SUM_RTOL, layers=reps)
+    main = timing[("superpoint_pretrained", 64)]
+    say("phase4b-fp32", result="pass", max_abs_err=worst,
+        phase4b_fp32_s=time.perf_counter() - t_start)
+    return worst, {
+        "ms": main["ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": main["library_ms"],
+        "bound_ms_sum_of_layers": main["bound_ms_sum_of_layers"],
+        "trunk_forward_ms": main["trunk_forward_ms"],
+        "launches_per_trunk": main["launches_per_trunk"],
+        "ms_b2": timing[("superpoint_pretrained", 2)]["ms"],
+        "ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)]["ms"],
+        "library_ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)][
+            "library_ms"],
+        "bound_ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)][
+            "bound_ms"]}
+
+
 def frontend_kp(model, images, cfg, batch: int):
     """`frontend_batch` over (M, H, W) images in batches of `batch`."""
     import torch
@@ -909,11 +1119,12 @@ def frontend_invariance(tag, model, images, cfg, batches):
 
 
 def phase_frontend_invariance(dev, corridor):
-    """Phase 4c: the bf16 flagship front end on the corridor's 64 images
-    bit for bit at batch 64, 32, 16 and 2, and per frame through
-    `superpoint_frontend` with model_batch_size 2 and 1; superpoint_jetson's
-    at 360x1176 at chunk 16 and 2. A reading, not a check: the fp32 route
-    (superpoint_laptop's trunk, cuDNN) at 360x1176, chunk 16 against 2."""
+    """Phase 4c: the flagship front end, bf16 and at FP32 (config (a),
+    kernel 4), on the corridor's 64 images bit for bit at batch 64, 32, 16
+    and 2, and per frame through `superpoint_frontend` with
+    model_batch_size 2 and 1; superpoint_jetson's (bf16) at 360x1176 at
+    chunk 16 and 2; superpoint_laptop's (FP32, sp_resnet18) at 360x1176 at
+    chunk 16, 2 and 1."""
     import torch
 
     from spsvo_tpu_torch.models import zoo
@@ -922,34 +1133,37 @@ def phase_frontend_invariance(dev, corridor):
     from spsvo_tpu_torch.presets import superpoint_jetson, superpoint_laptop
     frames = corridor[0]
     raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
-    cfg = flagship_cfg()
-    model = zoo.load_model(cfg.model_name_prefix, torch.bfloat16, dev)
-    imgs = image_ops.preprocess_image(raw, cfg.image_height, cfg.image_width)
-    flat = imgs.reshape(-1, *imgs.shape[2:])
-    ref = frontend_invariance("phase4c bf16", model, flat, cfg,
-                              (64, 32, 16, 2))
-    per = {}
-    for mb in (2, 1):
-        c = dataclasses.replace(cfg, model_batch_size=mb)
-        with torch.no_grad():
-            pairs = [superpoint_frontend(model, imgs[f], c)
-                     for f in range(imgs.shape[0])]
-        per[mb] = type(ref)(*(torch.stack([torch.stack([a[i], b[i]])
-                                           for a, b in pairs]).reshape(
-                                               (-1,) + ref[i].shape[1:])
-                              for i in range(4)))
-    same_mb = kp_equal(per[1], per[2])
-    same_batch = kp_equal(per[2], ref)
-    say("phase4c bf16", check="superpoint_frontend per frame, "
-        "model_batch_size 2 and 1, against frontend_batch at 64",
-        model_batch_size_1_equals_2=same_mb,
-        per_frame_equals_batch_64=same_batch)
-    if not (same_mb and same_batch):
-        fail("phase4c: the per-frame front end differs between "
-             "model_batch_size 1 and 2 or from the batch of 64")
-    readings = {}
-    for name, preset, check in (("jetson", superpoint_jetson, True),
-                                ("laptop_fp32", superpoint_laptop, False)):
+    for name, cfg in (("bf16", flagship_cfg()), ("fp32", fp32_cfg())):
+        tag = f"phase4c {name}"
+        dtype = torch.bfloat16 if name == "bf16" else torch.float32
+        model = zoo.load_model(cfg.model_name_prefix, dtype, dev)
+        imgs = image_ops.preprocess_image(raw, cfg.image_height,
+                                          cfg.image_width)
+        flat = imgs.reshape(-1, *imgs.shape[2:])
+        ref = frontend_invariance(tag, model, flat, cfg, (64, 32, 16, 2))
+        per = {}
+        for mb in (2, 1):
+            c = dataclasses.replace(cfg, model_batch_size=mb)
+            with torch.no_grad():
+                pairs = [superpoint_frontend(model, imgs[f], c)
+                         for f in range(imgs.shape[0])]
+            per[mb] = type(ref)(*(torch.stack([torch.stack([a[i], b[i]])
+                                               for a, b in pairs]).reshape(
+                                                   (-1,) + ref[i].shape[1:])
+                                  for i in range(4)))
+        same_mb = kp_equal(per[1], per[2])
+        same_batch = kp_equal(per[2], ref)
+        say(tag, check="superpoint_frontend per frame, model_batch_size 2 "
+            "and 1, against frontend_batch at 64",
+            model_batch_size_1_equals_2=same_mb,
+            per_frame_equals_batch_64=same_batch)
+        if not (same_mb and same_batch):
+            fail(f"{tag}: the per-frame front end differs between "
+                 "model_batch_size 1 and 2 or from the batch of 64")
+        del model
+    for name, preset, batches in (("jetson", superpoint_jetson, (16, 2)),
+                                  ("laptop_fp32", superpoint_laptop,
+                                   (16, 2, 1))):
         c = preset()
         dtype = (torch.bfloat16 if c.precision.name == "BF16"
                  else torch.float32)
@@ -957,20 +1171,8 @@ def phase_frontend_invariance(dev, corridor):
         x = image_ops.preprocess_image(raw[:8], c.image_height,
                                        c.image_width).reshape(
             -1, c.image_height, c.image_width)
-        if check:
-            frontend_invariance(f"phase4c {name}", m, x, c, (16, 2))
-        else:
-            a = frontend_kp(m, x, c, 16)
-            b = frontend_kp(m, x, c, 2)
-            readings = {"preset": "superpoint_laptop", "precision": "FP32",
-                        "images": int(x.shape[0]),
-                        "chunk_16_vs_2_bitwise": kp_equal(b, a),
-                        "keypoint_agreement": kp_agreement(b, a),
-                        "desc_max_abs_diff": float((a.desc - b.desc).abs()
-                                                   .max())}
+        frontend_invariance(f"phase4c {name}", m, x, c, batches)
         del m
-    say("phase4c fp32", check="a reading, not held: the fp32 route "
-        "(cuDNN) at chunk 16 against 2", **readings)
     torch.cuda.empty_cache()
 
 
@@ -993,9 +1195,11 @@ def flagship_cfg():
 
 
 def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
-                    drift_limit=5.0):
+                    drift_limit=5.0, solve_kernels: bool = True):
     """The corridor drive (its first `n` frames) through
-    VisualOdometry.process; `cfg` defaults to the flagship composition."""
+    VisualOdometry.process; `cfg` defaults to the flagship composition.
+    `solve_kernels`: the configuration runs kernels 1 and 2 once per frame
+    (else neither: superpoint_laptop's)."""
     import torch
 
     from spsvo_tpu_torch import _build
@@ -1017,8 +1221,7 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
         infos.append(info)
     torch.cuda.synchronize()
     launches = dict(_build.launches)
-    routes = check_routes(phase, cfg.model_name_prefix, launches,
-                          _build.routes)
+    routes = check_convs(phase, cfg, launches, _build.routes)
     kps = [i["num_keypoints_left"] for i in infos[1:]]
     inl = [i["num_inliers"] for i in infos[1:]]
     lat_ms = [i["latency_s"] * 1e3 for i in infos[4:]]
@@ -1038,10 +1241,14 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     if not score["final_drift_percent"] < drift_limit:
         fail(f"{phase}: drift {score['final_drift_percent']:.3f}% >= "
              f"{drift_limit}%")
-    if launches.get("match_nn", 0) != n:
+    if not solve_kernels:
+        if launches.get("match_nn", 0) or launches.get("fused_solve", 0):
+            fail(f"{phase}: launches {launches} in a configuration that "
+                 "runs neither kernel 1 nor kernel 2")
+    elif launches.get("match_nn", 0) != n:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} "
              f"times, expected {n}")
-    if launches.get("fused_solve", 0) < n - 1:
+    elif launches.get("fused_solve", 0) < n - 1:
         fail(f"{phase}: fused_solve launched "
              f"{launches.get('fused_solve', 0)} times, expected >= {n - 1}")
     main_path_routes[phase] = routes
@@ -1284,8 +1491,7 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
             routes = dict(_build.routes)
     say(phase, frames=n, preprocess_ms=preprocess_ms, launches=launches,
         shapes={k: list(v) for k, v in shapes.items()})
-    main_path_routes[phase] = check_routes(phase, cfg.model_name_prefix,
-                                           launches, routes)
+    main_path_routes[phase] = check_convs(phase, cfg, launches, routes)
     if launches.get("match_nn", 0) != 1 or shapes["match_nn"][0] != 2 * n - 1:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} times "
              f"at {shapes.get('match_nn')}, expected once at B={2 * n - 1}")
@@ -1362,6 +1568,108 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     return launches, k2_t, m_err, max(worst["q"], worst["t"]), timing
 
 
+# superpoint_laptop (phases 5-6 fp32): its first frames of the corridor
+LAPTOP_FRAMES = 8
+
+
+def phase_laptop(dev, corridor):
+    """superpoint_laptop (sp_resnet18 with BN, FP32, 360x1176,
+    model_batch_size 1, K=1000, adaptive RANSAC, while-loop LM: kernel 4
+    alone) on the corridor's first LAPTOP_FRAMES frames, through
+    `VisualOdometry.process` and the online hybrid: the hybrid's launches,
+    its CUDA-graph replay against its eager run, its front end bit for bit
+    the per-frame `superpoint_frontend`'s, drift under 5%. Returns
+    ({path: launches}, report)."""
+    import torch
+
+    from spsvo_tpu_torch.eval.synthetic import score_trajectory
+    from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
+    from spsvo_tpu_torch.pipeline import superpoint_frontend
+    from spsvo_tpu_torch.presets import superpoint_laptop
+
+    tag = "phase6 laptop"
+    n = LAPTOP_FRAMES
+    cfg = superpoint_laptop()
+    p_launches, p_ms = phase_main_path(dev, corridor, "phase5 laptop", cfg,
+                                       n, solve_kernels=False)
+    frames, gt = corridor[0][:n], corridor[1][:n]
+    torch.cuda.reset_peak_memory_stats(dev)
+    hybrid = build_online_hybrid(cfg, device=dev)
+    raw = torch.as_tensor(np.stack([[il, ir] for il, ir in frames])).to(dev)
+    imgs, P_l, P_r = hybrid_inputs(raw, corridor, cfg)
+    gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    hybrid.eager(imgs, P_l, P_r, gumbel)                   # warm-up
+    eager_ms = _timed_ms(lambda: hybrid.eager(imgs, P_l, P_r, gumbel), 2)
+    (world, diag), launches, shapes = _counted(
+        lambda: hybrid.eager(imgs, P_l, P_r, gumbel))
+    check_convs(tag, cfg, launches, {})
+    with torch.no_grad():
+        kp_l, kp_r = hybrid.frontend(imgs)
+        per = [superpoint_frontend(hybrid.model, imgs[f], cfg)
+               for f in range(n)]
+    same_fe = all(torch.equal(torch.stack([p[side][i] for p in per]), kp[i])
+                  for side, kp in enumerate((kp_l, kp_r)) for i in range(4))
+    del kp_l, kp_r, per
+    (world_g, diag_g), capture_s, replay_ms = graph_replays(
+        hybrid, imgs, P_l, P_r, gumbel, reps=3)
+    same_g = torch.equal(world_g, world) and all(
+        torch.equal(diag_g[k], v) for k, v in diag.items())
+    score = score_trajectory([T.astype(np.float64)
+                              for T in world.cpu().numpy()], gt)
+    kps = diag["num_keypoints_left"].float().median().item()
+    inl = diag["num_inliers"].float().median().item()
+    seq_ms = float(np.median(replay_ms))
+    rep = {"frames": n, "process_launches": p_launches,
+           "median_process_ms": p_ms, "hybrid_launches": launches,
+           "hybrid_eager_ms": eager_ms, "hybrid_replay_ms": seq_ms,
+           "hybrid_ms_per_frame": seq_ms / n, "capture_s": capture_s,
+           "graph_equals_eager_bitwise": same_g,
+           "frontend_equals_per_frame_bitwise": same_fe,
+           "median_keypoints": kps, "median_inliers": inl,
+           "drift_percent": score["final_drift_percent"],
+           "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    say(tag, preset="superpoint_laptop", config=cfg.config_string, **rep)
+    if launches.get("match_nn", 0) or launches.get("fused_solve", 0):
+        fail(f"{tag}: launches {launches} in a configuration that runs "
+             "neither kernel 1 nor kernel 2")
+    if not (same_g and same_fe):
+        fail(f"{tag}: graph equals eager {same_g}, front end equals the "
+             f"per-frame one {same_fe}")
+    if not (score["final_drift_percent"] < 5.0 and kps > 200 and inl > 30):
+        fail(f"{tag}: drift {score['final_drift_percent']}%, median "
+             f"keypoints {kps}, inliers {inl}")
+    del hybrid
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"laptop_per_frame": p_launches, "laptop_hybrid": launches}, rep
+
+
+def phase_fp32_serving(dev, corridor):
+    """Phases 5 and 6 at FP32: config (a) (`fp32_cfg`) through
+    `VisualOdometry.process` and the online hybrid on the 32 frames, with
+    phase 5's and 6's checks, kernel 4 once per conv of each trunk call
+    and kernel 3 never, the hybrid's front end bit for bit the per-frame
+    one (`hybrid_vs_per_frame`); then superpoint_laptop (`phase_laptop`).
+    Returns ({path: launches} of config (a), {path: launches} of
+    superpoint_laptop, kernel 1's and kernel 2's largest error against
+    their plain versions on config (a)'s hybrid)."""
+    import torch
+    cfg = fp32_cfg()
+    p_launches, p_ms = phase_main_path(dev, corridor, "phase5 fp32", cfg)
+    h_launches, _, m_err, s_err, timing = phase_hybrid(
+        dev, corridor, "phase6 fp32", cfg, per_frame=True)
+    say("phase6 fp32", result="pass", median_process_ms=p_ms,
+        hybrid_replay_ms=timing["replay_ms"],
+        hybrid_ms_per_frame=timing["replay_ms"] / len(corridor[0]),
+        hybrid_phase_ms=timing["phase_ms"],
+        drift_percent=timing["drift_percent"])
+    gc.collect()                    # phase 6 fp32's graphs
+    torch.cuda.empty_cache()
+    laptop, _ = phase_laptop(dev, corridor)
+    return ({"fp32_per_frame": p_launches, "fp32_hybrid": h_launches},
+            laptop, m_err, s_err)
+
+
 def write_kitti_tree(root: str, corridor) -> str:
     """The corridor as a KITTI odometry tree under `root`; returns the
     ground-truth pose file."""
@@ -1421,11 +1729,12 @@ def check_trajectory(tag: str, poses, gt, n: int, limit: float = 5.0) -> float:
     return drift
 
 
-def cnn_launches(launches, want) -> bool:
-    """A bf16 CNN path's launches: exactly `want` of kernels 1 and 2, and
-    kernel 3 at least once (once per conv of each trunk call)."""
-    return ({k: v for k, v in launches.items() if k != "conv_bf16"} == want
-            and launches.get("conv_bf16", 0) >= 1)
+def cnn_launches(launches, want, conv: str = "conv_bf16") -> bool:
+    """A CNN path's launches: exactly `want` of kernels 1 and 2, and its
+    conv kernel (`conv`: kernel 3 for bf16, kernel 4 for FP32) at least
+    once (once per conv of each trunk call)."""
+    return ({k: v for k, v in launches.items() if k != conv} == want
+            and launches.get(conv, 0) >= 1)
 
 
 def check_counts(tag: str, launches, want) -> None:
@@ -1465,6 +1774,25 @@ def check_routes(phase: str, prefix: str, launches, routes) -> dict:
                 != launches.get("conv_bf16", 0)):
             fail(f"{phase}: conv_bf16 routes {got}, expected {want}")
     return got
+
+
+def check_convs(phase: str, cfg, launches, routes) -> dict:
+    """The trunk's conv launches. FP32: kernel 4 alone, once per conv of
+    each trunk call (returns {"fp32": launches}); else kernel 3 by route
+    (`check_routes`), and kernel 4 never."""
+    got = launches.get("conv_fp32", 0)
+    if cfg.precision.name != "FP32":
+        if got:
+            fail(f"{phase}: conv_fp32 launched {got} times on a "
+                 f"{cfg.precision.name} path")
+        return check_routes(phase, cfg.model_name_prefix, launches, routes)
+    n_conv = CONVS_PER_TRUNK[cfg.model_name_prefix]
+    say(phase, conv_fp32_launches=got, trunk_calls=got // n_conv,
+        per_trunk_call=n_conv)
+    if launches.get("conv_bf16", 0) or not got or got % n_conv:
+        fail(f"{phase}: conv launches {launches}: expected conv_fp32 alone, "
+             f"{n_conv} per trunk call")
+    return {"fp32": got}
 
 
 def pair_errors_m(poses, gt) -> np.ndarray:
@@ -2241,9 +2569,11 @@ def int8_models(dev, corridor):
     percentile on the corridor's frames [::8], left and right, at the
     flagship's 120x392; the `#ascale` values of the two devices agree to
     INT8_SCALE_RTOL. Returns ({"dynamic" | "static": the card's model},
-    the frames at 120x392 on the card)."""
+    the frames at 120x392 on the card, the launches of the card's
+    calibration)."""
     import torch
 
+    from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.models import zoo
     from spsvo_tpu_torch.ops import image as image_ops
     frames = corridor[0]
@@ -2256,12 +2586,16 @@ def int8_models(dev, corridor):
     static, seconds = [], []
     for d in (dev, "cpu"):
         torch.cuda.synchronize()
+        before = collections.Counter(_build.launches)
         t0 = time.perf_counter()
         static.append(zoo.load_model(
             cfg.model_name_prefix, device=d, int8=True,
             int8_calibration=cal.to(d), int8_percentile=99.9))
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
+        if d == dev:      # the fp32 forward calibration reads: kernel 4
+            calibration = dict(collections.Counter(_build.launches)
+                               - before)
     models["static"] = static[0]
     card, cpu = (dict(m.state_dict()) for m in static)
     keys = sorted(k for k in card if k.endswith("#ascale"))
@@ -2269,6 +2603,7 @@ def int8_models(dev, corridor):
            for k in keys}
     worst = max(rel.values())
     say("phase9b", check="calibrated #ascale, card vs CPU",
+        calibration_launches=calibration,
         calibration_images=list(cal.shape), scales=len(keys),
         max_rel_diff=worst, rtol=INT8_SCALE_RTOL, card_s=seconds[0],
         cpu_s=seconds[1],
@@ -2276,7 +2611,7 @@ def int8_models(dev, corridor):
     if len(keys) != 12 or not worst <= INT8_SCALE_RTOL:
         fail(f"phase9b: {len(keys)} scales, card vs CPU relative difference "
              f"{worst} > {INT8_SCALE_RTOL}")
-    return models, imgs
+    return models, imgs, calibration
 
 
 def phase_int8_convs(dev, models, imgs):
@@ -2341,12 +2676,13 @@ def trunk_ms(model, x) -> float:
 
 def phase_int8(dev, corridor, bf16_timing):
     """Phase 9. Returns ({path: launches}, kernel 1's and kernel 2's worst
-    error against their plain versions on the int8 paths)."""
+    error against their plain versions on the int8 paths, {"int8_calibration":
+    the launches of 9b's fp32 forward on the card})."""
     import torch
 
     from spsvo_tpu_torch.config import Precision
     from spsvo_tpu_torch.models import zoo
-    models, imgs = int8_models(dev, corridor)
+    models, imgs, calibration = int8_models(dev, corridor)
     phase_int8_convs(dev, models, imgs)
     cfg = dataclasses.replace(flagship_cfg(), precision=Precision.INT8)
     # 9f: static scales make the int8 front end batch-invariant as well
@@ -2390,7 +2726,7 @@ def phase_int8(dev, corridor, bf16_timing):
             INT8_HYBRID_DRIFT_LIMIT)
         by_path["int8_hybrid_sp_mbv1"] = mb_launches
         m_err, s_err = max(m_err, e1), max(s_err, e2)
-    return by_path, m_err, s_err
+    return by_path, m_err, s_err, {"int8_calibration": calibration}
 
 
 # ---- phase 10: training and distillation (no kernel of their own) ----
@@ -2583,9 +2919,11 @@ def phase_card_vs_cpu(dev, corridor):
     one distillation step (sp_resnet18 from He initialisation, teacher
     superpoint_pretrained, clean_prob 0.25) at 120x392, batch 2, on the
     card and on the CPU from equal parameters and equal draws (made on the
-    CPU)."""
+    CPU). Returns the launches of the card's `train_step` (its forward
+    and backward record gradients: batched cuDNN convs, no kernel)."""
     import torch
 
+    from spsvo_tpu_torch import _build
     from spsvo_tpu_torch import distill as td
     from spsvo_tpu_torch import training as tt
     from spsvo_tpu_torch.io.homography import make_homographic_batch
@@ -2603,8 +2941,14 @@ def phase_card_vs_cpu(dev, corridor):
         params = dict(model.state_dict())
         (loss, _), grads = tt.value_and_grad(
             lambda p: tt.total_loss(apply_fn, p, b), params)
+        torch.cuda.synchronize()
+        before = collections.Counter(_build.launches)
         state, _ = tt.train_step(tt.init_train_state(apply_fn, params, lr),
                                  b, apply_fn=apply_fn, lr=lr)
+        torch.cuda.synchronize()
+        if d == dev:      # the recording student: no hand-written kernel
+            step_launches = dict(collections.Counter(_build.launches)
+                                 - before)
         res.append((float(loss), grads, state.params))
     (l_cpu, g_cpu, p_cpu), (l_card, g_card, p_card) = res
     train_rel = abs(l_card - l_cpu) / abs(l_cpu)
@@ -2651,26 +2995,35 @@ def phase_card_vs_cpu(dev, corridor):
         distill_step={"loss_rel_diff": distill_rel, "grad_err": dist[0],
                       "param_err_held": dist[1], "moved_apart": dist[2],
                       "elements_g_ge_1e-5": dist[3]},
-        loss_rtol=CARD_CPU_LOSS_RTOL, grad_tol=CARD_CPU_GRAD_TOL)
+        loss_rtol=CARD_CPU_LOSS_RTOL, grad_tol=CARD_CPU_GRAD_TOL,
+        train_step_launches=step_launches)
+    return step_launches
 
 
 def phase_training(dev, corridor):
-    """Phase 10; 10d: no hand-written kernel launches on the way. Returns
-    the launches it counted (none)."""
+    """Phase 10; 10d: of the hand-written kernels only kernel 4 launches,
+    for the forwards that record no gradient (the distillation teacher,
+    keypoint agreement, the fine-tune's pseudo-labels and validation),
+    nothing is captured, and a `train_step`, whose forward and backward
+    record gradients, launches none. Returns {"training": the launches of
+    phase 10, "train_step": those of 10c's card train step}."""
     from spsvo_tpu_torch import _build
-    before = (dict(_build.launches), dict(_build.captured))
+    before = (collections.Counter(_build.launches),
+              dict(_build.captured))
     t0 = time.perf_counter()
     distill_gb = phase_distill(dev, corridor)
     finetune_gb = phase_finetune(dev, corridor)
-    phase_card_vs_cpu(dev, corridor)
-    after = (dict(_build.launches), dict(_build.captured))
-    say("phase10d", launches_before=before[0], launches_after=after[0],
-        unchanged=before == after, phase10_s=time.perf_counter() - t0,
+    step = phase_card_vs_cpu(dev, corridor)
+    launches = dict(collections.Counter(_build.launches) - before[0])
+    say("phase10d", launches=launches, train_step_launches=step,
+        phase10_s=time.perf_counter() - t0,
         peak_memory_gb={"distill": distill_gb, "finetune": finetune_gb})
-    if before != after:
-        fail(f"phase10d: kernel launches changed {before} -> {after}")
-    return dict(collections.Counter(after[0]) - collections.Counter(
-        before[0]))
+    if set(launches) != {"conv_fp32"} or step \
+            or dict(_build.captured) != before[1]:
+        fail(f"phase10d: launches {launches} (kernel 4 alone expected), "
+             f"train step {step} (none expected), captured "
+             f"{before[1]} -> {dict(_build.captured)}")
+    return {"training": launches, "train_step": step}
 
 
 # ---- phase 11: frame sharding over a device mesh ----
@@ -2751,6 +3104,10 @@ def sharded_references(dev, corridor) -> dict:
             "gumbel": gumbel.cpu(), "raw": raw.cpu(),
             "gt": torch.as_tensor(np.stack(gt)),
             "cnn": cpu(hybrid.eager(imgs, P_l, P_r, gumbel))}
+    # config (a): the same hybrid at FP32 (kernel 4), on the same noise
+    fp32 = build_online_hybrid(fp32_cfg(), device=dev)
+    refs["cnn_fp32"] = cpu(fp32.eager(imgs, P_l, P_r, gumbel))
+    del fp32
     with torch.no_grad():
         kp_l, kp_r = hybrid.frontend(imgs)
     kp = [torch.stack([a, b], 1) for a, b in zip(kp_l, kp_r)]
@@ -2907,6 +3264,22 @@ def sharded_rank(mesh, ref_path):
                                   .median()),
         "median_inliers": float(diag["num_inliers"].float().median()),
         "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+
+    # b: config (a), the CNN hybrid at FP32 (kernel 4), end to end
+    f32 = build_online_hybrid(fp32_cfg(), device=dev, mesh=mesh)
+    f32.eager(imgs, P_l, P_r, gumbel)                       # warm-up
+    got, launches, shapes = _counted(lambda: f32.eager(imgs, P_l, P_r,
+                                                       gumbel))
+    out["launches"][f"sharded_fp32_hybrid_r{r}"] = launches
+    out["shapes"][f"sharded_fp32_hybrid_r{r}"] = shapes
+    same_g, rep, rep_ms = _graph_vs_eager(f32, imgs, P_l, P_r, gumbel, got)
+    out["cnn_fp32"] = {
+        "bitwise_vs_unsharded": _bitwise(got, refs["cnn_fp32"]),
+        "max_abs_diff_vs_unsharded": (got[0].cpu() - refs["cnn_fp32"][0])
+        .abs().max().item(),
+        "graph_equals_eager_bitwise": same_g, "replay_launches": rep,
+        "replay_ms": rep_ms}
+    del f32
 
     # c: the batch mode, and kernel 2 at this rank's F against its plain
     # version on this rank's tiles
@@ -3078,6 +3451,20 @@ def phase_sharded(dev, corridor):
             graph_equals_eager_bitwise=same_g, replay_launches=rep,
             graphs=len(next(iter(hybrid._graphs.values())).stretches),
             replay_ms=rep_ms)
+        del hybrid
+        # config (a) at FP32 on the same mesh of one
+        f32 = build_online_hybrid(fp32_cfg(), device=dev, mesh=mesh)
+        f32.eager(imgs, P_l, P_r, gumbel)
+        got, f_launches, f_shapes = _counted(lambda: f32.eager(
+            imgs, P_l, P_r, gumbel))
+        f_same = _bitwise(got, refs["cnn_fp32"])
+        f_same_g, f_rep, f_rep_ms = _graph_vs_eager(f32, imgs, P_l, P_r,
+                                                    gumbel, got)
+        say("phase11a fp32", world=1, backend=mesh.backend,
+            launches=f_launches, bitwise_vs_unsharded=f_same,
+            graph_equals_eager_bitwise=f_same_g, replay_launches=f_rep,
+            replay_ms=f_rep_ms)
+        del f32
     finally:
         dist.destroy_process_group()
     if not (same and same_g and mesh.group is not None):
@@ -3086,7 +3473,16 @@ def phase_sharded(dev, corridor):
     if not cnn_launches(launches, {"match_nn": 1, "fused_solve": n - 1}) \
             or shapes["match_nn"][0] != 2 * n - 1 or rep != launches:
         fail(f"phase11a: launches {launches} at {shapes}, replay {rep}")
-    by_path = {"sharded_hybrid_w1": launches}
+    if not (f_same and f_same_g):
+        fail("phase11a fp32: the FP32 hybrid on a mesh of one differs from "
+             "the unsharded run or from its own eager run")
+    if not cnn_launches(f_launches, {"match_nn": 1, "fused_solve": n - 1},
+                        "conv_fp32") or f_rep != f_launches \
+            or f_shapes["match_nn"][0] != 2 * n - 1:
+        fail(f"phase11a fp32: launches {f_launches} at {f_shapes}, replay "
+             f"{f_rep}")
+    by_path = {"sharded_hybrid_w1": launches,
+               "sharded_fp32_hybrid_w1": f_launches}
 
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3106,8 +3502,8 @@ def phase_sharded(dev, corridor):
         r = res["rank"]
         frames, pairs = bounds[r][1] - bounds[r][0], counts[r]
         for part, sub in (("feature_lm1", "b"), ("feature_lm0", "b"),
-                          ("cnn", "b"), ("batch", "c"), ("orb", "d"),
-                          ("train", "e")):
+                          ("cnn", "b"), ("cnn_fp32", "b"), ("batch", "c"),
+                          ("orb", "d"), ("train", "e")):
             say(f"phase11{sub}", rank=r, world=world,
                 backend=res["backend"], device=res["device"], path=part,
                 **res[part])
@@ -3151,6 +3547,15 @@ def phase_sharded(dev, corridor):
                 and c["drift_percent"] < 5.0 and c["median_keypoints"] > 200
                 and c["median_inliers"] > 30):
             fail(f"{tagr}: the CNN hybrid end to end: {c}")
+        f = res["cnn_fp32"]
+        fl, fs = res["launches"][f"sharded_fp32_hybrid_r{r}"], \
+            res["shapes"][f"sharded_fp32_hybrid_r{r}"]
+        if not (f["bitwise_vs_unsharded"] and f["graph_equals_eager_bitwise"]
+                and cnn_launches(fl, want_cnn, "conv_fp32")
+                and cnn_launches(f["replay_launches"], want_cnn, "conv_fp32")
+                and fs["match_nn"][0] == frames + pairs):
+            fail(f"{tagr}: the FP32 hybrid (config (a)) against the "
+                 f"unsharded run: {f}, launches {fl} at {fs}")
         b = res["batch"]
         bl, bs = res["launches"][f"sharded_batch_r{r}"], \
             res["shapes"][f"sharded_batch_r{r}"]
@@ -3370,7 +3775,7 @@ def main() -> None:
         device=torch.cuda.get_device_name(0))
 
     t0 = time.perf_counter()
-    kernels = ("match_nn", "fused_solve", "conv_bf16")
+    kernels = _build.KERNELS
     try:
         _build.load_all(kernels)              # nvcc runs side by side
     except RuntimeError as e:
@@ -3386,7 +3791,14 @@ def main() -> None:
     if "--phase4b-only" in sys.argv[1:]:     # development aids
         corridor = render_corridor()
         phase_conv(dev, corridor)
+        phase_conv_fp32(dev, corridor)
         phase_frontend_invariance(dev, corridor)
+        return
+    if "--fp32-only" in sys.argv[1:]:
+        corridor = render_corridor()
+        phase_conv_fp32(dev, corridor)
+        phase_frontend_invariance(dev, corridor)
+        phase_fp32_serving(dev, corridor)
         return
     if "--phase11-only" in sys.argv[1:]:
         phase_sharded(dev, render_corridor())
@@ -3410,6 +3822,8 @@ def main() -> None:
     corridor = render_corridor()
     c_err, c_t = phase_conv(dev, corridor)
     say("phase4b", share_of_bound=c_t["bound_ms"] / c_t["ms"], gpu=gpu)
+    f_err, f_t = phase_conv_fp32(dev, corridor)
+    say("phase4b-fp32", share_of_bound=f_t["bound_ms"] / f_t["ms"], gpu=gpu)
     phase_frontend_invariance(dev, corridor)
     launches, median_ms = phase_main_path(dev, corridor)
     say("phase5", result="pass", median_process_ms=median_ms, gpu=gpu)
@@ -3417,16 +3831,22 @@ def main() -> None:
         dev, corridor, per_frame=True)
     m_err, s_err = max(m_err, h_m_err), max(s_err, h_s_err)
     say("phase6", gpu=gpu)
+    t_fp32 = time.perf_counter()
+    fp32_launches, laptop_launches, f_m_err, f_s_err = phase_fp32_serving(
+        dev, corridor)
+    m_err, s_err = max(m_err, f_m_err), max(s_err, f_s_err)
+    say("phase6 fp32", seconds=time.perf_counter() - t_fp32, gpu=gpu)
     with tempfile.TemporaryDirectory() as tmp:
         c_launches, k2_f31, c_s_err, gt_file = phase_cli(dev, corridor, tmp)
         say("phase7", result="pass", gpu=gpu)
         b_launches, b_s_err = phase_classic(dev, corridor, tmp, gt_file)
     s_err = max(s_err, c_s_err, b_s_err)
     say("phase8", result="pass", gpu=gpu)
-    q_launches, q_m_err, q_s_err = phase_int8(dev, corridor, h_timing)
+    q_launches, q_m_err, q_s_err, cal_launches = phase_int8(dev, corridor,
+                                                            h_timing)
     m_err, s_err = max(m_err, q_m_err), max(s_err, q_s_err)
     say("phase9", result="pass", gpu=gpu)
-    t_launches = phase_training(dev, corridor)
+    t_paths = phase_training(dev, corridor)
     say("phase10", result="pass", gpu=gpu)
     s_launches, s_m_err, s_s_err = phase_sharded(dev, corridor)
     m_err, s_err = max(m_err, s_m_err), max(s_err, s_s_err)
@@ -3445,30 +3865,46 @@ def main() -> None:
 
     # the paths by the kernels they must run: the bf16 CNN front end
     # (kernel 3; superpoint_jetson's runs neither kernel 1 nor 2, the
-    # speculative one no fused solve), the feature input (keypoints in, no
-    # CNN), the int8 trunk (no bf16 conv), the classic front ends (binary
-    # descriptors never reach kernel 1), training (fp32, no kernel)
+    # speculative one no fused solve), the FP32 CNN front end (kernel 4:
+    # config (a) with kernels 1 and 2, superpoint_laptop without), the
+    # forwards that record no gradient outside serving (kernel 4: the
+    # distillation teacher, keypoint agreement and pseudo-labels in phase
+    # 10, int8 calibration's fp32 forward), the feature input (keypoints
+    # in, no CNN), the int8 trunk (no bf16 or fp32 conv), the classic
+    # front ends (binary descriptors never reach kernel 1), the recording
+    # train steps (batched cuDNN convs, no kernel)
     cnn = {"per_frame": launches, "hybrid": h_launches, **c_launches,
            **{p: c for p, c in s_launches.items()
-              if "hybrid" in p or "batch" in p}, **r_launches}
+              if ("hybrid" in p or "batch" in p) and "fp32" not in p},
+           **r_launches}
     jetson = {p: cnn.pop(p) for p in list(cnn) if p.startswith("jetson")}
     spec = {"speculative_hybrid": x_launches}
+    fp32 = {**fp32_launches,
+            **{p: c for p, c in s_launches.items() if "fp32" in p}}
+    laptop = laptop_launches
+    no_grad = {"training": t_paths["training"], **cal_launches}
     feature = {p: c for p, c in s_launches.items() if "feature" in p}
     int8 = q_launches
     classic = {**b_launches,
                **{p: c for p, c in s_launches.items() if "orb" in p}}
-    training = {"training": t_launches,
+    training = {"train_step": t_paths["train_step"],
                 **{p: c for p, c in s_launches.items() if "train" in p}}
-    rules = {"match_nn": ({**cnn, **spec, **feature, **int8},
-                          {**jetson, **classic, **training}),
-             "fused_solve": ({**cnn, **feature, **int8, **classic},
-                             {**jetson, **spec, **training}),
+    rules = {"match_nn": ({**cnn, **spec, **fp32, **feature, **int8},
+                          {**jetson, **laptop, **no_grad, **classic,
+                           **training}),
+             "fused_solve": ({**cnn, **fp32, **feature, **int8, **classic},
+                             {**jetson, **spec, **laptop, **no_grad,
+                              **training}),
              "conv_bf16": ({**cnn, **jetson, **spec},
-                           {**feature, **int8, **classic, **training})}
-    unruled = set(cnn) | set(jetson) | set(spec) | set(feature) | set(
-        int8) | set(classic) | set(training)
-    if len(unruled) != sum(map(len, (cnn, jetson, spec, feature, int8,
-                                     classic, training))):
+                           {**fp32, **laptop, **no_grad, **feature, **int8,
+                            **classic, **training}),
+             "conv_fp32": ({**fp32, **laptop, **no_grad},
+                           {**cnn, **jetson, **spec, **feature, **int8,
+                            **classic, **training})}
+    classes = (cnn, jetson, spec, fp32, laptop, no_grad, feature, int8,
+               classic, training)
+    unruled = set().union(*classes)
+    if len(unruled) != sum(map(len, classes)):
         fail("kernel report: a path is in two classes")
 
     def counts(name):
@@ -3504,7 +3940,15 @@ def main() -> None:
                                ("phase5", "phase6")},
          "max_abs_err": c_err,
          **{k: c_t[k] for k in keys},
-         **{k: v for k, v in c_t.items() if k not in keys}}]}), flush=True)
+         **{k: v for k, v in c_t.items() if k not in keys}},
+        {"name": "conv_fp32", "route": "cuda",
+         "source": "spsvo_tpu_torch/csrc/conv_fp32.cu",
+         "replaces": "spsvo_tpu/models/onnx_import.py:260",
+         "replaces_kind": "an XLA op (lax.conv_general_dilated, fp32 "
+         "operands at the float32 matmul precision), not a Pallas kernel",
+         **counts("conv_fp32"), "max_abs_err": f_err,
+         **{k: f_t[k] for k in keys},
+         **{k: v for k, v in f_t.items() if k not in keys}}]}), flush=True)
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

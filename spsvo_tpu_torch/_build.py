@@ -34,8 +34,13 @@ from typing import Dict
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 CACHE = os.path.join(_HERE, ".kernel_cache")
+# No --use_fast_math: it would let nvcc reassociate sums, and the conv
+# kernels' batch invariance rests on an order of summation fixed by the
+# layer form.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# every kernel under csrc/, by the name its wrapper counts launches under
+KERNELS = ("match_nn", "fused_solve", "conv_bf16", "conv_fp32")
 
 launches: collections.Counter = collections.Counter()   # ran on the card
 routes: collections.Counter = collections.Counter()     # "<name>.<route>"

@@ -32,6 +32,15 @@ image) on the CPU. A ReLU that is a conv's only consumer runs in the conv's
 epilogue (`fuse_conv_relu`). BN, Add and the heads' outputs stay fp32; the
 L2 normalisation sums its squares in a fixed order (`fixed_order_sum`).
 
+fp32 semantics match the reference too: fp32 products and fp32 sums, then
+the bias and the fused ReLU. A conv that records no gradient runs
+`ops.conv_cuda.conv2d_fp32`, kernel 4 on the card (true fp32 FFMA, one
+fixed-order sum per element, so batch-invariant as the bf16 route) and its
+plain version (`F.conv2d` per image) on the CPU: serving, the
+distillation teacher, keypoint agreement and the fp32 forward of int8
+calibration. A conv whose operands record a gradient (training) runs the
+batched `F.conv2d`, whose gradients autograd knows.
+
 bf16 storage (`plan_bf16_storage`, serving only): a tensor that a bf16 conv
 produces (directly or through MaxPools) and that only dense-route bf16
 convs consume (directly or through MaxPools), and that is not a graph
@@ -63,7 +72,8 @@ from torch import nn
 
 from spsvo_tpu_torch.models.quantize import (abs_quantile, int8_conv,
                                              quantize_activation)
-from spsvo_tpu_torch.ops.conv_cuda import conv2d_bf16, route, to_bf16_nhwc
+from spsvo_tpu_torch.ops.conv_cuda import (conv2d_bf16, conv2d_fp32, route,
+                                           to_bf16_nhwc)
 from spsvo_tpu_torch.ops.postprocess import fixed_order_sum
 
 
@@ -265,6 +275,11 @@ def _conv(x, w, b, node: OnnxNode, bf16: bool, w_scale=None, a_scale=None,
             strides, pads, dilations, groups, relu,
             out_bf16=bool(node.attr("store_bf16", 0)),
             pool=bool(node.attr("fused_pool", 0)))
+    elif not (torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, w, b))):
+        # no gradient recorded: kernel 4 (the plain version on the CPU)
+        return conv2d_fp32(x.contiguous(), w, b, strides, pads, dilations,
+                           groups, relu)
     elif (top, left) == (bottom, right):
         y = F.conv2d(x, w, None, strides, (top, left), dilations, groups)
     else:
@@ -431,7 +446,14 @@ class GraphModule(nn.Module):
             # the JAX interpreter's broadcasting of parameters against NHWC
             return from_jax(fn(jax_view(a_name), jax_view(b_name)))
 
-        for node in (self.bf16_nodes if planned else self.nodes):
+        nodes = self.bf16_nodes if planned else self.nodes
+        # the last node that reads each tensor: an activation is dropped
+        # after it, so a forward holds only the live ones (a 360x1176
+        # sp_resnet18 forward made ~3 GB of them per image) and a CUDA-graph
+        # capture reuses their memory
+        last = {name: i for i, node in enumerate(nodes)
+                for name in node.inputs}
+        for i, node in enumerate(nodes):
             op = node.op
             if op == "Conv":
                 w_name = node.inputs[1]
@@ -504,6 +526,10 @@ class GraphModule(nn.Module):
             if k is not None and op != "MaxPool":
                 qenv[node.outputs[0]] = quantize_activation(
                     y.to(torch.float32), get(k))
+            for name in node.inputs:
+                if last[name] == i and name not in self.graph.output_names:
+                    env.pop(name, None)
+                    qenv.pop(name, None)
         outputs = {}
         for name in self.graph.output_names:
             y = env[name].to(torch.float32)

@@ -476,8 +476,10 @@ def _assert_frontend_batch_invariant(model, x):
 
 
 def _frontend_model(precision, device, imgs):
-    """superpoint_pretrained with the bf16 trunk or the int8 one with
-    static scales calibrated on `imgs`."""
+    """superpoint_pretrained with the fp32 trunk, the bf16 trunk or the
+    int8 one with static scales calibrated on `imgs`."""
+    if precision == "fp32":
+        return tzoo.load_model("superpoint_pretrained", device=device)
     if precision == "bf16":
         return tzoo.load_model("superpoint_pretrained", torch.bfloat16,
                                device=device)
@@ -499,20 +501,21 @@ def test_trunk_is_batch_invariant_on_the_cpu():
     _assert_frontend_batch_invariant(model, x[..., 0])
 
 
-@pytest.mark.parametrize("precision", ["bf16", "int8_static"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8_static"])
 def test_frontend_is_batch_invariant_on_the_cpu(precision):
-    """The fp32 case above, for the bf16 trunk and the int8 trunk with
-    static scales (dynamic scales take the batch's maximum, in the JAX
-    package too)."""
+    """The front end of the fp32 trunk (its convs one image per library
+    call), the bf16 trunk and the int8 trunk with static scales (dynamic
+    scales take the batch's maximum, in the JAX package too)."""
     x = torch.as_tensor(_data()["imgs"][:8].reshape(16, 96, 320))
     _assert_frontend_batch_invariant(_frontend_model(precision, "cpu", x), x)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("precision", ["bf16", "int8_static"])
+@pytest.mark.parametrize("precision", ["fp32", "bf16", "int8_static"])
 def test_frontend_is_batch_invariant_on_the_card(precision):
-    """On the card: the bf16 convolutions run kernel 3, whose sums do not
-    depend on the batch, and the postprocess sums in a fixed order."""
+    """On the card: the fp32 convolutions run kernel 4 and the bf16 ones
+    kernel 3, whose sums do not depend on the batch, and the postprocess
+    sums in a fixed order."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the conv kernel has no CPU mode")
     imgs, _, _ = _corridor(8, 188, 620, 96, 320)
