@@ -34,14 +34,18 @@ limit, then the result line:
      minimal bound (bound_min_ms: bf16 inputs and weights, the stored
      output);
  4b-fp32. kernel 4 (the fp32 implicit-GEMM convolution, FFMA on the CUDA
-     cores) on every conv of superpoint_pretrained at 120x392 (B=64 and
-     B=2) and of sp_resnet18 at 360x1176 (B=2) fed the corridor's own
-     activations, and on the ONNX families' forms: within CONV_SUM_RTOL of
-     the magnitude conv of its plain version run in fp64, the epilogue bit
-     for bit, every 2-image slice (1-image at B=2) bit for bit the batch's
-     output; per layer and per trunk its ms, the plain version's, cuDNN's
-     batched fp32 conv with TF32 off (library_ms) and the bound (fp32
-     bytes at 3.35 TB/s, 2·outputs·K at 67 TFLOP/s);
+     cores: the dense route, 8x8 or 4x4 outputs per thread fed by a
+     cp.async ring, and the generic route) on every conv of
+     superpoint_pretrained at 120x392 (B=64 and B=2) and of sp_resnet18 at
+     360x1176 (B=2) fed the corridor's own activations, and on the ONNX
+     families' forms: within CONV_SUM_RTOL of the magnitude conv of its
+     plain version run in fp64, the epilogue bit for bit, every 2-image
+     slice (1-image at B=2) bit for bit the batch's output, every dense
+     layer bit for bit the generic route (with and without the bias and
+     ReLU); per layer and per trunk its ms on its route, on the generic
+     route (generic_ms) and on each dense tile (tile_ms), the plain
+     version's, cuDNN's batched fp32 conv with TF32 off (library_ms) and
+     the bound (fp32 bytes at 3.35 TB/s, 2·outputs·K at 67 TFLOP/s);
  4c. the front end's batch invariance: the bf16 flagship's and config
      (a)'s (the flagship at FP32, kernel 4) on the corridor's 64 images
      bit for bit at batch 64, 32, 16 and 2 and per frame through
@@ -67,7 +71,8 @@ limit, then the result line:
      on equal noise equal match counts per pair and translations within
      SCAN_T_ATOL_M;
   6 fp32. phases 5 and 6 for config (a), with all their checks, kernel 4
-     once per conv of each trunk call and kernel 3 never; then
+     once per conv of each trunk call (11 dense + 1 generic; sp_resnet18's
+     17 + 1) and kernel 3 never; then
      superpoint_laptop on the first 8 frames through `process` and the
      hybrid (graph replay bit for bit its eager run, front end bit for bit
      the per-frame one, drift under 5%, kernel 4 alone), ms per frame and
@@ -202,7 +207,9 @@ phase 9's "int8_hybrid", "int8_per_frame", "int8_calibration", phase
 10's "training" (the whole phase) and "train_step", phase 11's
 "sharded_*" per rank "_rN", and phase 12's "speculative_hybrid",
 "landmark_refine_hybrid", "landmark_refine_process"), each counted from
-zero over that path's run; "launches" is their sum. A kernel must launch
+zero over that path's run; "launches" is their sum; kernels 3 and 4 also
+give their main paths' launches by route ("launches_by_route": phases 5
+and 6; 5 and 6 fp32, 5 and 6 laptop). A kernel must launch
 on every path that runs its stage and never elsewhere, as in the JAX
 package: kernel 1 not on the classic paths (binary descriptors are matched
 by a Hamming matrix product outside it); kernel 2 not on the speculative
@@ -906,8 +913,6 @@ def phase_conv(dev, corridor):
 # (K <= 2304), against exact sums.
 CONV_FP32_SHAPES = (("superpoint_pretrained", 120, 392, (64, 2)),
                     ("sp_resnet18", 360, 1176, (2,)))
-# convs per trunk call: the launches of kernel 3 or 4 per forward
-CONVS_PER_TRUNK = {"superpoint_pretrained": 12, "sp_resnet18": 18}
 
 
 def fp32_cfg():
@@ -918,16 +923,26 @@ def fp32_cfg():
     return dataclasses.replace(flagship_cfg(), precision=Precision.FP32)
 
 
+def bitwise(a, b) -> bool:
+    """Equal fp32 bits, the sign of a zero and a NaN's payload included."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_conv_fp32(tag, x, w, b, strides, pads, dilations, groups, relu):
     """Kernel 4 against its plain version on one layer's inputs: the sums
     within CONV_SUM_RTOL of the magnitude conv (plain in fp64), the
     epilogue (bias, ReLU) bit for bit, every 2-image slice of the batch
-    (1-image at B=2) bit for bit the batch's output. Fails on a miss;
-    returns the report."""
+    (1-image at B=2) bit for bit the batch's output; on a dense layer the
+    dense route bit for bit the generic route, without and with the bias
+    and the ReLU. Fails on a miss; returns the report."""
     import torch
 
-    from spsvo_tpu_torch.ops.conv_cuda import conv2d_fp32, conv2d_fp32_plain
+    from spsvo_tpu_torch.ops.conv_cuda import (conv2d_fp32, conv2d_fp32_plain,
+                                               fp32_tile, out_hw, route)
     geo = (strides, pads, dilations, groups)
+    kind = route(x.shape[1], w.shape, strides, dilations, groups)
     with torch.no_grad():
         y0 = conv2d_fp32(x, w, None, *geo)
         y = conv2d_fp32(x, w, b, *geo, relu=relu)
@@ -950,41 +965,64 @@ def check_conv_fp32(tag, x, w, b, strides, pads, dilations, groups, relu):
         sliced = all(torch.equal(conv2d_fp32(x[i:i + sb], w, b, *geo,
                                              relu=relu), y[i:i + sb])
                      for i in range(0, n, sb))
-    rep = {"layer": tag, "x": list(x.shape), "w": list(w.shape),
-           "strides": list(strides), "pads": list(pads),
+        routes = {}
+        if kind == "dense":
+            routes["dense_equals_generic_bitwise"] = bitwise(
+                y0, conv2d_fp32(x, w, None, *geo, pin_route="generic"))
+            routes["dense_equals_generic_bitwise_bias_relu"] = bitwise(
+                y, conv2d_fp32(x, w, b, *geo, relu=relu,
+                               pin_route="generic"))
+    oh, ow = out_hw(*x.shape[2:], *w.shape[2:], strides, pads, dilations)
+    rep = {"layer": tag, "route": kind, "x": list(x.shape),
+           "w": list(w.shape), "strides": list(strides), "pads": list(pads),
            "dilations": list(dilations), "groups": groups, "relu": relu,
+           "tile": (fp32_tile(n * oh * ow, w.shape[0]) if kind == "dense"
+                    else None),
            "max_abs_err": float(err.max()), "err_over_bound_max": ratio,
            "max_abs_diff_vs_plain_fp32": err32, "epilogue_bitwise": epilogue,
-           f"slices_of_{sb}_bitwise": sliced}
-    if not (within and epilogue and sliced):
+           f"slices_of_{sb}_bitwise": sliced, **routes}
+    if not (within and epilogue and sliced and all(routes.values())):
         fail(f"phase4b-fp32: conv_fp32 {rep}")
     return rep
 
 
 def time_conv_fp32(x, w, b, strides, pads, dilations, groups, relu, iters):
-    """Kernel 4 on one layer, its plain version (F.conv2d per image, bias,
-    ReLU) and cuDNN's batched fp32 conv with the bias (TF32 off: the
-    library call, without the ReLU), each from a CUDA graph; with the
-    layer's fp32 bytes (x, w, bias read once, y written once) and its
-    2·outputs·K operations at the fp32 FFMA peak."""
+    """Kernel 4 on one layer on its route (a dense layer also on the
+    generic route, and on each dense tile), its plain version (F.conv2d
+    per image, bias, ReLU) and cuDNN's batched fp32 conv with the bias
+    (TF32 off: the library call, without the ReLU), each from a CUDA
+    graph; with the layer's fp32 bytes (x, w, bias read once, y written
+    once) and its 2·outputs·K operations at the fp32 FFMA peak."""
     import torch
     import torch.nn.functional as F
 
-    from spsvo_tpu_torch.ops.conv_cuda import conv2d_fp32, conv2d_fp32_plain
+    from spsvo_tpu_torch.ops.conv_cuda import (FP32_TILES, conv2d_fp32,
+                                               conv2d_fp32_plain, route)
     geo = (strides, pads, dilations, groups)
     if pads[:2] != pads[2:]:
         raise ValueError("time_conv_fp32: the trunks' pads are symmetric")
+    kind = route(x.shape[1], w.shape, strides, dilations, groups)
     with torch.no_grad():
         y = conv2d_fp32(x, w, b, *geo, relu=relu)
         n_bytes, ops = conv_bound(x, w, y)
-        t = {"ms": graph_ms(lambda: conv2d_fp32(x, w, b, *geo, relu=relu),
+        t = {"route": kind,
+             "ms": graph_ms(lambda: conv2d_fp32(x, w, b, *geo, relu=relu),
                             iters),
+             "generic_ms": graph_ms(lambda: conv2d_fp32(
+                 x, w, b, *geo, relu=relu, pin_route="generic"), iters)
+             if kind == "dense" else None,
              "plain_ms": graph_ms(lambda: conv2d_fp32_plain(
                  x, w, b, *geo, relu=relu), iters),
              "library_ms": graph_ms(lambda: F.conv2d(
                  x, w, b, strides, tuple(pads[:2]), dilations, groups),
                  iters),
              "bytes": n_bytes, "ops": ops}
+        if kind == "dense":
+            t["tile_ms"] = [graph_ms(lambda: conv2d_fp32(
+                x, w, b, *geo, relu=relu, pin_tile=i), iters)
+                for i in range(len(FP32_TILES))]
+        else:
+            t["generic_ms"] = t["ms"]
     t["bound_ms"], t["bound_by"] = bound(n_bytes, ops, "fp32")
     t["share_of_bound"] = t["bound_ms"] / t["ms"]
     t["ms_over_library"] = t["ms"] / t["library_ms"]
@@ -995,10 +1033,11 @@ def phase_conv_fp32(dev, corridor):
     """Phase 4b-fp32: kernel 4 on every conv of superpoint_pretrained at
     120x392 (B=64 and B=2) and of sp_resnet18 at 360x1176 (B=2), fed the
     corridor's own activations, and on the ONNX families' synthetic forms:
-    held by `check_conv_fp32`, and each layer timed with its plain version
-    and cuDNN fp32 (TF32 off). Returns (largest error against the fp64
-    plain version, the kernel report's timing at superpoint_pretrained
-    B=64)."""
+    held by `check_conv_fp32` (the dense route bit for bit the generic
+    one), and each layer timed on both routes, on each dense tile, with
+    its plain version and cuDNN fp32 (TF32 off). Returns (largest error
+    against the fp64 plain version, the kernel report's timing at
+    superpoint_pretrained B=64)."""
     import torch
 
     from spsvo_tpu_torch.models import zoo
@@ -1023,19 +1062,32 @@ def phase_conv_fp32(dev, corridor):
             say("phase4b-fp32", model=prefix, hw=[h, w], B=n_img,
                 check="every conv vs plain (fp64) within the sum-order "
                 "bound, epilogue and 2-image (B=2: 1-image) slices bit for "
-                "bit", rtol=CONV_SUM_RTOL, layers=reps)
+                "bit, the dense route bit for bit the generic one",
+                rtol=CONV_SUM_RTOL, layers=reps)
             iters = 3 if n_img * h * w > 2 * 360 * 1176 else 10
             per = {layer[0]: time_conv_fp32(*layer[1:9], iters)
                    for layer in layers}
             tot = {k: sum(t[k] for t in per.values())
-                   for k in ("ms", "plain_ms", "library_ms", "bytes", "ops")}
+                   for k in ("ms", "generic_ms", "plain_ms", "library_ms",
+                             "bytes", "ops")}
             tot["bound_ms"], tot["bound_by"] = bound(tot["bytes"],
                                                      tot["ops"], "fp32")
             tot["bound_ms_sum_of_layers"] = sum(t["bound_ms"]
                                                 for t in per.values())
             tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
             tot["ms_over_library"] = tot["ms"] / tot["library_ms"]
+            tot["generic_over_library"] = tot["generic_ms"] / tot[
+                "library_ms"]
             tot["launches_per_trunk"] = len(per)
+            tot["launches_by_route"] = {
+                r: sum(t["route"] == r for t in per.values())
+                for r in ("dense", "generic")}
+            if tot["launches_by_route"] != TRUNK_ROUTES[prefix]:
+                fail(f"phase4b-fp32: {prefix} routes "
+                     f"{tot['launches_by_route']}")
+            tot["slower_than_library"] = {
+                k: t["ms_over_library"] for k, t in per.items()
+                if t["ms_over_library"] > 1}
             tot["trunk_forward_ms"] = trunk_ms(model, x)
             say("phase4b-fp32", model=prefix, hw=[h, w], B=n_img,
                 timing="per layer, CUDA graphs", layers=per, trunk=tot)
@@ -1060,21 +1112,25 @@ def phase_conv_fp32(dev, corridor):
     say("phase4b-fp32", check="the ONNX families' conv forms, B=4 at 60x196",
         rtol=CONV_SUM_RTOL, layers=reps)
     main = timing[("superpoint_pretrained", 64)]
+    rn = timing[("sp_resnet18", 2)]
     say("phase4b-fp32", result="pass", max_abs_err=worst,
         phase4b_fp32_s=time.perf_counter() - t_start)
     return worst, {
         "ms": main["ms"], "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
+        "generic_ms": main["generic_ms"],
         "bound_ms_sum_of_layers": main["bound_ms_sum_of_layers"],
         "trunk_forward_ms": main["trunk_forward_ms"],
         "launches_per_trunk": main["launches_per_trunk"],
+        "launches_by_route_per_trunk": main["launches_by_route"],
         "ms_b2": timing[("superpoint_pretrained", 2)]["ms"],
-        "ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)]["ms"],
-        "library_ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)][
-            "library_ms"],
-        "bound_ms_sp_resnet18_360x1176_b2": timing[("sp_resnet18", 2)][
-            "bound_ms"]}
+        "generic_ms_b2": timing[("superpoint_pretrained", 2)]["generic_ms"],
+        "library_ms_b2": timing[("superpoint_pretrained", 2)]["library_ms"],
+        "ms_sp_resnet18_360x1176_b2": rn["ms"],
+        "generic_ms_sp_resnet18_360x1176_b2": rn["generic_ms"],
+        "library_ms_sp_resnet18_360x1176_b2": rn["library_ms"],
+        "bound_ms_sp_resnet18_360x1176_b2": rn["bound_ms"]}
 
 
 def frontend_kp(model, images, cfg, batch: int):
@@ -1582,6 +1638,7 @@ def phase_laptop(dev, corridor):
     ({path: launches}, report)."""
     import torch
 
+    from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
     from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
     from spsvo_tpu_torch.pipeline import superpoint_frontend
@@ -1602,7 +1659,8 @@ def phase_laptop(dev, corridor):
     eager_ms = _timed_ms(lambda: hybrid.eager(imgs, P_l, P_r, gumbel), 2)
     (world, diag), launches, shapes = _counted(
         lambda: hybrid.eager(imgs, P_l, P_r, gumbel))
-    check_convs(tag, cfg, launches, {})
+    main_path_routes[tag] = check_convs(tag, cfg, launches,
+                                        dict(_build.routes))
     with torch.no_grad():
         kp_l, kp_r = hybrid.frontend(imgs)
         per = [superpoint_frontend(hybrid.model, imgs[f], cfg)
@@ -1756,43 +1814,49 @@ BATCH_DRIFT_LIMIT = 25.0
 BATCH_PAIR_ERR_LIMIT_M = 0.10
 
 
-TRUNK_ROUTES = {"dense": 11, "generic": 1}   # superpoint_pretrained's 12
+# the trunks' conv launches per call by route, kernel 3's and kernel 4's
+# alike: every conv dense but the first (conv1a, stem.conv: C = 1)
+TRUNK_ROUTES = {"superpoint_pretrained": {"dense": 11, "generic": 1},
+                "sp_resnet18": {"dense": 17, "generic": 1}}
 main_path_routes: dict = {}                  # phase -> {route: launches}
 
 
-def check_routes(phase: str, prefix: str, launches, routes) -> dict:
-    """The flagship trunk's conv launches by route: 11 dense and 1 generic
-    (conv1a) per trunk call. Returns {route: launches}."""
+def check_routes(phase: str, prefix: str, launches, routes,
+                 kernel: str = "conv_bf16") -> dict:
+    """The trunk's launches of conv `kernel` by route: TRUNK_ROUTES[prefix]
+    per trunk call, the launches a whole number of calls (a trunk without
+    an entry is reported only). Returns {route: launches}."""
     got = {k.split(".", 1)[1]: v for k, v in routes.items()
-           if k.startswith("conv_bf16.")}
-    calls = launches.get("conv_bf16", 0) // sum(TRUNK_ROUTES.values())
-    say(phase, conv_bf16_launches_by_route=got, trunk_calls=calls,
-        per_trunk_call=TRUNK_ROUTES)
-    if prefix == "superpoint_pretrained":
-        want = {r: n * calls for r, n in TRUNK_ROUTES.items() if calls}
-        if (got != want or calls * sum(TRUNK_ROUTES.values())
-                != launches.get("conv_bf16", 0)):
-            fail(f"{phase}: conv_bf16 routes {got}, expected {want}")
+           if k.startswith(kernel + ".")}
+    n = launches.get(kernel, 0)
+    per_call = TRUNK_ROUTES.get(prefix)
+    calls = n // sum(per_call.values()) if per_call else None
+    say(phase, **{f"{kernel}_launches_by_route": got}, trunk_calls=calls,
+        per_trunk_call=per_call)
+    if per_call:
+        want = {r: k * calls for r, k in per_call.items() if calls}
+        if got != want or calls * sum(per_call.values()) != n:
+            fail(f"{phase}: {kernel} routes {got} of {n} launches, "
+                 f"expected {want}")
     return got
 
 
 def check_convs(phase: str, cfg, launches, routes) -> dict:
-    """The trunk's conv launches. FP32: kernel 4 alone, once per conv of
-    each trunk call (returns {"fp32": launches}); else kernel 3 by route
-    (`check_routes`), and kernel 4 never."""
-    got = launches.get("conv_fp32", 0)
-    if cfg.precision.name != "FP32":
-        if got:
-            fail(f"{phase}: conv_fp32 launched {got} times on a "
-                 f"{cfg.precision.name} path")
-        return check_routes(phase, cfg.model_name_prefix, launches, routes)
-    n_conv = CONVS_PER_TRUNK[cfg.model_name_prefix]
-    say(phase, conv_fp32_launches=got, trunk_calls=got // n_conv,
-        per_trunk_call=n_conv)
-    if launches.get("conv_bf16", 0) or not got or got % n_conv:
-        fail(f"{phase}: conv launches {launches}: expected conv_fp32 alone, "
-             f"{n_conv} per trunk call")
-    return {"fp32": got}
+    """The trunk's conv launches: kernel 4 alone on an FP32 path, kernel 3
+    alone on a BF16 one, each by route once per conv of each trunk call
+    (`check_routes`); neither on an INT8 one (the int8 route). Returns
+    {route: launches}."""
+    kernel = {"FP32": "conv_fp32", "BF16": "conv_bf16"}.get(
+        cfg.precision.name)
+    stray = [k for k in ("conv_fp32", "conv_bf16")
+             if k != kernel and launches.get(k, 0)]
+    if stray or (kernel and not launches.get(kernel, 0)):
+        fail(f"{phase}: conv launches {launches} on a {cfg.precision.name} "
+             f"path: expected {kernel or 'no conv kernel'}")
+    if kernel is None:
+        return {}
+    return check_routes(phase, cfg.model_name_prefix, launches, routes,
+                        kernel)
 
 
 def pair_errors_m(poses, gt) -> np.ndarray:
@@ -3784,7 +3848,8 @@ def main() -> None:
     for name in kernels:
         log = _build.build_log[name]
         regs = [ln.strip() for ln in log["ptxas"].splitlines()
-                if "registers" in ln]
+                if "registers" in ln or ("spill" in ln
+                                         and " 0 bytes spill stores" not in ln)]
         say("phase2", kernel=name, build_s=log["seconds"],
             cached=log["cached"], ptxas=regs)
 
@@ -3946,7 +4011,11 @@ def main() -> None:
          "replaces": "spsvo_tpu/models/onnx_import.py:260",
          "replaces_kind": "an XLA op (lax.conv_general_dilated, fp32 "
          "operands at the float32 matmul precision), not a Pallas kernel",
-         **counts("conv_fp32"), "max_abs_err": f_err,
+         **counts("conv_fp32"),
+         "launches_by_route": {p: main_path_routes.get(p) for p in
+                               ("phase5 fp32", "phase6 fp32",
+                                "phase5 laptop", "phase6 laptop")},
+         "max_abs_err": f_err,
          **{k: f_t[k] for k in keys},
          **{k: v for k, v in f_t.items() if k not in keys}}]}), flush=True)
     print(gpu, flush=True)

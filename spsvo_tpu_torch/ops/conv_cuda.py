@@ -38,15 +38,21 @@ Kernel 4, fp32. Replaces the fp32 branch of the same XLA conv
 (`onnx_import._conv` with fp32 operands and the float32 matmul precision
 the JAX package pins): fp32 products, fp32 sums, then the bias and the
 fused ReLU. An implicit GEMM on the CUDA cores in FFMA (no TF32, no tensor
-cores) for every form, fp32 NCHW in and out, the weight as a (groups, K,
-Cout/groups) copy kept beside the buffer (`kmajor_weight`). Each output
-element is one FMA chain over K in (ci, kh, kw) order, so the fp32 trunk
-is batch-invariant on the card too. `conv2d_fp32` launches it for CUDA
+cores), fp32 NCHW in and out, the weight as a (groups, K, Cout/groups)
+copy kept beside the buffer (`kmajor_weight`), in two routes chosen by
+the same rule as kernel 3's (`route`):
+- "dense" (groups 1, stride 1, dilation 1, 1x1 or 3x3, C a multiple of
+  16): 8x8 outputs per thread (4x4 on small layers) fed by a `cp.async`
+  ring, on a CTA tile the wrapper picks from M and Cout (`fp32_tile`);
+- "generic": every form, 4x4 outputs per thread in a 64x64 tile.
+Each output element is one FMA chain over K in (ci, kh, kw) order in
+both, so the routes give the same bits and the fp32 trunk is
+batch-invariant on the card too. `conv2d_fp32` launches a route for CUDA
 tensors and uses `conv2d_fp32_plain` (`F.conv2d` per image, bias, ReLU)
-only for CPU tensors. It serves the no-gradient fp32 forwards (serving,
-the distillation teacher, int8 calibration); a recorded gradient is
-refused, and `models.graph` keeps training's fp32 convs on the batched
-`F.conv2d`.
+only for CPU tensors; it never falls back. It serves the no-gradient fp32
+forwards (serving, the distillation teacher, int8 calibration); a
+recorded gradient is refused, and `models.graph` keeps training's fp32
+convs on the batched `F.conv2d`.
 """
 
 from __future__ import annotations
@@ -324,19 +330,57 @@ def _check_fp32(x, w, b, strides, pads, dilations, groups) -> None:
     _check_form("conv2d_fp32", x, w, b, strides, pads, dilations, groups)
 
 
+# The dense route's CTA tiles by the index its launcher takes: (output
+# pixels, output channels, outputs per thread on each side). Any of them
+# gives the same bits: a tile says which thread runs which FMA chains.
+FP32_TILES = ((128, 64, 8), (64, 32, 4), (32, 32, 4))
+CARD_SMS = 132       # streaming multiprocessors of an H100 SXM
+FP32_MIN_WARPS = 8 * CARD_SMS   # warps a tile needs to hide the latencies
+
+
+def fp32_tile(m: int, ng: int) -> int:
+    """The dense route's tile (an index of `FP32_TILES`) for M = N·OH·OW
+    output pixels and Ng output channels. Of the tiles that pad Ng the
+    least, the largest whose grid gives each of the card's SMs a CTA and
+    FP32_MIN_WARPS warps in all; where none does, the smallest. (An 8x8
+    register tile needs several warps a scheduler to hide its loads; a
+    smaller one runs more warps on a small layer.)"""
+    pad = [-(-ng // bn) * bn for _, bn, _ in FP32_TILES]
+    fits = [i for i in range(len(FP32_TILES)) if pad[i] == min(pad)]
+    for i in fits:
+        bm, bn, r = FP32_TILES[i]
+        ctas = -(-m // bm) * -(-ng // bn)
+        if ctas >= CARD_SMS and ctas * (bm // r) * (bn // r) >= \
+                32 * FP32_MIN_WARPS:
+            return i
+    return fits[-1]
+
+
 def conv2d_fp32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
                 strides: Sequence[int], pads: Sequence[int],
                 dilations: Sequence[int], groups: int,
-                relu: bool = False) -> torch.Tensor:
+                relu: bool = False, pin_route: Optional[str] = None,
+                pin_tile: Optional[int] = None) -> torch.Tensor:
     """y = bias + conv(x, w) with fp32 products and fp32 sums, ReLU'd if
     `relu`. x (N, C, H, W) float32 contiguous; w (Cout, C/groups, KH, KW)
     and b (Cout,) or None, float32 and contiguous; `pads` (top, left,
     bottom, right). Returns (N, Cout, OH, OW) float32 contiguous. Kernel 4
-    for CUDA tensors, the plain version for CPU tensors."""
+    for CUDA tensors on the layer's `route` with `fp32_tile`'s tile, the
+    plain version for CPU tensors. `pin_route` ("generic" for any form,
+    "dense" for a dense one) and `pin_tile` (dense only) override the
+    choice, for tests and measurements: the bits stay the same."""
     strides, pads, dilations = (tuple(int(v) for v in a)
                                 for a in (strides, pads, dilations))
     groups = int(groups)
     _check_fp32(x, w, b, strides, pads, dilations, groups)
+    kind = route(x.shape[1], w.shape, strides, dilations, groups)
+    if pin_route not in (None, "generic", kind):
+        raise ValueError(f"conv2d_fp32: a {kind} form cannot take the "
+                         f"{pin_route} route")
+    kind = pin_route or kind
+    if pin_tile is not None and (kind != "dense" or not 0 <= int(pin_tile)
+                                 < len(FP32_TILES)):
+        raise ValueError(f"conv2d_fp32: tile {pin_tile} on the {kind} route")
     if x.device.type == "cpu":
         return conv2d_fp32_plain(x, w, b, strides, pads, dilations, groups,
                                  relu)
@@ -351,10 +395,18 @@ def conv2d_fp32(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor],
     bias = None if b is None else b.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib("conv_fp32", "conv_fp32_launch", 17)(
-            x.data_ptr(), wt.data_ptr(), bias, y.data_ptr(), n, c, h, wd,
-            cout, kh, kw, oh, ow, *strides, pads[0], pads[1], *dilations,
-            groups, int(bool(relu)), stream)
-    _build.check_status(err, "conv_fp32")
-    _build.count_launch("conv_fp32", (n, c, h, wd, cout, kh, kw))
+        if kind == "dense":
+            tile = fp32_tile(n * oh * ow, cout) if pin_tile is None \
+                else int(pin_tile)
+            err = _lib("conv_fp32", "conv_fp32_dense_launch", 13)(
+                x.data_ptr(), wt.data_ptr(), bias, y.data_ptr(), n, c, h, wd,
+                cout, kh, kw, oh, ow, pads[0], pads[1], int(bool(relu)),
+                tile, stream)
+        else:
+            err = _lib("conv_fp32", "conv_fp32_launch", 17)(
+                x.data_ptr(), wt.data_ptr(), bias, y.data_ptr(), n, c, h, wd,
+                cout, kh, kw, oh, ow, *strides, pads[0], pads[1], *dilations,
+                groups, int(bool(relu)), stream)
+    _build.check_status(err, f"conv_fp32 ({kind})")
+    _build.count_launch("conv_fp32", (n, c, h, wd, cout, kh, kw), route=kind)
     return y
