@@ -56,7 +56,14 @@ limit, then the result line:
      composition on superpoint_pretrained (full width, committed weights)
      over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
      accuracy bounds and the kernels' launch counts, kernel 3's by route
-     (11 dense + 1 generic per trunk call, here and in phase 6);
+     (11 dense + 1 generic per trunk call, here and in phase 6); every
+     per-frame configuration (here, 6 fp32, 7f, 8c, 9d, 12b) runs
+     `process` as one captured CUDA graph per frame (the first frame op by
+     op, then captured) against the eager step on the same frames and
+     noise, bit for bit (poses, keypoints, diagnostics), one replay per
+     frame, a timed pass as a user calls it, and `process_instrumented`
+     (three graphs per frame) bit for bit `process`, with graph and eager
+     ms per frame (`frame_programs`);
   6. the online hybrid (whole-sequence mode,
      `parallel.sharding.build_online_hybrid`) on the same corridor and
      configuration, its frames preprocessed on the card: the eager run's
@@ -82,7 +89,8 @@ limit, then the result line:
      ground-truth pose file) by the package's own PNG writer:
      a. `python -m spsvo_tpu_torch.run --mode frame` in process: pose file,
         latency CSV, launches, drift; b. the same with `--instrument`, 8
-        frames: real stage columns; c. `--mode hybrid`; d. batch mode
+        frames: real stage columns, the poses bit for bit 7a's; c. `--mode
+        hybrid`; d. batch mode
         through `harness.run_sequence_fused`: one matcher launch at B=63
         and ONE solver launch at F=31 per call, that launch against the
         plain version and bitwise against 31 launches at F=1, and its time
@@ -107,7 +115,8 @@ limit, then the result line:
         against the plain version, graph replay against eager, drift under
         a limit per front end set from its spread over noise seeds, ms per
         sequence, the front end's share and peak memory;
-        c. `ClassicVisualOdometry`: `process`, `process_instrumented` and
+        c. `ClassicVisualOdometry`: `process` (its captured program
+        against the eager step, as phase 5), `process_instrumented` and
         `process_stream` on equal noise; d. mode "orb" through the harness over phase 7's tree (8b's
         trajectory), the CLI's `--preset classic_orb --mode orb` on 8
         frames, and `build_feature_hybrid` fed with 8b's keypoints packed
@@ -1250,15 +1259,190 @@ def flagship_cfg():
                                model_name_prefix="superpoint_pretrained")
 
 
-def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
-                    drift_limit=5.0, solve_kernels: bool = True):
-    """The corridor drive (its first `n` frames) through
-    VisualOdometry.process; `cfg` defaults to the flagship composition.
-    `solve_kernels`: the configuration runs kernels 1 and 2 once per frame
-    (else neither: superpoint_laptop's)."""
+REPLAYS = collections.Counter()   # CUDA-graph replays (count_graph_replays)
+frame_ms: dict = {}               # phase -> per-frame ms, graph and eager
+
+
+def count_graph_replays() -> None:
+    """Count every CUDA-graph replay in REPLAYS["graphs"] from now on."""
+    import torch
+    replay = torch.cuda.CUDAGraph.replay
+
+    def counted(graph):
+        REPLAYS["graphs"] += 1
+        return replay(graph)
+    torch.cuda.CUDAGraph.replay = counted
+
+
+def cnn_eager_step(vo, P_l, P_r):
+    """`VisualOdometry.process`'s eager reference: the raw pair and
+    projections preprocessed on the card, then `vo_step` op by op (the
+    adaptive loops ending early). `step(state, img_l, img_r, gumbel) ->
+    (state, output)`."""
+    import torch
+
+    from spsvo_tpu_torch.ops.image import preprocess_stereo_pair
+    from spsvo_tpu_torch.pipeline import vo_step
+    cfg, dev = vo.cfg, vo.device
+    Pl, Pr = (torch.as_tensor(np.asarray(P), dtype=torch.float32).to(dev)
+              for P in (P_l, P_r))
+
+    def step(state, il, ir, g):
+        imgs, Pl2, Pr2 = preprocess_stereo_pair(
+            torch.as_tensor(il).to(dev), torch.as_tensor(ir).to(dev), Pl, Pr,
+            dst_h=cfg.image_height, dst_w=cfg.image_width)
+        return vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg, gumbel=g)
+    return step
+
+
+def classic_eager_step(vo, P_l, P_r):
+    """The device ORB `ClassicVisualOdometry.process`'s eager reference:
+    the pair cropped and resized unnormalised on the card (not at the
+    native resolution), rounded to whole grey levels, then `classic_step`
+    op by op."""
+    import torch
+
+    from spsvo_tpu_torch.frontend_classic import classic_step
+    from spsvo_tpu_torch.ops.image import preprocess_stereo_pair
+    cfg, dev = vo.cfg, vo.device
+    Pl, Pr = (torch.as_tensor(np.asarray(P), dtype=torch.float32).to(dev)
+              for P in (P_l, P_r))
+
+    def step(state, il, ir, g):
+        imgs, Pl2, Pr2 = torch.as_tensor(np.stack([il, ir])).to(dev), Pl, Pr
+        if cfg.image_height > 0:
+            imgs, Pl2, Pr2 = preprocess_stereo_pair(
+                imgs[0], imgs[1], Pl, Pr, dst_h=cfg.image_height,
+                dst_w=cfg.image_width, normalize=False)
+        imgs = torch.round(imgs.to(torch.float32)) / 255.0
+        return classic_step(state, imgs, Pl2, Pr2, cfg=cfg, gumbel=g)
+    return step
+
+
+def outputs_equal(a, b) -> bool:
+    """Two steps' outputs bit for bit: pose, keypoints, diagnostics."""
+    import torch
+    return (torch.equal(a.T_curr_prev, b.T_curr_prev)
+            and all(torch.equal(x, y) for x, y in zip(
+                (*a.keypoints_left, *a.keypoints_right),
+                (*b.keypoints_left, *b.keypoints_right)))
+            and a.diagnostics.keys() == b.diagnostics.keys()
+            and all(torch.equal(a.diagnostics[k], v)
+                    for k, v in b.diagnostics.items()))
+
+
+def frame_programs(phase, vo, frames, P_l, P_r, eager_step, noise=None):
+    """`process` through its captured per-frame program against the eager
+    step on the same raw frames and noise (`noise` per frame, else what
+    `process` draws: one slab per frame from the generator seeded with
+    `vo.seed`): poses, keypoints and diagnostics bit for bit; one replay
+    per frame after the first (the first frame runs the step op by op and
+    captures it); a second pass as a user calls it (no diagnostics), timed,
+    every frame one replay, equal poses; `process_instrumented`, three
+    replays per frame after the first, bit for bit `process`, its stages
+    summing to the total. Prints graph and eager ms per frame. Returns
+    (the first pass's infos, launches, routes and trajectory, report)."""
     import torch
 
     from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.ops import pnp, solver
+    from spsvo_tpu_torch.pipeline import init_state
+    dev, n = vo.device, len(frames)
+
+    def gum(f):
+        return None if noise is None else noise[f]
+
+    def replays_of(fn):
+        before = REPLAYS["graphs"]
+        out = fn()
+        torch.cuda.synchronize()
+        return out, REPLAYS["graphs"] - before
+
+    vo.reset()
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    infos, r_first = replays_of(lambda: [
+        vo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                   gumbel=gum(f))[1]
+        for f, (il, ir) in enumerate(frames)])
+    launches, routes = dict(_build.launches), dict(_build.routes)
+    traj = list(vo.trajectory)
+
+    gen = torch.Generator(dev).manual_seed(vo.seed)
+    state = init_state(vo.cfg, dev, vo.desc_dim)
+    eager_ms, differ = [], []
+    with torch.no_grad():
+        for f, (il, ir) in enumerate(frames):
+            t0 = time.perf_counter()
+            g = (pnp.gumbel_noise(solver.gumbel_shape(vo.cfg), gen, dev)
+                 if noise is None else torch.as_tensor(noise[f]).to(dev))
+            state, out = eager_step(state, il, ir, g)
+            out.T_curr_prev.cpu()
+            eager_ms.append((time.perf_counter() - t0) * 1e3)
+            if not outputs_equal(infos[f]["output"], out):
+                differ.append(f)
+    del state, out
+
+    vo.reset()
+    graph_ms = []
+
+    def timed():
+        for f, (il, ir) in enumerate(frames):
+            t0 = time.perf_counter()
+            vo.process(il, ir, P_l, P_r, gumbel=gum(f))
+            graph_ms.append((time.perf_counter() - t0) * 1e3)
+    _, r_timed = replays_of(timed)
+    same_timed = all(np.array_equal(a, b) for a, b in zip(vo.trajectory,
+                                                          traj))
+    vo.reset()
+    inst, r_inst = replays_of(lambda: [
+        vo.process_instrumented(il, ir, P_l, P_r, gumbel=gum(f))
+        for f, (il, ir) in enumerate(frames)])
+    inst_differ = [f for f, (_, info) in enumerate(inst)
+                   if not outputs_equal(info["output"], infos[f]["output"])]
+    stages = [info["stages_ms"] for _, info in inst]
+    gap = max(abs(s["detect"] + s["match"] + s["solve"] - s["total"])
+              / s["total"] for s in stages)
+    rep = {"graph_ms_per_frame": float(np.median(graph_ms[1:])),
+           "eager_ms_per_frame": float(np.median(eager_ms[1:])),
+           "first_frame_ms": infos[0]["latency_s"] * 1e3,
+           "replays_per_frame": r_timed / n,
+           "replays_first_pass": r_first,
+           "instrumented_replays_per_frame": r_inst / max(n - 1, 1),
+           "instrumented_ms": {k: float(np.median([s[k] for s in stages[1:]]))
+                               for k in stages[0]},
+           "max_stage_sum_gap": gap,
+           "graph_equals_eager_bitwise": not differ,
+           "instrumented_equals_process_bitwise": not inst_differ}
+    frame_ms[phase] = {"graph": rep["graph_ms_per_frame"],
+                       "eager": rep["eager_ms_per_frame"]}
+    say(phase, check="the per-frame programs against the eager step",
+        frames=n, **rep)
+    if differ:
+        fail(f"{phase}: process (graph) differs from the eager step at "
+             f"frames {differ}")
+    if not (r_first == n - 1 and r_timed == n and r_inst == 3 * (n - 1)):
+        fail(f"{phase}: replays {r_first} (checked pass), {r_timed} (timed "
+             f"pass), {r_inst} (instrumented) of {n} frames: expected "
+             f"{n - 1}, {n}, {3 * (n - 1)}")
+    if not same_timed:
+        fail(f"{phase}: the timed pass's poses differ from the checked one")
+    if inst_differ or not gap <= 1e-6:
+        fail(f"{phase}: process_instrumented differs from process at frames "
+             f"{inst_differ}, stage sum gap {gap}")
+    return infos, launches, routes, traj, rep
+
+
+def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
+                    drift_limit=5.0, solve_kernels: bool = True):
+    """The corridor drive (its first `n` frames) through
+    VisualOdometry.process, one captured program per frame, against the
+    eager step (`frame_programs`); `cfg` defaults to the flagship
+    composition. `solve_kernels`: the configuration runs kernels 1 and 2
+    once per frame (else neither: superpoint_laptop's). Returns (the
+    launches, graph ms per frame)."""
+    import torch
+
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
     from spsvo_tpu_torch.pipeline import VisualOdometry
 
@@ -1267,28 +1451,22 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     frames, gt = frames[:n], gt[:n]
     cfg = cfg or flagship_cfg()
     vo = VisualOdometry(cfg, device=dev, seed=0)
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    infos = []
-    for il, ir in frames:
-        T, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True)
-        if not np.isfinite(T).all():
-            fail(f"non-finite pose at frame {len(infos)}")
-        infos.append(info)
-    torch.cuda.synchronize()
-    launches = dict(_build.launches)
-    routes = check_convs(phase, cfg, launches, _build.routes)
+    infos, launches, routes, traj, rep = frame_programs(
+        phase, vo, frames, P_l, P_r, cnn_eager_step(vo, P_l, P_r))
+    del vo
+    gc.collect()                    # the programs' graphs and pools
+    torch.cuda.empty_cache()
+    routes = check_convs(phase, cfg, launches, routes)
     kps = [i["num_keypoints_left"] for i in infos[1:]]
     inl = [i["num_inliers"] for i in infos[1:]]
-    lat_ms = [i["latency_s"] * 1e3 for i in infos[4:]]
-    score = score_trajectory(vo.trajectory, gt)
+    score = score_trajectory(traj, gt)
     say(phase, frames=n, render_s=render_s,
         median_keypoints=float(np.median(kps)),
         median_inliers=float(np.median(inl)),
         drift_percent=score["final_drift_percent"], ate_m=score["ate_m"],
-        median_process_ms=float(np.median(lat_ms)),
-        launches=launches)
-    if not all(np.isfinite(T).all() for T in vo.trajectory):
+        median_process_ms=rep["graph_ms_per_frame"],
+        eager_ms_per_frame=rep["eager_ms_per_frame"], launches=launches)
+    if not all(np.isfinite(T).all() for T in traj):
         fail(f"{phase}: non-finite trajectory")
     if not np.median(kps) > 200:
         fail(f"{phase}: median keypoints {np.median(kps)} <= 200")
@@ -1304,11 +1482,11 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     elif launches.get("match_nn", 0) != n:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} "
              f"times, expected {n}")
-    elif launches.get("fused_solve", 0) < n - 1:
+    elif launches.get("fused_solve", 0) != n:
         fail(f"{phase}: fused_solve launched "
-             f"{launches.get('fused_solve', 0)} times, expected >= {n - 1}")
+             f"{launches.get('fused_solve', 0)} times, expected {n}")
     main_path_routes[phase] = routes
-    return launches, float(np.median(lat_ms))
+    return launches, rep["graph_ms_per_frame"]
 
 
 def hybrid_phase_graphs(hybrid, imgs, P_l, P_r, gumbel):
@@ -1763,6 +1941,8 @@ def run_cli(argv, out_dir: str, tag: str):
     rc = run.main(list(argv) + ["--results-dir", res, "--latency-dir", lat])
     torch.cuda.synchronize()
     launches, shapes = dict(_build.launches), dict(_build.shapes)
+    gc.collect()                    # the run's programs and their pools
+    torch.cuda.empty_cache()
     if rc != 0:
         fail(f"phase {tag}: the CLI returned {rc}")
     poses = kitti.read_kitti_poses(os.path.join(res, "default", "00_pred.txt"))
@@ -1999,9 +2179,10 @@ def phase_stream_and_scan(dev, corridor, root):
                                  gumbel=iter(slabs)))
     torch.cuda.synchronize()
     stream_launches = dict(_build.launches)
-    # one step program: its warm-up run, then one graph replay per frame
-    # and per padding frame (the capture itself launches nothing)
-    steps = n + (-n % chunk) + 1
+    # one step program: the first frame runs op by op (and is captured,
+    # which launches nothing), then one graph replay per frame and per
+    # padding frame
+    steps = n + (-n % chunk)
     check_counts("7e stream", stream_launches,
                  {"match_nn": steps, "fused_solve": steps})
     check_counts("7e stream, recorded in the graph", dict(_build.captured),
@@ -2030,7 +2211,7 @@ def phase_stream_and_scan(dev, corridor, root):
     torch.cuda.synchronize()
     graph_launches = dict(_build.launches)
     check_counts("7e scan, graph", graph_launches,
-                 {"match_nn": n + 1, "fused_solve": n + 1})
+                 {"match_nn": n, "fused_solve": n})
     times = {"eager": [], "graph": []}
     for _ in range(3):
         for name, fn in (("eager", scan.eager), ("graph", scan)):
@@ -2100,6 +2281,15 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
     seq = kitti.KittiOdometrySequence(root, "00", end=n)
     frames = list(seq)
     vo = VisualOdometry(cfg, device=dev)
+    _, launches, routes, _, prog = frame_programs(
+        "phase7f", vo, frames, seq.P_l, seq.P_r,
+        cnn_eager_step(vo, seq.P_l, seq.P_r))
+    check_convs("phase7f process", cfg, launches, routes)
+    if set(launches) != {"conv_bf16"}:
+        fail(f"phase 7f: process launched {launches} in a configuration "
+             "that uses kernel 3 alone")
+    report["graph_ms_per_frame"] = prog["graph_ms_per_frame"]
+    report["eager_ms_per_frame"] = prog["eager_ms_per_frame"]
     res = harness.run_sequence(vo, frames, seq.P_l, seq.P_r, verbose=True)
     fused = harness.run_sequence_fused(cfg, frames, seq.P_l, seq.P_r,
                                        mode="hybrid", timing_reps=3)
@@ -2179,9 +2369,9 @@ def phase_cli(dev, corridor, tmp):
             "superpoint_pretrained", "--kitti-root", root,
             "--ground-truth", gt_file]
 
-    poses, rows, launches, _ = run_cli(
+    poses_7a, rows, launches, _ = run_cli(
         base + ["--mode", "frame", "--max-frames", str(n)], out_dir, "7a")
-    drift = check_trajectory("7a", poses, gt, n)
+    drift = check_trajectory("7a", poses_7a, gt, n)
     if rows[0] != ["detect", "match", "solve", "total"] or \
             len(rows) != n + 1:
         fail(f"phase 7a: latency CSV header {rows[0]}, {len(rows)} rows")
@@ -2189,8 +2379,12 @@ def phase_cli(dev, corridor, tmp):
     total = float(np.median([float(r[3]) for r in rows[5:]]))
     # `total` starts once the frame source has handed the pair over, so
     # the decode time stands beside it, not inside
+    # the CSV's total is `process`, one replay per frame; the eager step
+    # on the same frames and configuration is phase 5's
     say("phase7a", mode="frame", frames=n, launches=launches,
         drift_percent=drift, median_total_ms=total,
+        graph_ms_per_frame=total,
+        eager_ms_per_frame=frame_ms.get("phase5", {}).get("eager"),
         png_decode_ms_per_pair=2 * decode_ms,
         png_decode_share_of_decode_plus_total=(
             2 * decode_ms / (2 * decode_ms + total)))
@@ -2201,6 +2395,8 @@ def phase_cli(dev, corridor, tmp):
         base + ["--mode", "frame", "--instrument", "--max-frames",
                 str(m)], out_dir, "7b")
     check_trajectory("7b", poses, gt, m)
+    if not all(np.array_equal(a, b) for a, b in zip(poses, poses_7a[:m])):
+        fail("phase 7b: --instrument's poses differ from 7a's")
     cols = np.array([[float(v) for v in r] for r in rows[1:]])
     if len(cols) != m or not (cols[:, :3] > 0).all():
         fail(f"phase 7b: stage columns {cols.tolist()}")
@@ -2211,7 +2407,8 @@ def phase_cli(dev, corridor, tmp):
     say("phase7b", mode="frame --instrument", frames=m,
         median_detect_ms=med[0], median_match_ms=med[1],
         median_solve_ms=med[2], median_total_ms=med[3],
-        max_stage_sum_gap=float(gap.max()))
+        max_stage_sum_gap=float(gap.max()), equals_7a_bitwise=True,
+        eager_ms_per_frame=frame_ms.get("phase5", {}).get("eager"))
 
     poses, _, launches, shapes = run_cli(
         base + ["--mode", "hybrid", "--max-frames", str(n)], out_dir,
@@ -2441,44 +2638,22 @@ def phase_classic_vo(dev, corridor):
                              torch.Generator(dev).manual_seed(0),
                              dev).cpu().numpy()
     vo = ClassicVisualOdometry(cfg, device=dev)
-    vo.process(*frames[0], P_l, P_r, gumbel=noise[0])       # table uploads
-    vo.reset()
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    Ts, infos = [], []
-    for f, (il, ir) in enumerate(frames):
-        T, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True,
-                             gumbel=noise[f])
-        Ts.append(T)
-        infos.append(info)
-    torch.cuda.synchronize()
-    launches = dict(_build.launches)
+    infos, launches, _, traj, prog = frame_programs(
+        "phase8c", vo, frames, P_l, P_r, classic_eager_step(vo, P_l, P_r),
+        noise=noise)
+    del vo
+    gc.collect()
+    torch.cuda.empty_cache()
     if launches != {"fused_solve": n}:
         fail(f"phase 8c: process launched {launches}, expected fused_solve "
              f"{n} and match_nn 0")
-    drift = check_trajectory("8c process", vo.trajectory, gt, n,
+    drift = check_trajectory("8c process", traj, gt, n,
                              CLASSIC_DRIFT_LIMIT["ORB/ORB"])
     kps = [i["num_keypoints_left"] for i in infos[1:]]
     inl = [i["num_inliers"] for i in infos[1:]]
     if not (np.median(kps) > 200 and np.median(inl) > 30):
         fail(f"phase 8c: median keypoints {np.median(kps)}, inliers "
              f"{np.median(inl)}")
-    process_ms = float(np.median([i["latency_s"] * 1e3 for i in infos[4:]]))
-
-    m = 8
-    vo_i = ClassicVisualOdometry(cfg, device=dev)
-    stages = []
-    for f, (il, ir) in enumerate(frames[:m]):
-        T, info = vo_i.process_instrumented(il, ir, P_l, P_r, gumbel=noise[f])
-        if not np.array_equal(T, Ts[f]):
-            fail(f"phase 8c: process_instrumented differs from process at "
-                 f"frame {f} by {np.abs(T - Ts[f]).max()}")
-        stages.append(info["stages_ms"])
-    gap = max(abs(s["detect"] + s["match"] + s["solve"] - s["total"])
-              / s["total"] for s in stages)
-    if not gap <= 1e-6:
-        fail(f"phase 8c: stages and total differ by {gap}")
-    med = {k: float(np.median([s[k] for s in stages[2:]])) for k in stages[0]}
 
     vo_s = ClassicVisualOdometry(cfg, device=dev)
     stacks = [np.stack(f) for f in frames]
@@ -2491,15 +2666,15 @@ def phase_classic_vo(dev, corridor):
                                    gumbel=iter(slabs)))
     torch.cuda.synchronize()
     stream_launches = dict(_build.launches)
-    # the step program's warm-up run, then one graph replay per frame and
-    # per padding frame
-    steps = n + (-n % chunk) + 1
+    # the step program's first frame op by op, then one graph replay per
+    # frame and per padding frame
+    steps = n + (-n % chunk)
     if stream_launches != {"fused_solve": steps}:
         fail(f"phase 8c: process_stream launched {stream_launches}, expected "
              f"fused_solve {steps} and match_nn 0")
     if [i for i, _ in out] != list(range(n)):
         fail(f"phase 8c: process_stream yielded {[i for i, _ in out]}")
-    diff = float(np.abs(np.stack([T for _, T in out]) - np.stack(Ts)).max())
+    diff = float(np.abs(np.stack(vo_s.trajectory) - np.stack(traj)).max())
     if not diff <= 1e-5:
         fail(f"phase 8c: process_stream and process differ by {diff}")
     vo_s.reset()
@@ -2508,12 +2683,15 @@ def phase_classic_vo(dev, corridor):
                              gumbel=iter(slabs)))
     stream_ms = (time.perf_counter() - t0) * 1e3 / n
     say("phase8c", frames=n, launches=launches,
-        stream_launches=stream_launches, median_process_ms=process_ms,
-        instrumented_ms=med, max_stage_sum_gap=gap,
+        stream_launches=stream_launches,
+        median_process_ms=prog["graph_ms_per_frame"],
+        eager_ms_per_frame=prog["eager_ms_per_frame"],
+        instrumented_ms=prog["instrumented_ms"],
+        max_stage_sum_gap=prog["max_stage_sum_gap"],
         stream_ms_per_frame=stream_ms, stream_vs_process_max_abs_diff=diff,
         drift_percent=drift, median_keypoints=float(np.median(kps)),
         median_inliers=float(np.median(inl)),
-        ate_m=score_trajectory(vo.trajectory, gt)["ate_m"])
+        ate_m=score_trajectory(traj, gt)["ate_m"])
     return launches, stream_launches
 
 
@@ -3831,6 +4009,7 @@ def main() -> None:
     from spsvo_tpu_torch.utils.logging import get_logger
     get_logger(logging.ERROR)     # the harness's per-frame warnings stay out
     dev = torch.device("cuda", 0)
+    count_graph_replays()
     gpu = run(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"])
     nvcc_v = run([_build.nvcc_path(), "--version"]).splitlines()

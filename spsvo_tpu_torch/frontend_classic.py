@@ -32,8 +32,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import os
-import time
-from typing import Any, Dict, Iterable, Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,10 +42,10 @@ from spsvo_tpu_torch.ops import image as image_ops
 from spsvo_tpu_torch.ops.orb import (descriptor_bits, frontend_kwargs,
                                      orb_frontend_batch)
 from spsvo_tpu_torch.ops.postprocess import Keypoints
-from spsvo_tpu_torch.pipeline import (StepProgram, VOState, VOStepOutput,
-                                      apply_pose_update, features_step,
-                                      init_state, match_stage, solve_stage,
-                                      stream_frames)
+from spsvo_tpu_torch.pipeline import (OnlineVO, StepProgram, VOState,
+                                      VOStepOutput, features_step,
+                                      frame_stages, init_state, match_stage,
+                                      solve_stage, stream_frames)
 
 
 def _cv2_factory(name: str):
@@ -173,6 +172,26 @@ def init_state_with_dim(cfg: VOConfig, desc_dim: int, device="cuda"
     return init_state(cfg, device, desc_dim)
 
 
+def orb_pair(images: torch.Tensor, *, cfg: VOConfig
+             ) -> Tuple[Keypoints, Keypoints]:
+    """The device front end on a (2, H, W) stereo pair in [0, 1]."""
+    kps = orb_frontend_batch(images, **frontend_kwargs(cfg))
+    return tuple(Keypoints(*(a[i] for a in kps)) for i in (0, 1))
+
+
+def device_prepare(images: torch.Tensor, P_l: torch.Tensor,
+                   P_r: torch.Tensor, *, cfg: VOConfig):
+    """The device route's preparation of a raw uint8 (2, H, W) pair, inside
+    its program: cropped and resized to the configuration's resolution
+    (none at 0), rounded to whole grey levels as a resize of uint8 images
+    gives, scaled to [0, 1]; the projections rescaled with it."""
+    if cfg.image_height > 0 and cfg.image_width > 0:
+        images, P_l, P_r = image_ops.preprocess_stereo_pair(
+            images[0], images[1], P_l, P_r, dst_h=cfg.image_height,
+            dst_w=cfg.image_width, normalize=False)
+    return torch.round(images.to(torch.float32)) / 255.0, P_l, P_r
+
+
 def classic_step(state: VOState, images: torch.Tensor, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, cfg: VOConfig,
                  gumbel: Optional[torch.Tensor] = None,
@@ -181,14 +200,13 @@ def classic_step(state: VOState, images: torch.Tensor, P_l: torch.Tensor,
     """One full classic VO step on a (2, H, W) stereo pair in [0, 1]: the
     device front end on both images, then `features_step` on binary
     descriptors. The counterpart of `pipeline.vo_step`."""
-    kps = orb_frontend_batch(images, **frontend_kwargs(cfg))
-    kp_l, kp_r = (Keypoints(*(a[i] for a in kps)) for i in (0, 1))
+    kp_l, kp_r = orb_pair(images, cfg=cfg)
     return features_step(state, kp_l, kp_r, P_l, P_r, cfg=cfg,
                          binary_desc=True, gumbel=gumbel, generator=generator,
                          scratch=scratch)
 
 
-class ClassicVisualOdometry:
+class ClassicVisualOdometry(OnlineVO):
     """Classic VO with the `process` API of `pipeline.VisualOdometry`:
 
         vo = ClassicVisualOdometry(cfg, device="cuda")
@@ -198,15 +216,15 @@ class ClassicVisualOdometry:
     runs at the native resolution, otherwise the pair is cropped and
     resized and the projections rescaled. With `cfg.device_classic` that
     happens on the device, rounded to whole grey levels as a resize of
-    uint8 images gives, and detection runs there too; otherwise OpenCV
-    crops, resizes, detects and describes on the host (`make_detector`,
-    `make_extractor`) and the padded features go to the device."""
+    uint8 images gives, and detection runs there too, all in the frame's
+    program (`pipeline.OnlineVO`: one CUDA graph per frame on the card);
+    otherwise OpenCV crops, resizes, detects and describes on the host
+    (`make_detector`, `make_extractor`) and the padded features go to the
+    device, where the rest runs op by op."""
 
     def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0):
         if not cfg.is_classic:
             cfg = dataclasses.replace(cfg, is_classic=True)
-        self.cfg = cfg
-        self.device = torch.device(device)
         self.binary = cfg.descriptor_type.is_binary
         if cfg.device_classic:
             self.detector = self.extractor = None
@@ -218,37 +236,16 @@ class ClassicVisualOdometry:
             self.detector = make_detector(cfg.detector_type)
             self.extractor = make_extractor(cfg.descriptor_type)
             self.desc_dim = DESC_DIMS[cfg.descriptor_type.value]
-        self.seed = seed
-        self.generator = torch.Generator(self.device)
-        # process_stream's step programs, by (frame shape, dtype)
-        self._programs: Dict[tuple, StepProgram] = {}
-        self.reset()
+        super().__init__(cfg, device, seed)
 
-    def reset(self) -> None:
-        self.state = init_state_with_dim(self.cfg, self.desc_dim, self.device)
-        self.generator.manual_seed(self.seed)
-        self.world_T_cam = np.eye(4, dtype=np.float64)
-        self.last_valid_T = np.eye(4, dtype=np.float64)
-        self.trajectory: list[np.ndarray] = []
-        self.latencies: list[Dict[str, float]] = []
-
-    def _noise(self, gumbel) -> Optional[torch.Tensor]:
-        return None if gumbel is None else torch.as_tensor(
-            np.array(gumbel, np.float32)).to(self.device)
-
-    def _upload(self, img_l, img_r, P_l, P_r):
-        """Frames and projections to the device; preprocessing there."""
-        dev, cfg = self.device, self.cfg
-        imgs = torch.as_tensor(np.stack([np.asarray(img_l),
-                                         np.asarray(img_r)])).to(dev)
-        Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
-        Pr = torch.as_tensor(np.asarray(P_r), dtype=torch.float32).to(dev)
-        if cfg.image_height > 0 and cfg.image_width > 0:
-            imgs, Pl, Pr = image_ops.preprocess_stereo_pair(
-                imgs[0], imgs[1], Pl, Pr, dst_h=cfg.image_height,
-                dst_w=cfg.image_width, normalize=False)
-        imgs = torch.round(imgs.to(torch.float32)) / 255.0
-        return imgs, Pl, Pr
+    def _new_frame_program(self, frame_shape, frame_dtype) -> StepProgram:
+        cfg = self.cfg
+        return StepProgram(
+            frame_stages(functools.partial(orb_pair, cfg=cfg), cfg,
+                         binary_desc=True),
+            cfg, self.device, frame_shape, frame_dtype,
+            desc_dim=self.desc_dim, binary_desc=True,
+            prepare=functools.partial(device_prepare, cfg=cfg))
 
     def _detect(self, img: np.ndarray) -> Keypoints:
         """Host detection of one uint8 image -> padded Keypoints on the
@@ -288,80 +285,29 @@ class ClassicVisualOdometry:
                              gumbel=gumbel, generator=self.generator,
                              scratch=scratch)
 
-    @torch.no_grad()
-    def process(self, img_l: np.ndarray, img_r: np.ndarray,
-                P_l: np.ndarray, P_r: np.ndarray,
-                want_diagnostics: bool = False,
-                gumbel: Optional[np.ndarray] = None
-                ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """One frame. `gumbel` is this frame's RANSAC sampling noise
-        (`solver.gumbel_shape(cfg)`); None draws it from the instance's
-        generator."""
-        t0 = time.perf_counter()
-        g = self._noise(gumbel)
+    def _run(self, img_l, img_r, P_l, P_r, gumbel, split: bool = False,
+             on_stage=None) -> VOStepOutput:
+        """The device route through its program (`OnlineVO._run`); the
+        host route op by op, its three stages closed by `on_stage` (the
+        detect stage is OpenCV's preprocessing, detection and the
+        upload)."""
         if self.cfg.device_classic:
-            imgs, Pl, Pr = self._upload(img_l, img_r, P_l, P_r)
-            self.state, out = classic_step(self.state, imgs, Pl, Pr,
-                                           cfg=self.cfg, gumbel=g,
-                                           generator=self.generator)
-        else:
-            kp_l, kp_r, Pl, Pr = self._host_features(img_l, img_r, P_l, P_r)
-            self.state, out = features_step(
-                self.state, kp_l, kp_r, Pl, Pr, cfg=self.cfg,
-                binary_desc=self.binary, gumbel=g, generator=self.generator)
-        T = out.T_curr_prev.cpu().numpy().astype(np.float64)
-        latency = time.perf_counter() - t0
-        T = apply_pose_update(self, T)
-        info: Dict[str, Any] = {"latency_s": latency}
-        if want_diagnostics:
-            info.update({k: (v.item() if torch.is_tensor(v) else v)
-                         for k, v in out.diagnostics.items()})
-            info["output"] = out
-        self.latencies.append({"total": latency})
-        return T, info
-
-    def current_pose(self) -> np.ndarray:
-        return self.world_T_cam.copy()
-
-    @torch.no_grad()
-    def process_instrumented(self, img_l: np.ndarray, img_r: np.ndarray,
-                             P_l: np.ndarray, P_r: np.ndarray,
-                             gumbel: Optional[np.ndarray] = None
-                             ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """Like `process`, in three stages (front end / matching / solve)
-        with a host read after each, so `info["stages_ms"]` carries real
-        detect/match/solve/total times for the latency CSV (the host
-        route's detect column is OpenCV's preprocessing, detection and the
-        upload). Same math and the same noise stream as `process`: equal
-        results."""
+            return super()._run(img_l, img_r, P_l, P_r, gumbel, split,
+                                on_stage)
         cfg = self.cfg
-        t0 = time.perf_counter()
-        g = self._noise(gumbel)
-        if cfg.device_classic:
-            imgs, Pl, Pr = self._upload(img_l, img_r, P_l, P_r)
-            kps = orb_frontend_batch(imgs, **frontend_kwargs(cfg))
-            kp_l, kp_r = (Keypoints(*(a[i] for a in kps)) for i in (0, 1))
-        else:
-            kp_l, kp_r, Pl, Pr = self._host_features(img_l, img_r, P_l, P_r)
-        kp_l.xy.cpu()
-        t1 = time.perf_counter()
-        # the device front end always emits binary descriptors
-        stereo_idx, inter_idx = match_stage(
-            self.state, kp_l, kp_r, cfg=cfg,
-            binary_desc=cfg.device_classic or self.binary)
-        stereo_idx.cpu()
-        t2 = time.perf_counter()
+        close = on_stage or (lambda k, carry: None)
+        g = None if gumbel is None else torch.as_tensor(
+            np.asarray(gumbel, np.float32)).to(self.device)
+        kp_l, kp_r, Pl, Pr = self._host_features(img_l, img_r, P_l, P_r)
+        close(0, (kp_l, kp_r, Pl, Pr))
+        stereo_idx, inter_idx = match_stage(self.state, kp_l, kp_r, cfg=cfg,
+                                            binary_desc=self.binary)
+        close(1, (kp_l, kp_r, stereo_idx, inter_idx, Pl, Pr))
         self.state, out = solve_stage(
             self.state, kp_l, kp_r, stereo_idx, inter_idx, Pl, Pr, cfg=cfg,
             gumbel=g, generator=self.generator)
-        T = out.T_curr_prev.cpu().numpy().astype(np.float64)
-        t3 = time.perf_counter()
-
-        T = apply_pose_update(self, T)
-        lat = {"detect": (t1 - t0) * 1e3, "match": (t2 - t1) * 1e3,
-               "solve": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
-        self.latencies.append(lat)
-        return T, {"latency_s": t3 - t0, "stages_ms": lat, "output": out}
+        close(2, out)
+        return out
 
     def process_stream(self, frames, P_l: np.ndarray, P_r: np.ndarray,
                        chunk: int = 16,

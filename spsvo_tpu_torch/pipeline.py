@@ -22,11 +22,14 @@ Randomness: the RANSAC sampling noise of each frame is a Gumbel tensor of
 which is how tests inject the JAX package's draws.
 
 `StepProgram` is a step function (`vo_step`, or the classic front end's
-step) on static buffers, the body of the on-device frame loops
-(`VisualOdometry.process_stream`, `ClassicVisualOdometry.process_stream`,
-`parallel.sharding.build_sequence_scan`): on a CUDA device it is captured
-once as a CUDA graph and replayed per frame, the counterpart of the JAX
-package's jitted scan.
+step) on static buffers: on a CUDA device it is captured once as a CUDA
+graph and replayed per frame, the counterpart of the JAX package's jitted
+programs. `process` runs one per raw input resolution (preprocessing
+included, the JAX package's `raw_step`), `process_instrumented` the same
+step as three programs, one per stage (`frame_stages`), and the on-device
+frame loops (`VisualOdometry.process_stream`,
+`ClassicVisualOdometry.process_stream`,
+`parallel.sharding.build_sequence_scan`) one per preprocessed frame shape.
 """
 
 from __future__ import annotations
@@ -269,27 +272,115 @@ def state_leaves(state: VOState) -> List[torch.Tensor]:
     return [*state.prev_left, *state.prev_right, *state[2:]]
 
 
+def clone_output(out: VOStepOutput) -> VOStepOutput:
+    """A copy of a step's output that the next run of its program leaves
+    as it is."""
+    def kp(k: Keypoints) -> Keypoints:
+        return Keypoints(*(t.clone() for t in k))
+    return VOStepOutput(
+        out.T_curr_prev.clone(), kp(out.keypoints_left),
+        kp(out.keypoints_right), out.stereo_map.clone(),
+        out.interframe_map.clone(), out.chain_valid.clone(),
+        out.inliers.clone(),
+        {k: v.clone() for k, v in out.diagnostics.items()})
+
+
+def read_diagnostics(diag: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """The scalar diagnostics as Python numbers, in one host read (through
+    float64, which holds every count and float32 value exactly)."""
+    vals = torch.stack([v.to(torch.float64) for v in diag.values()]
+                       ).cpu().tolist()
+    return {k: (bool(x) if v.dtype == torch.bool
+                else x if v.is_floating_point() else int(x))
+            for (k, v), x in zip(diag.items(), vals)}
+
+
+def normalize_frames(images: torch.Tensor, P_l: torch.Tensor,
+                     P_r: torch.Tensor):
+    """The preparation of preprocessed frames (`process_stream`, the
+    sequence scan): uint8 ones are scaled to [0, 1] on the device."""
+    if images.dtype == torch.uint8:
+        images = images.to(torch.float32) / 255.0
+    return images, P_l, P_r
+
+
+def preprocess_raw(images: torch.Tensor, P_l: torch.Tensor,
+                   P_r: torch.Tensor, *, cfg: VOConfig):
+    """The preparation of a raw (2, H, W) pair for the CNN front end:
+    cropped and resized to the configuration's resolution, scaled to
+    [0, 1], the projections rescaled with it (the JAX package's
+    `raw_step`)."""
+    return image_ops.preprocess_stereo_pair(
+        images[0], images[1], P_l, P_r, dst_h=cfg.image_height,
+        dst_w=cfg.image_width)
+
+
+def frame_stages(frontend: Callable, cfg: VOConfig,
+                 binary_desc: bool = False) -> Tuple[Callable, ...]:
+    """The per-frame step as `StepProgram` stages: front end, matching,
+    solve, the stages of `process_instrumented`; in turn they compute
+    `vo_step` (`frontend(images) -> (kp_l, kp_r)`: `superpoint_frontend`
+    with its model bound, or a classic front end with `binary_desc`)."""
+    def detect(prog, images, P_l, P_r):
+        return (*frontend(images), P_l, P_r)
+
+    def match(prog, kp_l, kp_r, P_l, P_r):
+        return (kp_l, kp_r, *match_stage(
+            prog.state, kp_l, kp_r, cfg=cfg, binary_desc=binary_desc,
+            scratch=prog.scratch), P_l, P_r)
+
+    def solve(prog, kp_l, kp_r, stereo_idx, inter_idx, P_l, P_r):
+        return solve_stage(prog.state, kp_l, kp_r, stereo_idx, inter_idx,
+                           P_l, P_r, cfg=cfg, gumbel=prog.gumbel)
+
+    return detect, match, solve
+
+
+# the host read that closes each of `frame_stages`' stages
+STAGE_READS = (lambda c: c[0].xy, lambda c: c[2], lambda c: c.T_curr_prev)
+
+
+def _whole_step(step_fn: Callable) -> Callable:
+    """`step_fn(state, images, P_l, P_r, gumbel=, scratch=)` as one stage."""
+    def whole(prog, images, P_l, P_r):
+        return step_fn(prog.state, images, P_l, P_r, gumbel=prog.gumbel,
+                       scratch=prog.scratch)
+    return whole
+
+
 class StepProgram:
-    """A step function on static buffers: `step(images, gumbel, real)` runs
-    one frame from the carried state and returns (T_curr_prev,
-    diagnostics). `step_fn(state, images, P_l, P_r, gumbel=, scratch=) ->
-    (state, VOStepOutput)` is `vo_step` with its model and configuration
-    bound, or the classic front end's step; `desc_dim` is the width of the
-    descriptors it carries and `binary_desc` says that they are bit vectors
-    (which the matcher kernel, and so its scratch, never sees).
+    """One frame's step on static buffers: the frame (`images`), the
+    projections, the RANSAC noise, whether the frame is real, and the
+    carried state. `step` is `step_fn(state, images, P_l, P_r, gumbel=,
+    scratch=) -> (state, VOStepOutput)` (`vo_step` with its model and
+    configuration bound, or the classic front end's step), or the step as
+    a sequence of stages (`frame_stages`): the first takes (program,
+    images, P_l, P_r), each later one the tuple its predecessor returned,
+    the last returns (state, VOStepOutput). `prepare(images, P_l, P_r)`
+    makes the first stage's inputs from the buffers, inside the program:
+    `normalize_frames` for preprocessed frames, `preprocess_raw` for raw
+    ones. `desc_dim` is the width of the carried descriptors and
+    `binary_desc` says that they are bit vectors (which the matcher
+    kernel, and so its scratch, never sees).
 
-    With `graph` (the default on a CUDA device) the step is captured once
-    as a CUDA graph that owns the matcher kernel's scratch, and every call
-    copies its inputs into the graph's buffers and replays it; otherwise
-    the same code runs op by op. A frame with `real=False` (tail padding of
-    a chunk) leaves the state as it was: every state tensor is reverted by
-    `torch.where`, inside the program. uint8 frames are normalised on the
-    device."""
+    `feed` fills the buffers and `run` runs the frame, as one program or
+    (`split`) one program per stage. With `graph` (the default on a CUDA
+    device) the first `run` of each form runs the frame op by op on a side
+    stream, which builds the kernels, uploads the static tables and packs
+    the weights, and captures each program as a CUDA graph after it; every
+    later `run` replays them. The graphs own the matcher kernel's scratch,
+    and the stages' graphs share one memory pool. Without `graph` every
+    run is op by op. A frame with `real=False` (tail padding of a chunk)
+    leaves the state as it was: every state tensor is reverted by
+    `torch.where`, inside the program."""
 
-    def __init__(self, step_fn: Callable, cfg: VOConfig, device, frame_shape,
+    def __init__(self, step, cfg: VOConfig, device, frame_shape,
                  frame_dtype=torch.float32, graph: Optional[bool] = None,
-                 desc_dim: int = 256, binary_desc: bool = False):
-        self.step_fn, self.cfg = step_fn, cfg
+                 desc_dim: int = 256, binary_desc: bool = False,
+                 prepare: Callable = normalize_frames):
+        self.stages = (tuple(step) if isinstance(step, (tuple, list))
+                       else (_whole_step(step),))
+        self.cfg, self.prepare = cfg, prepare
         self.device = dev = torch.device(device)
         self.use_graph = dev.type == "cuda" if graph is None else graph
         self.images = torch.zeros(tuple(frame_shape), dtype=frame_dtype,
@@ -305,9 +396,8 @@ class StepProgram:
             from spsvo_tpu_torch.ops.matching_cuda import match_scratch
             k = cfg.max_keypoints
             self.scratch = match_scratch(dev, 2, k, k)
-        self._graph = None
-        self._outputs = None
-        self._recorded = None    # the kernel launches the graph holds
+        # split -> (graphs, their outputs, the kernel launches each holds)
+        self._graphs: Dict[bool, tuple] = {}
 
     def set_projections(self, P_l: torch.Tensor, P_r: torch.Tensor) -> None:
         self.P_l.copy_(P_l)
@@ -322,49 +412,92 @@ class StepProgram:
         return VOState(Keypoints(*leaves[0:4]), Keypoints(*leaves[4:8]),
                        *leaves[8:])
 
-    def _body(self) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        imgs = self.images
-        if imgs.dtype == torch.uint8:
-            imgs = imgs.to(torch.float32) / 255.0
-        new, out = self.step_fn(self.state, imgs, self.P_l, self.P_r,
-                                gumbel=self.gumbel, scratch=self.scratch)
-        for dst, src in zip(state_leaves(self.state), state_leaves(new)):
-            dst.copy_(torch.where(self.real, src, dst))
-        return out.T_curr_prev, out.diagnostics
+    def feed(self, images, gumbel: torch.Tensor, real: bool = True) -> None:
+        """A frame (a (2, H, W) tensor or a pair of (H, W) images, on the
+        host or the device), its noise and whether it is real into the
+        buffers."""
+        if tuple(gumbel.shape) != tuple(self.gumbel.shape):
+            raise ValueError(f"gumbel noise must be "
+                             f"{tuple(self.gumbel.shape)}, got "
+                             f"{tuple(gumbel.shape)}")
+        for dst, src in zip(self.images, images):
+            dst.copy_(src)
+        self.gumbel.copy_(gumbel)
+        self.real.fill_(bool(real))
 
-    def _capture(self) -> None:
-        """Warm up on a side stream (it builds the kernels; the state is
-        put back afterwards), then capture the step on that stream."""
+    def _part(self, stages: range, carry):
+        for i in stages:
+            if i == 0:
+                carry = self.prepare(self.images, self.P_l, self.P_r)
+            carry = self.stages[i](self, *carry)
+        if stages[-1] == len(self.stages) - 1:
+            new, carry = carry
+            for dst, src in zip(state_leaves(self.state), state_leaves(new)):
+                dst.copy_(torch.where(self.real, src, dst))
+        return carry
+
+    @torch.no_grad()
+    def run(self, split: bool = False,
+            on_stage: Optional[Callable] = None) -> VOStepOutput:
+        """One frame from the buffers; returns its output, which (after a
+        replay: the graph's own outputs) the next run overwrites.
+        `on_stage(k, outputs)` is called after program k (each stage with
+        `split`, else the whole step once)."""
+        n = len(self.stages)
+        parts = ([range(k, k + 1) for k in range(n)] if split
+                 else [range(n)])
+        if split in self._graphs:
+            graphs, outs, recorded = self._graphs[split]
+            for k, g in enumerate(graphs):
+                g.replay()
+                _build.count_replay(recorded[k])
+                if on_stage is not None:
+                    on_stage(k, outs[k])
+            return outs[-1]
+        if not self.use_graph:
+            carry = ()
+            for k, part in enumerate(parts):
+                carry = self._part(part, carry)
+                if on_stage is not None:
+                    on_stage(k, carry)
+            return carry
+        return self._capture(split, parts, on_stage)
+
+    def _capture(self, split: bool, parts, on_stage) -> VOStepOutput:
+        """The first run of a form: each program runs op by op on a side
+        stream (the frame's result), then is captured on that stream."""
         dev = self.device
-        saved = self.state_copy()
+        graphs, outs, recorded = [], [], []
+        pool = torch.cuda.graph_pool_handle()
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
-                self._body()
-                self.load_state(saved)
+                carry = static = ()
+                for k, part in enumerate(parts):
+                    carry = self._part(part, carry)
+                    graph = torch.cuda.CUDAGraph()
+                    before = _build.captured.copy()
+                    with torch.cuda.graph(graph, pool=pool, stream=stream):
+                        static = self._part(part, static)
+                    graphs.append(graph)
+                    outs.append(static)
+                    recorded.append(_build.captured_since(before))
+                    if on_stage is not None:
+                        on_stage(k, carry)
             torch.cuda.current_stream(dev).wait_stream(stream)
-            self._graph = torch.cuda.CUDAGraph()
-            before = _build.captured.copy()
-            with torch.cuda.graph(self._graph, stream=stream):
-                self._outputs = self._body()
-            self._recorded = _build.captured_since(before)
+        self._graphs[split] = (graphs, outs, recorded)
+        return carry
 
     @torch.no_grad()
     def step(self, images: torch.Tensor, gumbel: torch.Tensor,
              real: bool = True
              ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        self.images.copy_(images)
-        self.gumbel.copy_(gumbel)
-        self.real.fill_(bool(real))
-        if not self.use_graph:
-            return self._body()
-        if self._graph is None:
-            self._capture()
-        self._graph.replay()
-        _build.count_replay(self._recorded)
-        T, diag = self._outputs
-        return T.clone(), {k: v.clone() for k, v in diag.items()}
+        """`feed` and `run`: copies of (T_curr_prev, diagnostics)."""
+        self.feed(images, gumbel, real)
+        out = self.run()
+        return (out.T_curr_prev.clone(),
+                {k: v.clone() for k, v in out.diagnostics.items()})
 
 
 def stream_frames(vo, new_program: Callable, frames, P_l: np.ndarray,
@@ -449,57 +582,89 @@ def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
     return T
 
 
-class VisualOdometry:
-    """Stateful host-side wrapper:
+class OnlineVO:
+    """The per-frame API that `VisualOdometry` and
+    `frontend_classic.ClassicVisualOdometry` share: the carried state, the
+    host's pose bookkeeping, and `process` / `process_instrumented` on one
+    `StepProgram` per raw input shape and dtype, built by
+    `_new_frame_program`: one program per frame (three, one per stage,
+    for `process_instrumented`), replayed as CUDA graphs on the card, the
+    counterpart of the JAX package's jitted `raw_step` and stage programs.
+    The first frame of a shape includes the capture.
 
-        vo = VisualOdometry(cfg, device="cuda")
-        pose4x4, info = vo.process(img_l_u8, img_r_u8, P_l, P_r)
+    `state` is a `VOState` after every call. While a program holds the
+    carried state in its buffers, reading `state` copies it out (once per
+    frame); assigning it (`reset`, `process_stream`) hands it back to the
+    next program that runs. The noise of a frame without `gumbel` is drawn
+    from `generator` before the step, one slab of
+    `solver.gumbel_shape(cfg)`."""
 
-    `process` takes full-resolution uint8/float grayscale images and their
-    3x4 projection matrices; preprocessing runs on the device. World-pose
-    integration and the velocity gate run on the host in float64.
-    """
+    desc_dim = 256
 
-    def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0,
-                 model=None):
-        if cfg.is_classic:
-            raise ValueError(
-                "a classic configuration runs through frontend_classic."
-                "ClassicVisualOdometry")
+    def __init__(self, cfg: VOConfig, device, seed: int):
         self.cfg = cfg
         self.device = torch.device(device)
-        if model is None:
-            dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
-                     else torch.float32)
-            model = zoo.load_model(cfg.model_name_prefix, dtype, self.device,
-                                   int8=(cfg.precision == Precision.INT8))
-        self.model = model
         self.seed = seed
         self.generator = torch.Generator(self.device)
         # process_stream's step programs, by (frame shape, dtype)
         self._programs: Dict[tuple, StepProgram] = {}
+        # process's, by (raw frame shape, dtype)
+        self._frame_programs: Dict[tuple, StepProgram] = {}
         self.reset()
 
+    def _new_frame_program(self, frame_shape, frame_dtype) -> StepProgram:
+        raise NotImplementedError
+
+    @property
+    def state(self) -> VOState:
+        if self._state is None:
+            self._state = self._live.state_copy()
+        return self._state
+
+    @state.setter
+    def state(self, value: VOState) -> None:
+        self._state, self._live = value, None
+
     def reset(self) -> None:
-        self.state = init_state(self.cfg, self.device)
+        self.state = init_state(self.cfg, self.device, self.desc_dim)
         self.generator.manual_seed(self.seed)
         self.world_T_cam = np.eye(4, dtype=np.float64)
         self.last_valid_T = np.eye(4, dtype=np.float64)
         self.trajectory: list[np.ndarray] = []
         self.latencies: list[Dict[str, float]] = []
 
-    def _upload(self, img_l, img_r, P_l, P_r, gumbel):
-        """Frames, projections and noise to the device; preprocessing there."""
-        dev, cfg = self.device, self.cfg
-        il = torch.as_tensor(np.asarray(img_l)).to(dev, non_blocking=True)
-        ir = torch.as_tensor(np.asarray(img_r)).to(dev, non_blocking=True)
-        Pl = torch.as_tensor(np.asarray(P_l), dtype=torch.float32).to(dev)
-        Pr = torch.as_tensor(np.asarray(P_r), dtype=torch.float32).to(dev)
-        imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
-            il, ir, Pl, Pr, dst_h=cfg.image_height, dst_w=cfg.image_width)
-        g = None if gumbel is None else torch.as_tensor(
-            np.array(gumbel, np.float32)).to(dev)
-        return imgs, Pl2, Pr2, g
+    def current_pose(self) -> np.ndarray:
+        return self.world_T_cam.copy()
+
+    def _run(self, img_l, img_r, P_l, P_r, gumbel, split: bool = False,
+             on_stage: Optional[Callable] = None) -> VOStepOutput:
+        """The frame through its program: the raw images, the raw
+        projections and the noise into its buffers, the carried state into
+        it unless it holds it already, then `StepProgram.run`."""
+        il, ir = (torch.as_tensor(np.asarray(im)) for im in (img_l, img_r))
+        if il.shape != ir.shape or il.dtype != ir.dtype:
+            raise ValueError(
+                f"a stereo pair of one shape and dtype, got {tuple(il.shape)}"
+                f" {il.dtype} and {tuple(ir.shape)} {ir.dtype}")
+        key = (tuple(il.shape), il.dtype)
+        prog = self._frame_programs.get(key)
+        if prog is None:
+            prog = self._frame_programs[key] = self._new_frame_program(
+                (2,) + key[0], key[1])
+        if gumbel is None:
+            g = pnp.gumbel_noise(solver.gumbel_shape(self.cfg),
+                                 self.generator, self.device)
+        else:
+            g = torch.as_tensor(np.array(gumbel, np.float32))
+        prog.feed((il, ir), g)
+        prog.set_projections(*(torch.as_tensor(np.asarray(P),
+                                               dtype=torch.float32)
+                               for P in (P_l, P_r)))
+        if self._live is not prog:
+            prog.load_state(self.state)
+            self._live = prog
+        self._state = None
+        return prog.run(split, on_stage)
 
     @torch.no_grad()
     def process(self, img_l: np.ndarray, img_r: np.ndarray,
@@ -509,57 +674,83 @@ class VisualOdometry:
                 ) -> Tuple[np.ndarray, Dict[str, Any]]:
         """One frame. `gumbel` is this frame's RANSAC sampling noise
         (`solver.gumbel_shape(cfg)`); None draws it from the instance's
-        generator."""
+        generator. Reads back the pose, and with `want_diagnostics` the
+        diagnostics (one read) and a copy of the step's output
+        (`info["output"]`)."""
         t0 = time.perf_counter()
-        imgs, Pl2, Pr2, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
-        self.state, out = vo_step(self.model, self.state, imgs, Pl2, Pr2,
-                                  cfg=self.cfg, gumbel=g,
-                                  generator=self.generator)
+        out = self._run(img_l, img_r, P_l, P_r, gumbel)
         T = out.T_curr_prev.cpu().numpy().astype(np.float64)
         t1 = time.perf_counter()
 
         T = apply_pose_update(self, T)
         info: Dict[str, Any] = {"latency_s": t1 - t0}
         if want_diagnostics:
-            info.update({k: (v.item() if torch.is_tensor(v) else v)
-                         for k, v in out.diagnostics.items()})
-            info["output"] = out
+            info.update(read_diagnostics(out.diagnostics))
+            info["output"] = clone_output(out)
         self.latencies.append({"total": t1 - t0})
         return T, info
-
-    def current_pose(self) -> np.ndarray:
-        return self.world_T_cam.copy()
 
     @torch.no_grad()
     def process_instrumented(self, img_l: np.ndarray, img_r: np.ndarray,
                              P_l: np.ndarray, P_r: np.ndarray,
                              gumbel: Optional[np.ndarray] = None
                              ) -> Tuple[np.ndarray, Dict[str, Any]]:
-        """Like `process`, in three stages (front end / matching / solve)
-        with a host read after each, so `info["stages_ms"]` carries real
-        detect/match/solve/total times for the latency CSV. Same math and
-        the same noise stream as `process`: equal results; each stage
-        boundary costs one synchronisation."""
-        cfg = self.cfg
-        t0 = time.perf_counter()
-        imgs, Pl2, Pr2, g = self._upload(img_l, img_r, P_l, P_r, gumbel)
-        kp_l, kp_r = superpoint_frontend(self.model, imgs, cfg)
-        kp_l.xy.cpu()
-        t1 = time.perf_counter()
-        stereo_idx, inter_idx = match_stage(self.state, kp_l, kp_r, cfg=cfg)
-        stereo_idx.cpu()
-        t2 = time.perf_counter()
-        self.state, out = solve_stage(
-            self.state, kp_l, kp_r, stereo_idx, inter_idx, Pl2, Pr2, cfg=cfg,
-            gumbel=g, generator=self.generator)
-        T = out.T_curr_prev.cpu().numpy().astype(np.float64)
-        t3 = time.perf_counter()
+        """Like `process`, in three stages (front end / matching / solve),
+        each its own program closed by a host read, so `info["stages_ms"]`
+        carries real detect/match/solve/total times for the latency CSV.
+        Same math and the same noise stream as `process`: equal results;
+        each stage boundary costs one synchronisation."""
+        stamps, reads = [time.perf_counter()], []
 
-        T = apply_pose_update(self, T)
+        def close(k, carry):
+            reads.append(STAGE_READS[k](carry).cpu())
+            stamps.append(time.perf_counter())
+
+        out = self._run(img_l, img_r, P_l, P_r, gumbel, split=True,
+                        on_stage=close)
+        T = apply_pose_update(self, reads[-1].numpy().astype(np.float64))
+        t0, t1, t2, t3 = stamps
         lat = {"detect": (t1 - t0) * 1e3, "match": (t2 - t1) * 1e3,
                "solve": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
         self.latencies.append(lat)
-        return T, {"latency_s": t3 - t0, "stages_ms": lat, "output": out}
+        return T, {"latency_s": t3 - t0, "stages_ms": lat,
+                   "output": clone_output(out)}
+
+
+class VisualOdometry(OnlineVO):
+    """Stateful host-side wrapper:
+
+        vo = VisualOdometry(cfg, device="cuda")
+        pose4x4, info = vo.process(img_l_u8, img_r_u8, P_l, P_r)
+
+    `process` takes full-resolution uint8/float grayscale images and their
+    3x4 projection matrices; preprocessing runs on the device, inside the
+    frame's program (`OnlineVO`). World-pose integration and the velocity
+    gate run on the host in float64.
+    """
+
+    def __init__(self, cfg: VOConfig, device="cuda", seed: int = 0,
+                 model=None):
+        if cfg.is_classic:
+            raise ValueError(
+                "a classic configuration runs through frontend_classic."
+                "ClassicVisualOdometry")
+        if model is None:
+            dtype = (torch.bfloat16 if cfg.precision == Precision.BF16
+                     else torch.float32)
+            model = zoo.load_model(cfg.model_name_prefix, dtype,
+                                   torch.device(device),
+                                   int8=(cfg.precision == Precision.INT8))
+        self.model = model
+        super().__init__(cfg, device, seed)
+
+    def _new_frame_program(self, frame_shape, frame_dtype) -> StepProgram:
+        cfg = self.cfg
+        return StepProgram(
+            frame_stages(functools.partial(superpoint_frontend, self.model,
+                                           cfg=cfg), cfg),
+            cfg, self.device, frame_shape, frame_dtype,
+            prepare=functools.partial(preprocess_raw, cfg=cfg))
 
     def process_stream(self, frames, P_l: np.ndarray, P_r: np.ndarray,
                        chunk: int = 16,

@@ -1,0 +1,424 @@
+"""The per-frame programs behind `process` and `process_instrumented`
+(`pipeline.OnlineVO`, one `StepProgram` per raw input shape) on the CPU,
+where they run op by op: against the op-by-op step with explicit
+preprocessing, bit for bit; the noise drawn ahead of the step against the
+noise drawn inside the solve; the carried state across `process`,
+`process_instrumented`, `process_stream` and `reset`; the output's copy;
+and `process` against the JAX package's on its injected noise. The `gpu`
+cases hold the captured graphs against the eager step on the card.
+
+Sizes as in tests/test_torch_stream_modes.py: fp32, superpoint_pretrained,
+96x320, K=256, 64 hypotheses, 64 solver lanes, 188x620 corridor frames,
+seed 12; the device ORB route as in tests/test_torch_classic.py (K=256, 2
+pyramid levels), its 150x496 frames resized on the device to 120x400.
+One torch thread; about 40 s in one process."""
+import dataclasses
+import functools
+import zlib
+
+import numpy as np
+import pytest
+import torch
+
+from spsvo_tpu_torch import frontend_classic as tfc
+from spsvo_tpu_torch import presets as tpresets
+from spsvo_tpu_torch.config import (DescriptorType as TDesc,
+                                    DetectorType as TDet,
+                                    Precision as TPrecision,
+                                    VOConfig as TCfg)
+from spsvo_tpu_torch.eval import synthetic as tsyn
+from spsvo_tpu_torch.ops import image as image_ops
+from spsvo_tpu_torch.ops import pnp, solver as tsolver
+from spsvo_tpu_torch.pipeline import (VisualOdometry, clone_output,
+                                      init_state, state_leaves, vo_step)
+
+SEED = 12
+SMALL = dict(model_name_prefix="superpoint_pretrained", image_height=96,
+             image_width=320, max_keypoints=256, ransac_iterations=64,
+             solve_slots=64, matcher_bf16=False)
+ORB_SMALL = dict(is_classic=True, device_classic=True, image_height=120,
+                 image_width=400, max_keypoints=256, orb_n_levels=2,
+                 orb_edge_threshold=16, ransac_iterations=128,
+                 solve_slots=128)
+TWIST = (np.array([0.0, 0.003, 0.0]), np.array([0.0, 0.0, 0.35]))
+ROUTES = {"flagship": {}, "landmark_refine": dict(landmark_refine=True),
+          "reference_solve": dict(ransac_chunk=16, lm_unroll=0)}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Many small CPU ops per frame: with the suite's worker processes side
+    by side, torch's default of one thread per core in each of them spends
+    its time waiting on the others."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _tcfg(**kw):
+    return dataclasses.replace(tpresets.flagship_tpu(), **SMALL,
+                               precision=TPrecision.FP32, **kw)
+
+
+def _orb_cfg():
+    return TCfg(detector_type=TDet.ORB, descriptor_type=TDesc.ORB,
+                **ORB_SMALL)
+
+
+@functools.lru_cache(maxsize=None)
+def _corridor(n, h=188, w=620):
+    """(raw uint8 frames, P_l, P_r, gt)."""
+    frames, gt, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(SEED), n_frames=n, h=h, w=w, tex_px=1024,
+        twists=[TWIST] * (n - 1))
+    return frames, P_l, P_r, gt
+
+
+@functools.lru_cache(maxsize=None)
+def _model():
+    return VisualOdometry(_tcfg(), device="cpu").model
+
+
+def _noise(cfg, n, seed=3):
+    g = torch.Generator().manual_seed(seed)
+    return [pnp.gumbel_noise(tsolver.gumbel_shape(cfg), g, "cpu").numpy()
+            for _ in range(n)]
+
+
+def _raw(il, ir, P_l, P_r):
+    return (torch.as_tensor(il), torch.as_tensor(ir),
+            torch.as_tensor(np.asarray(P_l), dtype=torch.float32),
+            torch.as_tensor(np.asarray(P_r), dtype=torch.float32))
+
+
+def _eager_cnn(cfg, frames, P_l, P_r, noise=None, generator=None):
+    """The eager reference: explicit preprocessing, then
+    `vo_step` from the carried state; the noise given per frame or drawn
+    inside the solve from `generator`. Returns (outputs, final state)."""
+    state, outs = init_state(cfg, "cpu"), []
+    with torch.no_grad():
+        for f, (il, ir) in enumerate(frames):
+            imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+                *_raw(il, ir, P_l, P_r), dst_h=cfg.image_height,
+                dst_w=cfg.image_width)
+            g = None if noise is None else torch.as_tensor(noise[f])
+            state, out = vo_step(_model(), state, imgs, Pl2, Pr2, cfg=cfg,
+                                 gumbel=g, generator=generator)
+            outs.append(out)
+    return outs, state
+
+
+def _eager_orb(cfg, frames, P_l, P_r, noise):
+    """The device ORB route's eager reference: the pair
+    cropped and resized unnormalised, rounded to whole grey levels, then
+    `classic_step`."""
+    state = tfc.init_state_with_dim(cfg, 256, "cpu")
+    outs = []
+    with torch.no_grad():
+        for f, (il, ir) in enumerate(frames):
+            imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+                *_raw(il, ir, P_l, P_r), dst_h=cfg.image_height,
+                dst_w=cfg.image_width, normalize=False)
+            imgs = torch.round(imgs) / 255.0
+            state, out = tfc.classic_step(state, imgs, Pl2, Pr2, cfg=cfg,
+                                          gumbel=torch.as_tensor(noise[f]))
+            outs.append(out)
+    return outs, state
+
+
+def _assert_outputs_equal(got, want, tag=""):
+    assert torch.equal(got.T_curr_prev, want.T_curr_prev), tag
+    for a, b in zip((*got.keypoints_left, *got.keypoints_right,
+                     got.stereo_map, got.interframe_map, got.chain_valid,
+                     got.inliers),
+                    (*want.keypoints_left, *want.keypoints_right,
+                     want.stereo_map, want.interframe_map, want.chain_valid,
+                     want.inliers)):
+        assert torch.equal(a, b), tag
+    assert got.diagnostics.keys() == want.diagnostics.keys()
+    for k, v in want.diagnostics.items():
+        assert torch.equal(got.diagnostics[k], v), (tag, k)
+
+
+def _assert_states_equal(a, b):
+    for x, y in zip(state_leaves(a), state_leaves(b)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("route", ["flagship", "device_orb"])
+def test_frame_program_equals_the_eager_step(route):
+    """The op-by-op run of the per-frame program (preprocessing inside it)
+    equals the eager step with explicit preprocessing bit for bit:
+    poses, keypoints, match maps, masks, diagnostics (read in one host
+    read as the same numbers) and the carried state; the device ORB route
+    with its pair resized on the device."""
+    if route == "flagship":
+        cfg = _tcfg()
+        frames, P_l, P_r, _ = _corridor(3)
+        vo = VisualOdometry(cfg, device="cpu", model=_model())
+        noise = _noise(cfg, 3)
+        want, state = _eager_cnn(cfg, frames, P_l, P_r, noise)
+    else:
+        cfg = _orb_cfg()
+        frames, P_l, P_r, _ = _corridor(3, 150, 496)
+        vo = tfc.ClassicVisualOdometry(cfg, device="cpu")
+        noise = _noise(cfg, 3)
+        want, state = _eager_orb(cfg, frames, P_l, P_r, noise)
+    for f, (il, ir) in enumerate(frames):
+        T, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                             gumbel=noise[f])
+        _assert_outputs_equal(info["output"], want[f], f)
+        np.testing.assert_array_equal(
+            T, want[f].T_curr_prev.numpy().astype(np.float64))
+        for k, v in want[f].diagnostics.items():
+            assert info[k] == v.item() and type(info[k]) is type(v.item()), k
+    assert len(vo._frame_programs) == 1
+    _assert_states_equal(vo.state, state)
+    if route == "flagship":
+        assert want[-1].diagnostics["num_inliers"] > 30
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
+def test_noise_drawn_ahead_equals_the_draw_in_the_solve(route):
+    """`process(gumbel=None)` draws one `gumbel_shape` slab per frame from
+    the seeded generator before the step: the same numbers as the draw
+    inside the solve (`vo_step` with `generator=`: one slab of that shape,
+    one `torch.rand`), and as `process` given slabs drawn ahead from a
+    generator with the same seed, on the flagship, with `landmark_refine`,
+    and with the reference-parity solve (chunked RANSAC, while-loop LM)."""
+    cfg = _tcfg(**ROUTES[route])
+    frames, P_l, P_r, _ = _corridor(3)
+    vo = VisualOdometry(cfg, device="cpu", seed=5, model=_model())
+    drawn = [vo.process(il, ir, P_l, P_r, want_diagnostics=True)[1]["output"]
+             for il, ir in frames]
+    inside, _ = _eager_cnn(cfg, frames, P_l, P_r,
+                           generator=torch.Generator().manual_seed(5))
+    ahead = VisualOdometry(cfg, device="cpu", model=_model())
+    noise = _noise(cfg, 3, seed=5)
+    for f, (il, ir) in enumerate(frames):
+        out = ahead.process(il, ir, P_l, P_r, want_diagnostics=True,
+                            gumbel=noise[f])[1]["output"]
+        _assert_outputs_equal(drawn[f], inside[f], f)
+        _assert_outputs_equal(out, drawn[f], f)
+    vo.reset()
+    again = vo.process(*frames[0], P_l, P_r, want_diagnostics=True)
+    _assert_outputs_equal(again[1]["output"], drawn[0], "after reset")
+
+
+def test_entry_points_mixed_on_one_instance_give_the_process_poses():
+    """`process`, `process_instrumented`, `process_stream` (frames
+    preprocessed by the same function) and `reset`, mixed on one instance
+    with equal noise, give the poses of `process` alone; `state` is a
+    valid `VOState` between the calls."""
+    cfg = _tcfg()
+    frames, P_l, P_r, _ = _corridor(5)
+    noise = _noise(cfg, 5)
+    ref = VisualOdometry(cfg, device="cpu", model=_model())
+    for f, (il, ir) in enumerate(frames):
+        ref.process(il, ir, P_l, P_r, gumbel=noise[f])
+    pre = []
+    for il, ir in frames[2:4]:
+        imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+            *_raw(il, ir, P_l, P_r), dst_h=96, dst_w=320)
+        pre.append(imgs.numpy())
+    vo = VisualOdometry(cfg, device="cpu", model=_model())
+    vo.process(*frames[0], P_l, P_r, gumbel=noise[0])
+    vo.reset()                          # back to the start mid-drive
+    vo.process(*frames[0], P_l, P_r, gumbel=noise[0])
+    assert int(vo.state.frame_count) == 1
+    vo.process_instrumented(*frames[1], P_l, P_r, gumbel=noise[1])
+    assert int(vo.state.frame_count) == 2 and vo.state.initialized
+    out = list(vo.process_stream(iter(pre), Pl2.numpy(), Pr2.numpy(),
+                                 chunk=2, gumbel=iter([np.stack(noise[2:4])])))
+    assert [i for i, _ in out] == [0, 1]
+    vo.process(*frames[4], P_l, P_r, gumbel=noise[4])
+    assert len(vo.trajectory) == len(ref.trajectory) == 5
+    for a, b in zip(vo.trajectory, ref.trajectory):
+        np.testing.assert_array_equal(a, b)
+    _assert_states_equal(vo.state, ref.state)
+
+
+def test_output_copy_state_and_input_checks():
+    """`info["output"]` of one call is a copy the next call leaves as it
+    is; the state read between calls is the program's; a noise slab of
+    another shape and a pair of two shapes are refused, the state left as
+    it was."""
+    cfg = _tcfg()
+    frames, P_l, P_r, _ = _corridor(3)
+    noise = _noise(cfg, 3)
+    vo = VisualOdometry(cfg, device="cpu", model=_model())
+    _, info0 = vo.process(*frames[0], P_l, P_r, want_diagnostics=True,
+                          gumbel=noise[0])
+    out0 = info0["output"]
+    snap = clone_output(out0)
+    state1 = vo.state
+    vo.process(*frames[1], P_l, P_r, want_diagnostics=True, gumbel=noise[1])
+    _assert_outputs_equal(out0, snap)
+    assert int(state1.frame_count) == 1 and int(vo.state.frame_count) == 2
+    before = vo.state
+    with pytest.raises(ValueError, match="gumbel noise must be"):
+        vo.process(*frames[2], P_l, P_r, gumbel=noise[2][:, :10])
+    with pytest.raises(ValueError, match="one shape and dtype"):
+        vo.process(frames[2][0], frames[2][1][:, :600], P_l, P_r)
+    _assert_states_equal(vo.state, before)
+
+
+def test_process_through_the_program_matches_jax():
+    """JAX's `process` against the port's, which runs through the
+    per-frame program, on JAX's per-frame noise: the drive, recipe and
+    bounds of tests/test_torch_pipeline.py::
+    test_slice_matches_jax_trajectory (equal keypoint counts, T within
+    1e-3 m and 1e-4 rad, inliers within 3). (On this file's own drive a
+    lane of frame 1 sits on the inlier threshold with JAX's key 0, and the
+    packages part by 3.8e-3 m there, in the eager step as well.)"""
+    jax = pytest.importorskip("jax")
+    from scipy.spatial.transform import Rotation
+
+    from spsvo_tpu import presets as jpresets
+    from spsvo_tpu.config import Precision as JPrecision
+    from spsvo_tpu.pipeline import VisualOdometry as JVO
+    seed = zlib.crc32(b"tests/test_torch_pipeline.py::"
+                      b"test_slice_matches_jax_trajectory")
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(seed), n_frames=4, h=188, w=620, tex_px=1024,
+        twists=[TWIST] * 3)
+    jvo = JVO(dataclasses.replace(jpresets.flagship_tpu(), **SMALL,
+                                  precision=JPrecision.FP32), seed=0)
+    tvo = VisualOdometry(_tcfg(), device="cpu", model=_model())
+    for f, (il, ir) in enumerate(frames):
+        key = jax.random.fold_in(jax.random.PRNGKey(0), f)
+        g = np.asarray(jax.random.gumbel(jax.random.split(key)[0], (64, 64)))
+        Tj, ij = jvo.process(il, ir, P_l, P_r, want_diagnostics=True)
+        Tt, it = tvo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                             gumbel=g)
+        assert it["num_keypoints_left"] == ij["num_keypoints_left"]
+        assert it["num_keypoints_right"] == ij["num_keypoints_right"]
+        assert abs(it["num_inliers"] - ij["num_inliers"]) <= 3
+        assert np.abs(Tt[:3, 3] - Tj[:3, 3]).max() <= 1e-3, f
+        assert Rotation.from_matrix(
+            Tt[:3, :3].T @ Tj[:3, :3]).magnitude() <= 1e-4, f
+        if f > 0:
+            assert ij["num_inliers"] > 30 and ij["pnp_success"]
+    np.testing.assert_allclose(tvo.current_pose(), jvo.current_pose(),
+                               atol=2e-3)
+
+
+# ---- on the card ----------------------------------------------------------
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+class _Replays:
+    """Counts `CUDAGraph.replay` calls while in use."""
+
+    def __init__(self, monkeypatch):
+        self.n = 0
+        replay = torch.cuda.CUDAGraph.replay
+
+        def counted(graph):
+            self.n += 1
+            return replay(graph)
+        monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("change", [dict(), dict(ransac_chunk=16,
+                                                 lm_unroll=0)],
+                         ids=["flagship", "reference_solve"])
+def test_cuda_frame_graph_equals_eager(change, monkeypatch):
+    """On the card, the flagship at full width from a raw 375x1242 pair:
+    the captured per-frame program (preprocessing inside it, the adaptive
+    loops masked to full length) equals the eager step on device-
+    preprocessed frames bit for bit, one replay per frame after the
+    first; one frame launches kernels 1 and 2 once each (the reference-
+    parity solve: kernel 1 alone) and kernel 3 once per conv;
+    `process_instrumented` replays three graphs and equals `process`."""
+    from spsvo_tpu_torch import _build
+    dev = _cuda()
+    n = 4
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(42), n_frames=n, h=375, w=1242)
+    cfg = dataclasses.replace(
+        tpresets.flagship_tpu(), model_name_prefix="superpoint_pretrained",
+        **change)
+    vo = VisualOdometry(cfg, device=dev)
+    noise = [pnp.gumbel_noise(tsolver.gumbel_shape(cfg),
+                              torch.Generator(dev).manual_seed(f), dev
+                              ).cpu().numpy() for f in range(n)]
+    replays = _Replays(monkeypatch)
+    outs = []
+    for f, (il, ir) in enumerate(frames):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        before = replays.n
+        _, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                             gumbel=noise[f])
+        torch.cuda.synchronize()
+        assert replays.n - before == (f > 0)
+        fused = tsolver.fused_composition(cfg)
+        assert _build.launches == {"match_nn": 1, "conv_bf16": 12,
+                                   **({"fused_solve": 1} if fused else {})}
+        outs.append(info["output"])
+    state = init_state(cfg, dev)
+    with torch.no_grad():
+        for f, (il, ir) in enumerate(frames):
+            imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+                *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
+                dst_h=cfg.image_height, dst_w=cfg.image_width)
+            state, out = vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg,
+                                 gumbel=torch.as_tensor(noise[f]).to(dev))
+            _assert_outputs_equal(outs[f], out, f)
+    _assert_states_equal(vo.state, state)
+    inst = VisualOdometry(cfg, device=dev, model=vo.model)
+    for f, (il, ir) in enumerate(frames):
+        before = replays.n
+        _, info = inst.process_instrumented(il, ir, P_l, P_r,
+                                            gumbel=noise[f])
+        assert replays.n - before == (3 if f else 0)
+        _assert_outputs_equal(info["output"], outs[f], f)
+
+
+@pytest.mark.gpu
+def test_cuda_classic_frame_graph_equals_eager(monkeypatch):
+    """On the card, the device ORB route behind the flagship solve at the
+    native 375x1242 (chip_smoke.py's `classic_cfg`): the captured per-frame
+    program equals the eager step bit for bit, one replay per frame after
+    the first, kernel 2 once per frame and kernel 1 never."""
+    from spsvo_tpu_torch import _build
+    dev = _cuda()
+    n = 3
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(42), n_frames=n, h=375, w=1242)
+    cfg = dataclasses.replace(
+        tpresets.flagship_tpu(), is_classic=True, device_classic=True,
+        detector_type=TDet.ORB, descriptor_type=TDesc.ORB, image_height=375,
+        image_width=1242, orb_edge_threshold=31)
+    vo = tfc.ClassicVisualOdometry(cfg, device=dev)
+    noise = [pnp.gumbel_noise(tsolver.gumbel_shape(vo.cfg),
+                              torch.Generator(dev).manual_seed(f), dev
+                              ).cpu().numpy() for f in range(n)]
+    replays = _Replays(monkeypatch)
+    state = tfc.init_state_with_dim(vo.cfg, vo.desc_dim, dev)
+    for f, (il, ir) in enumerate(frames):
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        before = replays.n
+        _, info = vo.process(il, ir, P_l, P_r, want_diagnostics=True,
+                             gumbel=noise[f])
+        torch.cuda.synchronize()
+        assert replays.n - before == (f > 0)
+        assert _build.launches == {"fused_solve": 1}
+        with torch.no_grad():
+            imgs, Pl2, Pr2 = tfc.device_prepare(
+                torch.stack([torch.as_tensor(il), torch.as_tensor(ir)]
+                            ).to(dev),
+                *(t.to(dev) for t in _raw(il, ir, P_l, P_r)[2:]),
+                cfg=vo.cfg)
+            state, out = tfc.classic_step(
+                state, imgs, Pl2, Pr2, cfg=vo.cfg,
+                gumbel=torch.as_tensor(noise[f]).to(dev))
+        _assert_outputs_equal(info["output"], out, f)
