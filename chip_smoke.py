@@ -3428,6 +3428,7 @@ def sharded_rank(mesh, ref_path):
     from spsvo_tpu_torch.parallel.sharding import (
         build_batch_vo, build_online_hybrid, build_orb_hybrid, match_batch,
         match_pairs, pair_chains)
+    from spsvo_tpu_torch.utils import profiling
     refs = torch.load(ref_path)
     dev, r = mesh.device, mesh.rank
     tag = f"phase11 rank {r}"
@@ -3476,12 +3477,20 @@ def sharded_rank(mesh, ref_path):
     xs, _ = hybrid.gathered(state)
     worst, _ = check_scan_steps(f"phase11b rank {r}", hybrid, xs, P_l, P_r,
                                 n)
+    # captured with tracing on, so the graphs hold a device stamp per step
+    profiling.enable()
+    hybrid(imgs, P_l, P_r, gumbel=gumbel)
+    profiling.disable()
+    profiling.snapshot()
     same_g, rep, rep_ms = _graph_vs_eager(hybrid, imgs, P_l, P_r, gumbel,
                                           (world, diag))
-    step_ms: dict = {}
+    profiling.enable()
     for _ in range(5):
-        hybrid(imgs, P_l, P_r, gumbel=gumbel, step_ms=step_ms)
-    step_ms = {k: v / 5 for k, v in step_ms.items()}
+        hybrid(imgs, P_l, P_r, gumbel=gumbel)
+    stamps = profiling.snapshot()["stamps"]
+    profiling.disable()
+    step_ms = {k: sum(s["ms"][k] for s in stamps) / len(stamps)
+               for k in stamps[0]["ms"]}
     score = score_trajectory([T.astype(np.float64)
                               for T in world.cpu().numpy()], gt)
     out["cnn"] = {

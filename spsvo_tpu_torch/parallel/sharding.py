@@ -65,7 +65,6 @@ from __future__ import annotations
 
 import functools
 import gc
-import time
 import warnings
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
@@ -83,6 +82,7 @@ from spsvo_tpu_torch.parallel.mesh import (Mesh, build_kernels,
                                            pair_counts, shard_bounds)
 from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, init_state,
                                       matcher_gate, vo_step)
+from spsvo_tpu_torch.utils import profiling
 
 # scan branches, chosen from the configuration alone
 LANDMARK_KERNEL = "landmark_kernel"   # flagship: hoisted tile + fused solve
@@ -394,7 +394,13 @@ class _StepGraphs:
     functions are kept after the capture, so the graphs hold no reference
     to the program that made them. `inputs` are the static buffers
     state["in"] is made of, `scratch` kernel 1's that the graphs alone
-    own."""
+    own.
+
+    Captured with tracing on (`utils.profiling`), the graphs hold device
+    stamps before the first step ("start") and after each step (named as
+    the step; a collective's, outside the graphs, at the start of the
+    stretch after it) and their nodes are counted, under "hybrid";
+    `replay` is the span `spsvo.segment.launch`."""
 
     def __init__(self, steps, state: dict, dev: torch.device,
                  inputs: List[torch.Tensor],
@@ -406,6 +412,7 @@ class _StepGraphs:
         # per stretch: (its steps' names, the collective's function or
         # None, its graph or None, the launches the graph holds)
         self.stretches: List[tuple] = []
+        self.stamps = profiling.capture_stamps("hybrid", dev)
         gc_on = gc.isenabled()
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
@@ -415,51 +422,57 @@ class _StepGraphs:
             torch.cuda.current_stream(dev).wait_stream(stream)
             gc.disable()
             try:
+                before = "start"
                 for kind, part in _stretches(steps):
                     self.stretches.append(self._capture(kind, part, stream,
-                                                        mode))
+                                                        mode, before))
+                    before = part[-1][0]
             finally:
                 if gc_on:
                     gc.enable()
+        profiling.count_nodes("hybrid", [g for _, _, g, _ in self.stretches
+                                         if g is not None], self.stamps)
 
-    def _capture(self, kind: str, part, stream, mode: str) -> tuple:
+    def _capture(self, kind: str, part, stream, mode: str,
+                 before: str) -> tuple:
+        """One stretch; `before` names the step before it ("start" for
+        the first)."""
         names = tuple(name for name, _ in part)
         if kind == "comm":
             (name, fn), = part
             self.state[name] = fn(self.state)
             return names, fn, None, None
-        graph = torch.cuda.CUDAGraph()
-        before = _build.captured.copy()
+        graph = profiling.new_graph(self.stamps)
+        launched = _build.captured.copy()
+        marks = self.stamps
         # a step may launch nothing (the feature input's front end is views)
         with warnings.catch_warnings():
             warnings.filterwarnings("ignore", "The CUDA Graph is empty")
             with torch.cuda.graph(graph, stream=stream,
                                   capture_error_mode=mode):
+                if marks is not None:
+                    marks.mark(before)
                 for name, fn in part:
                     self.state[name] = fn(self.state)
-        return names, None, graph, _build.captured_since(before)
+                    if marks is not None:
+                        marks.mark(name)
+        return names, None, graph, _build.captured_since(launched)
 
-    def replay(self, step_ms: Optional[Dict[str, float]] = None):
-        """Every stretch once; returns the last step's outputs. With
-        `step_ms` each stretch's time (host clock, the device synchronised
-        before and after it) is added to it under its steps' names joined
-        by "+"."""
-        for names, fn, graph, recorded in self.stretches:
-            if step_ms is not None:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-            if graph is not None:
-                graph.replay()
-                _build.count_replay(recorded)
-            else:
-                got = fn(self.state)
-                for dst, src in zip(self.state[names[0]] or (), got or ()):
-                    dst.copy_(src)
-            if step_ms is not None:
-                torch.cuda.synchronize()
-                key = "+".join(names)
-                step_ms[key] = (step_ms.get(key, 0.0)
-                                + (time.perf_counter() - t0) * 1e3)
+    def replay(self):
+        """Every stretch once; returns the last step's outputs."""
+        if self.stamps is not None:
+            profiling.collect()
+        with profiling.span("spsvo.segment.launch"):
+            for names, fn, graph, recorded in self.stretches:
+                if graph is not None:
+                    graph.replay()
+                    _build.count_replay(recorded)
+                else:
+                    got = fn(self.state)
+                    for dst, src in zip(self.state[names[0]] or (),
+                                        got or ()):
+                        dst.copy_(src)
+        profiling.replayed("hybrid", self.stamps)
         return self.state[self.last]
 
 
@@ -508,6 +521,7 @@ class OnlineHybrid:
         k = cfg.max_keypoints
         self.lanes = min(cfg.solve_slots, k) if cfg.solve_slots else k
         self._graphs: Dict[tuple, _StepGraphs] = {}
+        self.calls = 0       # calls made: the traced request id
 
     # -- the phases -------------------------------------------------------
     def frontend(self, images) -> Tuple[Keypoints, Keypoints]:
@@ -690,33 +704,49 @@ class OnlineHybrid:
     @torch.no_grad()
     def __call__(self, images, P_l: torch.Tensor,
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
-                 generator: Optional[torch.Generator] = None,
-                 step_ms: Optional[Dict[str, float]] = None
+                 generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """On CUDA the program's graphs (`_StepGraphs`, built at the first
-        call of each input shape) replayed on this call's inputs;
-        `step_ms` collects each stretch's time of the replay."""
+        call of each input shape) replayed on this call's inputs.
+
+        Traced (`utils.profiling`), a call is the span `spsvo.segment`
+        (request id: the instance's call counter) around
+        `spsvo.segment.feed` (the noise, this call's inputs into the
+        graphs' static ones), `spsvo.capture` at a shape's first call,
+        `spsvo.segment.launch` (the replay; on the CPU the op-by-op run)
+        and `spsvo.segment.copy` (the copies of the world and
+        diagnostics)."""
         leaves = tuple(images) if self.feature_input else (images,)
         n = leaves[0].shape[0]
         if n < 2:
             raise ValueError("the online hybrid needs at least 2 frames")
-        if gumbel is None:
-            gumbel = self.draw_gumbel(n, generator)
-        if self.device.type != "cuda":
-            return self.eager(images, P_l, P_r, gumbel)
-        shard, ins = self._inputs(images, P_l, P_r, gumbel)
-        key = tuple((tuple(t.shape), t.dtype) for t in leaves)
-        prog = self._graphs.get(key)
-        if prog is None:
-            static = [t.clone() for t in ins]
-            scratch = self.match_scratch(n)
-            prog = self._graphs[key] = _StepGraphs(
-                self.steps(shard, scratch), {"in": self._state_in(static)},
-                self.device, static, scratch)
-        for dst, src in zip(prog.inputs, ins):
-            dst.copy_(src)
-        world, diag = prog.replay(step_ms)
-        return world.clone(), {k: v.clone() for k, v in diag.items()}
+        self.calls += 1
+        cuda = self.device.type == "cuda"
+        with profiling.span("spsvo.segment", request=self.calls):
+            with profiling.span("spsvo.segment.feed"):
+                if gumbel is None:
+                    gumbel = self.draw_gumbel(n, generator)
+                if cuda:
+                    shard, ins = self._inputs(images, P_l, P_r, gumbel)
+                    key = tuple((tuple(t.shape), t.dtype) for t in leaves)
+                    prog = self._graphs.get(key)
+                    if prog is not None:
+                        for dst, src in zip(prog.inputs, ins):
+                            dst.copy_(src)
+            if not cuda:
+                with profiling.span("spsvo.segment.launch"):
+                    return self.eager(images, P_l, P_r, gumbel)
+            if prog is None:
+                with profiling.span("spsvo.capture", form="hybrid"):
+                    static = [t.clone() for t in ins]
+                    scratch = self.match_scratch(n)
+                    prog = self._graphs[key] = _StepGraphs(
+                        self.steps(shard, scratch),
+                        {"in": self._state_in(static)}, self.device, static,
+                        scratch)
+            world, diag = prog.replay()
+            with profiling.span("spsvo.segment.copy"):
+                return world.clone(), {k: v.clone() for k, v in diag.items()}
 
 
 def _resolve(cfg: VOConfig, model, device, who: str, cnn: bool = True,

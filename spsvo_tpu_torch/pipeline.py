@@ -48,6 +48,7 @@ from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import image as image_ops
 from spsvo_tpu_torch.ops import matching, pnp, solver
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
+from spsvo_tpu_torch.utils import profiling
 
 
 class VOState(NamedTuple):
@@ -372,7 +373,14 @@ class StepProgram:
     and the stages' graphs share one memory pool. Without `graph` every
     run is op by op. A frame with `real=False` (tail padding of a chunk)
     leaves the state as it was: every state tensor is reverted by
-    `torch.where`, inside the program."""
+    `torch.where`, inside the program.
+
+    Traced (`utils.profiling`): `spsvo.capture` around a form's first run,
+    `spsvo.frame.launch` around each replay (each op-by-op run without
+    `graph`); a form captured with tracing on holds device stamps before
+    `prepare` ("start") and after each stage (named as its function: the
+    whole step's is "whole"), and its graphs' nodes are counted, under
+    the form's name, "whole" or "split"."""
 
     def __init__(self, step, cfg: VOConfig, device, frame_shape,
                  frame_dtype=torch.float32, graph: Optional[bool] = None,
@@ -396,7 +404,8 @@ class StepProgram:
             from spsvo_tpu_torch.ops.matching_cuda import match_scratch
             k = cfg.max_keypoints
             self.scratch = match_scratch(dev, 2, k, k)
-        # split -> (graphs, their outputs, the kernel launches each holds)
+        # split -> (graphs, their outputs, the kernel launches each holds,
+        # their device stamps or None)
         self._graphs: Dict[bool, tuple] = {}
 
     def set_projections(self, P_l: torch.Tensor, P_r: torch.Tensor) -> None:
@@ -425,11 +434,16 @@ class StepProgram:
         self.gumbel.copy_(gumbel)
         self.real.fill_(bool(real))
 
-    def _part(self, stages: range, carry):
+    def _part(self, stages: range, carry,
+              marks: Optional[profiling.GraphStamps] = None):
         for i in stages:
             if i == 0:
+                if marks is not None:
+                    marks.mark("start")
                 carry = self.prepare(self.images, self.P_l, self.P_r)
             carry = self.stages[i](self, *carry)
+            if marks is not None:
+                marks.mark(self.stages[i].__name__)
         if stages[-1] == len(self.stages) - 1:
             new, carry = carry
             for dst, src in zip(state_leaves(self.state), state_leaves(new)):
@@ -446,28 +460,37 @@ class StepProgram:
         n = len(self.stages)
         parts = ([range(k, k + 1) for k in range(n)] if split
                  else [range(n)])
+        form = "split" if split else "whole"
         if split in self._graphs:
-            graphs, outs, recorded = self._graphs[split]
+            graphs, outs, recorded, stamps = self._graphs[split]
+            if stamps is not None:
+                profiling.collect()
             for k, g in enumerate(graphs):
-                g.replay()
+                with profiling.span("spsvo.frame.launch"):
+                    g.replay()
                 _build.count_replay(recorded[k])
                 if on_stage is not None:
                     on_stage(k, outs[k])
+            profiling.replayed(form, stamps)
             return outs[-1]
         if not self.use_graph:
             carry = ()
             for k, part in enumerate(parts):
-                carry = self._part(part, carry)
+                with profiling.span("spsvo.frame.launch"):
+                    carry = self._part(part, carry)
                 if on_stage is not None:
                     on_stage(k, carry)
             return carry
-        return self._capture(split, parts, on_stage)
+        with profiling.span("spsvo.capture", form=form):
+            return self._capture(split, parts, on_stage, form)
 
-    def _capture(self, split: bool, parts, on_stage) -> VOStepOutput:
+    def _capture(self, split: bool, parts, on_stage, form: str
+                 ) -> VOStepOutput:
         """The first run of a form: each program runs op by op on a side
         stream (the frame's result), then is captured on that stream."""
         dev = self.device
         graphs, outs, recorded = [], [], []
+        stamps = profiling.capture_stamps(form, dev)
         pool = torch.cuda.graph_pool_handle()
         with torch.cuda.device(dev):
             stream = torch.cuda.Stream(dev)
@@ -476,17 +499,18 @@ class StepProgram:
                 carry = static = ()
                 for k, part in enumerate(parts):
                     carry = self._part(part, carry)
-                    graph = torch.cuda.CUDAGraph()
+                    graph = profiling.new_graph(stamps)
                     before = _build.captured.copy()
                     with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        static = self._part(part, static)
+                        static = self._part(part, static, stamps)
                     graphs.append(graph)
                     outs.append(static)
                     recorded.append(_build.captured_since(before))
                     if on_stage is not None:
                         on_stage(k, carry)
             torch.cuda.current_stream(dev).wait_stream(stream)
-        self._graphs[split] = (graphs, outs, recorded)
+        profiling.count_nodes(form, graphs, stamps)
+        self._graphs[split] = (graphs, outs, recorded, stamps)
         return carry
 
     @torch.no_grad()
@@ -597,7 +621,14 @@ class OnlineVO:
     frame); assigning it (`reset`, `process_stream`) hands it back to the
     next program that runs. The noise of a frame without `gumbel` is drawn
     from `generator` before the step, one slab of
-    `solver.gumbel_shape(cfg)`."""
+    `solver.gumbel_shape(cfg)`.
+
+    Traced (`utils.profiling`), a call is the span `spsvo.frame` (request
+    id: the instance's frame counter) around `spsvo.frame.feed`, the
+    program's `spsvo.frame.launch` (or `spsvo.capture`),
+    `spsvo.frame.read`, `spsvo.frame.pose` and, under `want_diagnostics`,
+    `spsvo.frame.diagnostics`; the program's stamps are read after the
+    frame's host read."""
 
     desc_dim = 256
 
@@ -605,6 +636,7 @@ class OnlineVO:
         self.cfg = cfg
         self.device = torch.device(device)
         self.seed = seed
+        self.frames = 0      # frames processed: the traced request id
         self.generator = torch.Generator(self.device)
         # process_stream's step programs, by (frame shape, dtype)
         self._programs: Dict[tuple, StepProgram] = {}
@@ -631,7 +663,6 @@ class OnlineVO:
         self.world_T_cam = np.eye(4, dtype=np.float64)
         self.last_valid_T = np.eye(4, dtype=np.float64)
         self.trajectory: list[np.ndarray] = []
-        self.latencies: list[Dict[str, float]] = []
 
     def current_pose(self) -> np.ndarray:
         return self.world_T_cam.copy()
@@ -651,18 +682,19 @@ class OnlineVO:
         if prog is None:
             prog = self._frame_programs[key] = self._new_frame_program(
                 (2,) + key[0], key[1])
-        if gumbel is None:
-            g = pnp.gumbel_noise(solver.gumbel_shape(self.cfg),
-                                 self.generator, self.device)
-        else:
-            g = torch.as_tensor(np.array(gumbel, np.float32))
-        prog.feed((il, ir), g)
-        prog.set_projections(*(torch.as_tensor(np.asarray(P),
-                                               dtype=torch.float32)
-                               for P in (P_l, P_r)))
-        if self._live is not prog:
-            prog.load_state(self.state)
-            self._live = prog
+        with profiling.span("spsvo.frame.feed"):
+            if gumbel is None:
+                g = pnp.gumbel_noise(solver.gumbel_shape(self.cfg),
+                                     self.generator, self.device)
+            else:
+                g = torch.as_tensor(np.array(gumbel, np.float32))
+            prog.feed((il, ir), g)
+            prog.set_projections(*(torch.as_tensor(np.asarray(P),
+                                                   dtype=torch.float32)
+                                   for P in (P_l, P_r)))
+            if self._live is not prog:
+                prog.load_state(self.state)
+                self._live = prog
         self._state = None
         return prog.run(split, on_stage)
 
@@ -677,17 +709,21 @@ class OnlineVO:
         generator. Reads back the pose, and with `want_diagnostics` the
         diagnostics (one read) and a copy of the step's output
         (`info["output"]`)."""
-        t0 = time.perf_counter()
-        out = self._run(img_l, img_r, P_l, P_r, gumbel)
-        T = out.T_curr_prev.cpu().numpy().astype(np.float64)
-        t1 = time.perf_counter()
-
-        T = apply_pose_update(self, T)
-        info: Dict[str, Any] = {"latency_s": t1 - t0}
-        if want_diagnostics:
-            info.update(read_diagnostics(out.diagnostics))
-            info["output"] = clone_output(out)
-        self.latencies.append({"total": t1 - t0})
+        self.frames += 1
+        with profiling.span("spsvo.frame", request=self.frames):
+            t0 = time.perf_counter()
+            out = self._run(img_l, img_r, P_l, P_r, gumbel)
+            with profiling.span("spsvo.frame.read"):
+                T = out.T_curr_prev.cpu().numpy().astype(np.float64)
+            t1 = time.perf_counter()
+            profiling.collect()
+            with profiling.span("spsvo.frame.pose"):
+                T = apply_pose_update(self, T)
+            info: Dict[str, Any] = {"latency_s": t1 - t0}
+            if want_diagnostics:
+                with profiling.span("spsvo.frame.diagnostics"):
+                    info.update(read_diagnostics(out.diagnostics))
+                    info["output"] = clone_output(out)
         return T, info
 
     @torch.no_grad()
@@ -700,21 +736,27 @@ class OnlineVO:
         carries real detect/match/solve/total times for the latency CSV.
         Same math and the same noise stream as `process`: equal results;
         each stage boundary costs one synchronisation."""
-        stamps, reads = [time.perf_counter()], []
+        self.frames += 1
+        with profiling.span("spsvo.frame", request=self.frames):
+            stamps, reads = [time.perf_counter()], []
 
-        def close(k, carry):
-            reads.append(STAGE_READS[k](carry).cpu())
-            stamps.append(time.perf_counter())
+            def close(k, carry):
+                with profiling.span("spsvo.frame.read", stage=k):
+                    reads.append(STAGE_READS[k](carry).cpu())
+                stamps.append(time.perf_counter())
 
-        out = self._run(img_l, img_r, P_l, P_r, gumbel, split=True,
-                        on_stage=close)
-        T = apply_pose_update(self, reads[-1].numpy().astype(np.float64))
-        t0, t1, t2, t3 = stamps
-        lat = {"detect": (t1 - t0) * 1e3, "match": (t2 - t1) * 1e3,
-               "solve": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
-        self.latencies.append(lat)
-        return T, {"latency_s": t3 - t0, "stages_ms": lat,
-                   "output": clone_output(out)}
+            out = self._run(img_l, img_r, P_l, P_r, gumbel, split=True,
+                            on_stage=close)
+            profiling.collect()
+            with profiling.span("spsvo.frame.pose"):
+                T = apply_pose_update(self,
+                                      reads[-1].numpy().astype(np.float64))
+            t0, t1, t2, t3 = stamps
+            lat = {"detect": (t1 - t0) * 1e3, "match": (t2 - t1) * 1e3,
+                   "solve": (t3 - t2) * 1e3, "total": (t3 - t0) * 1e3}
+            with profiling.span("spsvo.frame.diagnostics"):
+                output = clone_output(out)
+        return T, {"latency_s": t3 - t0, "stages_ms": lat, "output": output}
 
 
 class VisualOdometry(OnlineVO):

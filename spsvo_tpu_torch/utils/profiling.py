@@ -1,73 +1,244 @@
-"""Observability: wall-clock spans, per-frame latency traces, device profiler.
+"""Observability: the port's trace (spans, in-graph device stamps, graph
+counters) kept in memory until read, and a device profiler.
 
-Mirrors `spsvo_tpu.utils.profiling`: named spans, the 4-column per-frame
-latency CSV, and a device trace, here a `torch.profiler` context that
-writes a Chrome trace (chrome://tracing, Perfetto).
+Tracing is on while `enable()` holds, or while a `torch.profiler` records:
+a profile taken by any caller then carries the port's spans. Off, `span`
+returns one shared no-op context and nothing is stored, so the per-frame
+entry points pay a function call per span.
+
+- `span(name, request=None, **args)`: a record in the store (name, start
+  and end by `time.perf_counter_ns`, `wall_ns` by `time.time_ns` at the
+  start, the clock of a profiler's events, the enclosing span's index, the
+  request id, the enclosing span's unless given, and `args`) and, while a
+  profiler records, a `torch.profiler.record_function` range of that name,
+  so the span lands in its trace on the clock of its device events.
+- `GraphStamps`: timing events recorded at a program's boundaries while it
+  is captured into CUDA graphs with tracing on (a graph captured with
+  tracing off holds none). A replay with tracing on queues them
+  (`replayed`); `collect`, after a host read has waited on the stream,
+  reads the device ms between consecutive boundaries into the store.
+- Counters: each graph's nodes at capture (`graph_nodes`, with tracing on,
+  where the graph was kept for it), replays per program, and the hand
+  kernels' launches as `_build` counts them.
+- `snapshot()`: everything stored since the last one, which it clears.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
-import csv
+import ctypes
 import os
 import time
-from typing import Dict, Iterator, List
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+# CUgraphNodeType of the CUDA driver API
+_KERNEL_NODE, _EVENT_RECORD_NODE = 0, 7
 
 
 class SpanTimer:
-    """Named wall-clock spans with running stats. A span around device work
-    measures it only if the work ends in a synchronisation."""
+    """The trace's in-memory store: span records (in the order they
+    opened), device stamps, counters, the stamps queued by replays not yet
+    read, and the spans open now (innermost last)."""
 
     def __init__(self) -> None:
-        self.records: Dict[str, List[float]] = {}
+        self.records: List[Dict[str, Any]] = []
+        self.stamps: List[Dict[str, Any]] = []
+        self.counters: collections.Counter = collections.Counter()
+        self.pending: List[tuple] = []
+        self.open: List[int] = []
 
-    @contextlib.contextmanager
-    def span(self, name: str) -> Iterator[None]:
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.records.setdefault(name, []).append(
-                (time.perf_counter() - t0) * 1000.0)
-
-    def mean_ms(self, name: str) -> float:
-        vals = self.records.get(name, [])
-        return sum(vals) / len(vals) if vals else float("nan")
-
-    def summary(self) -> Dict[str, float]:
-        return {k: self.mean_ms(k) for k in self.records}
+    def request(self) -> Any:
+        """The request id of the innermost open span (None outside)."""
+        return self.records[self.open[-1]]["request"] if self.open else None
 
 
-class LatencyTrace:
-    """Per-frame latency CSV in the 4-column format {detect, match, solve,
-    total}, named `{config}_{tag}.csv` under `{dir}/{machine}`."""
+_store = SpanTimer()
+_switch = False
+_OFF = contextlib.nullcontext()
 
-    COLUMNS = ("detect", "match", "solve", "total")
 
-    def __init__(self, directory: str, machine: str, config_string: str,
-                 tag: str):
-        d = os.path.join(directory, machine)
-        os.makedirs(d, exist_ok=True)
-        self.path = os.path.join(d, f"{config_string}_{tag}.csv")
-        self._rows: List[Dict[str, float]] = []
+def enable() -> None:
+    global _switch
+    _switch = True
 
-    def add(self, **ms: float) -> None:
-        self._rows.append({c: float(ms.get(c, 0.0)) for c in self.COLUMNS})
 
-    def close(self) -> None:
-        with open(self.path, "w", newline="") as f:
-            w = csv.writer(f)
-            w.writerow(self.COLUMNS)
-            for r in self._rows:
-                w.writerow([f"{r[c]:.4f}" for c in self.COLUMNS])
+def disable() -> None:
+    global _switch
+    _switch = False
+
+
+def enabled() -> bool:
+    """Tracing is on: switched on, or a torch.profiler is recording."""
+    return _switch or _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str, request: Any = None, **args: Any):
+    """A named span around a block (see the module's docstring)."""
+    if not enabled():
+        return _OFF
+    return _Span(name, request, args)
+
+
+class _Span:
+    """A span with tracing on: its record in the store, and a
+    `record_function` range while a profiler records (without one the
+    range would cost ~8 us and land nowhere)."""
+
+    __slots__ = ("rec", "store", "range")
+
+    def __init__(self, name: str, request: Any, args: Dict[str, Any]):
+        self.rec = {"name": name, "request": request, "args": args}
+
+    def __enter__(self) -> None:
+        self.store = store = _store
+        self.range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.range = torch.profiler.record_function(self.rec["name"])
+            self.range.__enter__()
+        rec = self.rec
+        if rec["request"] is None:
+            rec["request"] = store.request()
+        rec["parent"] = store.open[-1] if store.open else None
+        rec["wall_ns"] = time.time_ns()
+        store.records.append(rec)
+        store.open.append(len(store.records) - 1)
+        rec["start_ns"] = time.perf_counter_ns()
+
+    def __exit__(self, *exc) -> None:
+        self.rec["end_ns"] = time.perf_counter_ns()
+        self.store.open.pop()
+        if self.range is not None:
+            self.range.__exit__(*exc)
+
+
+class GraphStamps:
+    """Timing events recorded at a program's boundaries during its capture
+    (`mark`, on the capturing stream): the device ms between two
+    consecutive marks is the step the later one names."""
+
+    def __init__(self, program: str) -> None:
+        self.program = program
+        self.labels: List[str] = []
+        self.events: List[torch.cuda.Event] = []
+
+    def mark(self, label: str) -> None:
+        ev = torch.cuda.Event(enable_timing=True, external=True)
+        ev.record()
+        self.labels.append(label)
+        self.events.append(ev)
+
+
+def capture_stamps(program: str, device: torch.device
+                   ) -> Optional[GraphStamps]:
+    """The stamps a capture of `program` on `device` records: with tracing
+    on, on a CUDA device; else None."""
+    return (GraphStamps(program) if device.type == "cuda" and enabled()
+            else None)
+
+
+def replayed(program: str, stamps: Optional[GraphStamps]) -> None:
+    """A replay of `program` (its graphs, once each) was launched: with
+    tracing on, counted, and its stamps queued until `collect`. A program
+    with stamps calls `collect` before it replays, as a replay overwrites
+    its events."""
+    if not enabled():
+        return
+    _store.counters[f"replays.{program}"] += 1
+    if stamps is not None and stamps.events:
+        _store.pending.append((stamps, _store.request()))
+
+
+def collect() -> None:
+    """Read the queued stamps into the store (waiting for their replays
+    to end)."""
+    store = _store
+    if not store.pending:
+        return
+    for stamps, request in store.pending:
+        evs = stamps.events
+        evs[-1].synchronize()
+        ms = {label: a.elapsed_time(b) for label, a, b in
+              zip(stamps.labels[1:], evs, evs[1:])}
+        store.stamps.append({"program": stamps.program, "request": request,
+                             "ms": ms})
+    store.pending.clear()
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+    """The nodes of a graph captured with `keep_graph=True` (before
+    `instantiate`): in total, kernel nodes and event-record nodes, read
+    through the CUDA driver API (`cudaGraph_t` is the driver's
+    `CUgraph`)."""
+    cu = ctypes.CDLL("libcuda.so.1")
+    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                   ctypes.POINTER(ctypes.c_size_t)]
+    cu.cuGraphGetNodes.restype = ctypes.c_int
+    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
+                                      ctypes.POINTER(ctypes.c_int)]
+    cu.cuGraphNodeGetType.restype = ctypes.c_int
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds: collections.Counter = collections.Counter()
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(0)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
+            raise RuntimeError("cuGraphNodeGetType failed")
+        kinds[t.value] += 1
+    return {"nodes": n.value, "kernels": kinds[_KERNEL_NODE],
+            "events": kinds[_EVENT_RECORD_NODE]}
+
+
+def new_graph(stamps: Optional[GraphStamps]) -> torch.cuda.CUDAGraph:
+    """A graph to capture into: kept after its capture (for
+    `count_nodes`) where the capture is traced."""
+    return torch.cuda.CUDAGraph(keep_graph=stamps is not None)
+
+
+def count_nodes(program: str, graphs: Sequence[torch.cuda.CUDAGraph],
+                stamps: Optional[GraphStamps]) -> None:
+    """After a traced capture (`stamps` not None) of `program`'s graphs
+    from `new_graph`: count their nodes (`graph_nodes.<program>`,
+    `graph_kernel_nodes.<program>`, `graph_event_nodes.<program>`) and
+    instantiate them."""
+    if stamps is None:
+        return
+    for g in graphs:
+        n = graph_nodes(g)
+        for key, k in (("graph_nodes", "nodes"),
+                       ("graph_kernel_nodes", "kernels"),
+                       ("graph_event_nodes", "events")):
+            _store.counters[f"{key}.{program}"] += n[k]
+        g.instantiate()
+
+
+def snapshot() -> Dict[str, Any]:
+    """What the store holds (queued stamps read first): `spans`,
+    `stamps`, `counters`, and the hand kernels' `launches` and `routes`
+    (`_build`'s, which it keeps); the store is cleared."""
+    from spsvo_tpu_torch import _build
+    global _store
+    collect()
+    store, _store = _store, SpanTimer()
+    return {"spans": store.records, "stamps": store.stamps,
+            "counters": dict(store.counters),
+            "launches": dict(_build.launches), "routes": dict(_build.routes)}
 
 
 @contextlib.contextmanager
 def device_trace(logdir: str) -> Iterator[None]:
     """`torch.profiler` trace (CPU activity, and CUDA activity where a
     device is present) around a region, written as
-    `<logdir>/trace.json` in Chrome trace format."""
-    import torch
+    `<logdir>/trace.json` in Chrome trace format; the port's spans are
+    ranges in it."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():

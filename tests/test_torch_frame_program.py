@@ -304,6 +304,80 @@ def test_process_through_the_program_matches_jax():
                                atol=2e-3)
 
 
+def _spans_by_request(spans):
+    """{(root span's name, request): [(name, parent's name), ...]} in the
+    order they opened."""
+    out = {}
+    for r in spans:
+        parent = None if r["parent"] is None else spans[r["parent"]]["name"]
+        root = r
+        while root["parent"] is not None:
+            root = spans[root["parent"]]
+        assert root["request"] == r["request"]
+        out.setdefault((root["name"], r["request"]), []).append(
+            (r["name"], parent))
+    return out
+
+
+def _segment(frames, P_l, P_r, cfg):
+    """The drive's frames preprocessed as `OnlineHybrid` takes them."""
+    imgs = []
+    for il, ir in frames:
+        pair, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+            *_raw(il, ir, P_l, P_r), dst_h=cfg.image_height,
+            dst_w=cfg.image_width)
+        imgs.append(pair)
+    return torch.stack(imgs), Pl2, Pr2
+
+
+def test_traced_entry_points_record_their_spans():
+    """With tracing on, a CPU `process` (with diagnostics) and
+    `process_instrumented` record the frame's spans under the frame's
+    request id, and an `OnlineHybrid` call the segment's under the call's;
+    the poses and the world are those of an untraced run."""
+    from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
+    from spsvo_tpu_torch.utils import profiling
+    cfg = _tcfg()
+    frames, P_l, P_r, _ = _corridor(3)
+    noise = _noise(cfg, 3)
+    plain = VisualOdometry(cfg, device="cpu", model=_model())
+    want = [plain.process(*frames[f], P_l, P_r, gumbel=noise[f])[0]
+            for f in range(2)]
+    imgs, Pl2, Pr2 = _segment(frames, P_l, P_r, cfg)
+    g = torch.as_tensor(np.stack(noise[:2]))
+    hybrid = build_online_hybrid(cfg, device="cpu", model=_model())
+    world = hybrid(imgs, Pl2, Pr2, gumbel=g)[0]
+    vo = VisualOdometry(cfg, device="cpu", model=_model())
+    profiling.snapshot()
+    profiling.enable()
+    try:
+        T0, _ = vo.process(*frames[0], P_l, P_r, want_diagnostics=True,
+                           gumbel=noise[0])
+        T1, _ = vo.process_instrumented(*frames[1], P_l, P_r,
+                                        gumbel=noise[1])
+        traced = hybrid(imgs, Pl2, Pr2, gumbel=g)[0]
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+    np.testing.assert_array_equal(T0, want[0])
+    np.testing.assert_array_equal(T1, want[1])
+    assert torch.equal(traced, world)
+    frame = [("spsvo.frame", None), ("spsvo.frame.feed", "spsvo.frame"),
+             ("spsvo.frame.launch", "spsvo.frame")]
+    read = ("spsvo.frame.read", "spsvo.frame")
+    tail = [("spsvo.frame.pose", "spsvo.frame"),
+            ("spsvo.frame.diagnostics", "spsvo.frame")]
+    launch = ("spsvo.frame.launch", "spsvo.frame")
+    assert _spans_by_request(snap["spans"]) == {
+        ("spsvo.frame", 1): frame + [read] + tail,
+        ("spsvo.frame", 2): frame + [read, launch, read, launch, read] + tail,
+        ("spsvo.segment", 2): [("spsvo.segment", None),
+                       ("spsvo.segment.feed", "spsvo.segment"),
+                       ("spsvo.segment.launch", "spsvo.segment")]}
+    assert hybrid.calls == 2 and vo.frames == 2
+    assert snap["stamps"] == [] and snap["counters"] == {}
+
+
 # ---- on the card ----------------------------------------------------------
 
 def _cuda():
@@ -422,3 +496,85 @@ def test_cuda_classic_frame_graph_equals_eager(monkeypatch):
                 state, imgs, Pl2, Pr2, cfg=vo.cfg,
                 gumbel=torch.as_tensor(noise[f]).to(dev))
         _assert_outputs_equal(info["output"], out, f)
+
+
+@pytest.mark.gpu
+def test_cuda_traced_capture_holds_stamps_and_equals_untraced(monkeypatch):
+    """On the card, the flagship's per-frame program and its online hybrid
+    captured with tracing on: results bit for bit those of programs
+    captured with tracing off; one device stamp per boundary ("start",
+    the three stages; the hybrid's seven steps) read once per replay (the
+    hybrid's first call replays after its capture, the per-frame
+    program's does not), the stages adding up to at most the frame's host
+    latency; the traced
+    graphs' nodes are the untraced graphs' (kept to count them) plus one
+    event-record node per boundary, the untraced ones holding none."""
+    from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
+    from spsvo_tpu_torch.utils import profiling
+    dev = _cuda()
+    n = 4
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(42), n_frames=n, h=375, w=1242)
+    cfg = dataclasses.replace(tpresets.flagship_tpu(),
+                              model_name_prefix="superpoint_pretrained")
+    noise = [pnp.gumbel_noise(tsolver.gumbel_shape(cfg),
+                              torch.Generator(dev).manual_seed(f), dev
+                              ).cpu().numpy() for f in range(n)]
+    kept = []
+    monkeypatch.setattr(profiling, "new_graph", lambda stamps: kept.append(
+        torch.cuda.CUDAGraph(keep_graph=True)) or kept[-1])
+    plain = VisualOdometry(cfg, device=dev)
+    want = [plain.process(il, ir, P_l, P_r, gumbel=noise[f],
+                          want_diagnostics=True)[1]["output"]
+            for f, (il, ir) in enumerate(frames)]
+    untraced = profiling.graph_nodes(kept[0])
+    imgs = torch.stack([image_ops.preprocess_stereo_pair(
+        *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
+        dst_h=cfg.image_height, dst_w=cfg.image_width)[0]
+        for il, ir in frames])
+    Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+        *(t.to(dev) for t in _raw(*frames[0], P_l, P_r)),
+        dst_h=cfg.image_height, dst_w=cfg.image_width)[1:]
+    g = torch.stack([torch.as_tensor(x) for x in noise[1:]]).to(dev)
+    hybrid = build_online_hybrid(cfg, device=dev, model=plain.model)
+    world = hybrid(imgs, Pl2, Pr2, gumbel=g)[0]
+    untraced_hybrid = profiling.graph_nodes(kept[-1])
+    assert untraced["events"] == untraced_hybrid["events"] == 0
+    monkeypatch.undo()
+    profiling.snapshot()
+    profiling.enable()
+    try:
+        vo = VisualOdometry(cfg, device=dev, model=plain.model)
+        lat = []
+        for f, (il, ir) in enumerate(frames):
+            _, info = vo.process(il, ir, P_l, P_r, gumbel=noise[f],
+                                 want_diagnostics=True)
+            _assert_outputs_equal(info["output"], want[f], f)
+            lat.append(info["latency_s"] * 1e3)
+        traced = build_online_hybrid(cfg, device=dev, model=plain.model)
+        for _ in range(3):
+            got = traced(imgs, Pl2, Pr2, gumbel=g)[0]
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+    assert torch.equal(got, world)
+    frame = [s for s in snap["stamps"] if s["program"] == "whole"]
+    assert [s["request"] for s in frame] == [2, 3, 4]
+    for s, ms in zip(frame, lat[1:]):
+        assert set(s["ms"]) == {"detect", "match", "solve"}
+        assert all(v > 0 for v in s["ms"].values())
+        assert sum(s["ms"].values()) <= ms
+    seg = [s for s in snap["stamps"] if s["program"] == "hybrid"]
+    assert [s["request"] for s in seg] == [1, 2, 3]     # capture, replays
+    assert set(seg[0]["ms"]) == {"frontend", "halo_kp", "match", "halo_st",
+                                 "prepare", "gather", "scan"}
+    c = snap["counters"]
+    assert c["replays.whole"] == 3 and c["replays.hybrid"] == 3
+    assert c["graph_event_nodes.whole"] == 4
+    assert c["graph_kernel_nodes.whole"] == untraced["kernels"]
+    assert c["graph_nodes.whole"] == untraced["nodes"] + 4
+    assert c["graph_event_nodes.hybrid"] == 8
+    assert c["graph_kernel_nodes.hybrid"] == untraced_hybrid["kernels"]
+    assert c["graph_nodes.hybrid"] == untraced_hybrid["nodes"] + 8
+    assert [r["args"]["form"] for r in snap["spans"]
+            if r["name"] == "spsvo.capture"] == ["whole", "hybrid"]

@@ -145,24 +145,30 @@ def test_runtime_guards_count_like_the_jax_package(caplog):
 
 
 def test_profiling_spans_csv_and_trace(tmp_path):
-    timer = tprof.SpanTimer()
-    for _ in range(2):
-        with timer.span("detect"):
-            sum(range(1000))
-    assert len(timer.records["detect"]) == 2 and timer.mean_ms("detect") > 0
-    assert np.isnan(timer.mean_ms("absent"))
-    assert set(timer.summary()) == {"detect"}
-    trace = tprof.LatencyTrace(str(tmp_path), "gpu", "cfg_2_8_8_FP32", "seq_0")
-    trace.add(detect=1.0, total=2.5)
-    trace.add(total=3.0)
-    trace.close()
-    path = os.path.join(str(tmp_path), "gpu", "cfg_2_8_8_FP32_seq_0.csv")
-    assert open(path).read().splitlines() == [
-        "detect,match,solve,total", "1.0000,0.0000,0.0000,2.5000",
-        "0.0000,0.0000,0.0000,3.0000"]
+    """The span store: spans recorded while tracing is on, in the order
+    they opened, under their parent and request, and cleared by the
+    snapshot; a device trace holds them as ranges."""
+    tprof.enable()
+    try:
+        for f in range(2):
+            with tprof.span("spsvo.frame", request=f):
+                with tprof.span("spsvo.frame.launch"):
+                    sum(range(1000))
+        snap = tprof.snapshot()
+    finally:
+        tprof.disable()
+    assert [(r["name"], r["parent"], r["request"]) for r in snap["spans"]] \
+        == [("spsvo.frame", None, 0), ("spsvo.frame.launch", 0, 0),
+            ("spsvo.frame", None, 1), ("spsvo.frame.launch", 2, 1)]
+    assert all(r["end_ns"] > r["start_ns"] for r in snap["spans"])
+    assert tprof.snapshot()["spans"] == []
     with tprof.device_trace(str(tmp_path / "trace")):
-        torch.ones(8).sum()
-    assert os.path.getsize(str(tmp_path / "trace" / "trace.json")) > 0
+        with tprof.span("spsvo.segment", request=0):
+            torch.ones(8).sum()
+    path = str(tmp_path / "trace" / "trace.json")
+    assert os.path.getsize(path) > 0 and "spsvo.segment" in open(path).read()
+    assert [r["name"] for r in tprof.snapshot()["spans"]] == [
+        "spsvo.segment"]
 
 
 def test_params_npz_round_trip_across_packages(rng, tmp_path):
