@@ -8,7 +8,7 @@ Phases, one line each, then the kernel report and the card's name and power
 limit, then the result line:
 
   1. environment: torch / CUDA / nvcc versions and the card;
-  2. build the four hand-written kernels from spsvo_tpu_torch/csrc/
+  2. build the hand-written kernels from spsvo_tpu_torch/csrc/
      (nvcc, side by side);
   3. kernel 1 (fused mutual-NN matcher) against its plain PyTorch version
      on the card, B=2, K=512, D=256, bf16 and fp32, invalid slots and
@@ -2307,7 +2307,8 @@ def phase_reference_parity(dev, corridor, root, gt_file, out_dir):
     check_trajectory("7f harness frame", res.poses, gt, n)
     check_trajectory("7f harness hybrid", fused.poses, gt, n)
     # the same step program eager (the RANSAC and LM loops end early, one
-    # host read per iteration) and captured (the loops masked, full length)
+    # host read per iteration) and captured (the iterations after the first
+    # under conditional nodes that skip them on the device)
     from spsvo_tpu_torch.ops.image import (preprocess_image_np,
                                            update_projection_matrix_np)
     from spsvo_tpu_torch.parallel.sharding import build_sequence_scan

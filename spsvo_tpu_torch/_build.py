@@ -40,7 +40,8 @@ CACHE = os.path.join(_HERE, ".kernel_cache")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # every kernel under csrc/, by the name its wrapper counts launches under
-KERNELS = ("match_nn", "fused_solve", "conv_bf16", "conv_fp32")
+# (`graph_if` sets a CUDA graph's conditional nodes and is not counted)
+KERNELS = ("match_nn", "fused_solve", "conv_bf16", "conv_fp32", "graph_if")
 
 launches: collections.Counter = collections.Counter()   # ran on the card
 routes: collections.Counter = collections.Counter()     # "<name>.<route>"

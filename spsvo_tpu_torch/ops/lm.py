@@ -11,11 +11,12 @@ residuals by `jax.jacfwd` in that form; the closed-form Jacobian used here
 is the same derivative, so the two agree to fp32 rounding per step, and to
 1e-4 in the converged pose.)
 
-The while-loop form is a loop of fixed length whose carry is frozen once
-done, so with leading (pair) dimensions every pair stops on its own, as
-under `jax.vmap`. Outside a CUDA-graph capture the loop also ends as soon
-as every pair is done, at the price of one host read per iteration; both
-ways give the same values, bit for bit.
+The while-loop form updates its carry in place, each iteration masked to
+the pairs not yet done, so with leading (pair) dimensions every pair stops
+on its own, as under `jax.vmap`. The loop ends once every pair is done:
+outside a CUDA-graph capture by one host read per iteration, under one by
+a conditional node per iteration that skips it on the device
+(`utils.capture.iterate`); both ways give the same values, bit for bit.
 
 Factor schedule (`refinement_degree`): >=1 curr-3D -> prev-left, >=2
 + curr-3D -> prev-right, >=3 + prev-3D -> curr-left (inverse transform),
@@ -33,7 +34,7 @@ import torch
 
 from spsvo_tpu_torch.geometry import se3
 from spsvo_tpu_torch.ops.triangulation import project
-from spsvo_tpu_torch.utils.capture import host_may_read
+from spsvo_tpu_torch.utils import capture
 
 
 class LMResult(NamedTuple):
@@ -125,12 +126,13 @@ def refine_pose(q0: torch.Tensor, t0: torch.Tensor, pts3d_curr: torch.Tensor,
                 P_l: torch.Tensor, P_r: torch.Tensor, *,
                 refinement_degree: int = 4, max_iterations: int = 40,
                 huber_delta: float = 1.0, unroll: int = 0,
-                inv_factor_weights: Optional[torch.Tensor] = None
-                ) -> LMResult:
+                inv_factor_weights: Optional[torch.Tensor] = None,
+                loop: str = "lm") -> LMResult:
     """LM over (q, t) = prev_T_curr on the degree-gated factor set: exactly
     `unroll` iterations, or with `unroll = 0` the while-loop form of at most
     `max_iterations`. Point arrays are (..., K, C); `inliers` (..., K);
-    q0 (..., 4), t0 (..., 3)."""
+    q0 (..., 4), t0 (..., 3). `loop` names the while-loop form's counters
+    in a traced capture (`utils.capture.iterate`)."""
     dev = pts3d_curr.device
     factor_on = torch.arange(1, 5, device=dev) <= refinement_degree
     mask = (inliers[..., None] & factor_on).to(torch.float32)
@@ -181,16 +183,22 @@ def refine_pose(q0: torch.Tensor, t0: torch.Tensor, pts3d_curr: torch.Tensor,
         for _ in range(unroll):
             q, t, lam, cost, _ = step(q, t, lam, cost)
     else:
+        # the carry, updated in place: a skipped iteration leaves it as is
+        q, t, cost = q0.clone(), t0.clone(), c0.clone()
         done = torch.zeros_like(c0, dtype=torch.bool)
-        for _ in range(max_iterations):
-            if host_may_read(done) and bool(done.all()):
-                break
+
+        def body():
             q2, t2, lam2, cost2, done2 = step(q, t, lam, cost)
-            q = torch.where(done[..., None], q, q2)
-            t = torch.where(done[..., None], t, t2)
-            lam = torch.where(done, lam, lam2)
-            cost = torch.where(done, cost, cost2)
-            done = done | done2
+            q.copy_(torch.where(done[..., None], q, q2))
+            t.copy_(torch.where(done[..., None], t, t2))
+            lam.copy_(torch.where(done, lam, lam2))
+            cost.copy_(torch.where(done, cost, cost2))
+            done.logical_or_(done2)
+        if max_iterations > 0:
+            body()              # nothing is done before the first iteration
+        for _ in range(1, max_iterations):
+            if not capture.iterate(~done.all(), body, loop):
+                break
     improved = cost < c0
     q = torch.where(improved[..., None], q, q0)
     t = torch.where(improved[..., None], t, t0)

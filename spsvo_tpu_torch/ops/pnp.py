@@ -10,10 +10,12 @@ n_processed >= log(1 - confidence) / log(1 - eps^3), eps the best inlier
 ratio so far. The winner is refit on its inliers and polished by
 Gauss-Newton.
 
-The chunk loop has a fixed length with its carry frozen once the stop rule
-holds, so with leading (pair) dimensions every pair stops on its own, as
-under `jax.vmap`; outside a CUDA-graph capture it also ends as soon as every
-pair has stopped (one host read per chunk). Both give the same values.
+The chunk loop updates its carry in place, each chunk masked to the pairs
+whose stop rule does not yet hold, so with leading (pair) dimensions every
+pair stops on its own, as under `jax.vmap`. The loop ends once every pair
+has stopped: outside a CUDA-graph capture by one host read per chunk, under
+one by a conditional node per chunk that skips it on the device
+(`utils.capture.iterate`). Both give the same values.
 
 Returned transform maps current-frame points into the previous camera frame
 (x_prev = R x_curr + t), i.e. prev_T_curr.
@@ -33,7 +35,7 @@ import torch
 from spsvo_tpu_torch.geometry import se3
 from spsvo_tpu_torch.ops import lm
 from spsvo_tpu_torch.ops.triangulation import project
-from spsvo_tpu_torch.utils.capture import host_may_read
+from spsvo_tpu_torch.utils import capture
 
 
 class PnPResult(NamedTuple):
@@ -188,7 +190,7 @@ def refit_polish(R_best: torch.Tensor, t_best: torch.Tensor,
         q_best, t, pts3d_curr, pts3d_curr, pts2d_prev, zeros2, zeros2,
         zeros2, inl, P32, P32, refinement_degree=1,
         max_iterations=(polish_unroll or 10), huber_delta=reproj_threshold,
-        unroll=polish_unroll)
+        unroll=polish_unroll, loop="polish")
     inl_pol = score(se3.quat_to_matrix(polished.q), polished.t)
     better = (inl_pol.sum(-1) >= inl.sum(-1)) & (inl.sum(-1) > 0)
     q = torch.where(better[..., None], polished.q, q_best)
@@ -323,29 +325,41 @@ def ransac_pose(pts3d_curr: torch.Tensor, pts3d_prev: torch.Tensor,
     idx = _sample_indices(valid, n_chunks * chunk, 3, gumbel, generator)
 
     best = _seed_with_prior(q_prior, t_prior, *args)
-    n_valid = torch.clamp(valid.sum(dim=-1), min=1).to(torch.float32)
-    log_miss = math.log(max(1.0 - confidence, 1e-12))
     n_done = torch.zeros_like(best.count, dtype=torch.int32)
     lane = torch.arange(chunk, device=valid.device)
-    for i in range(n_chunks):
-        active = None
-        if not single:
+
+    def scored(i: int, active: Optional[torch.Tensor]) -> _Best:
+        ids = idx[..., i * chunk:(i + 1) * chunk, :]
+        q_h, t_h = _horn(take_rows(pts3d_curr, ids),
+                         take_rows(pts3d_prev, ids),
+                         torch.ones(ids.shape, dtype=torch.float32,
+                                    device=ids.device))
+        return _update_best(best, se3.quat_to_matrix(q_h), t_h,
+                            i * chunk + lane < iterations, active, *args)
+
+    if single:
+        best = scored(0, None)
+        n_done = n_done + 1
+    else:
+        # the carry, updated in place: a skipped chunk leaves it as is
+        best = _Best(*(x.clone(memory_format=torch.contiguous_format)
+                       for x in best))
+        n_valid = torch.clamp(valid.sum(dim=-1), min=1).to(torch.float32)
+        log_miss = math.log(max(1.0 - confidence, 1e-12))
+        for i in range(n_chunks):
             active = n_done * chunk < iterations
             if confidence < 1.0:
                 w3 = torch.clamp((best.count.to(torch.float32) / n_valid) ** 3,
                                  1e-9, 1.0 - 1e-9)
                 active = active & ((n_done * chunk).to(torch.float32)
                                    < log_miss / torch.log1p(-w3))
-            if host_may_read(active) and not bool(active.any()):
+
+            def body(i=i, active=active):
+                for dst, src in zip(best, scored(i, active)):
+                    dst.copy_(src)
+                n_done.add_(active.to(torch.int32))
+            if not capture.iterate(active.any(), body, "ransac"):
                 break
-        ids = idx[..., i * chunk:(i + 1) * chunk, :]
-        q_h, t_h = _horn(take_rows(pts3d_curr, ids),
-                         take_rows(pts3d_prev, ids),
-                         torch.ones(ids.shape, dtype=torch.float32,
-                                    device=ids.device))
-        best = _update_best(best, se3.quat_to_matrix(q_h), t_h,
-                            i * chunk + lane < iterations, active, *args)
-        n_done = n_done + (1 if active is None else active.to(torch.int32))
 
     q, t, best_inl = refit_polish(
         best.R, best.t, best.inl, pts3d_curr, pts3d_prev, pts2d_prev, valid,

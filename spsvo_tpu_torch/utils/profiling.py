@@ -19,7 +19,10 @@ entry points pay a function call per span.
   reads the device ms between consecutive boundaries into the store.
 - Counters: each graph's nodes at capture (`graph_nodes`, with tracing on,
   where the graph was kept for it), replays per program, and the hand
-  kernels' launches as `_build` counts them.
+  kernels' launches as `_build` counts them. The data-dependent loops
+  (`utils.capture.iterate`) of a traced capture count their conditional
+  bodies per loop, and the graph carries one device counter per loop that
+  each body adds one to: `collect` reads the bodies a replay ran.
 - `snapshot()`: everything stored since the last one, which it clears.
 """
 
@@ -35,8 +38,12 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
+from spsvo_tpu_torch.utils.capture import capture_of, driver
+
 # CUgraphNodeType of the CUDA driver API
-_KERNEL_NODE, _EVENT_RECORD_NODE = 0, 7
+_KERNEL_NODE, _EVENT_RECORD_NODE, _CONDITIONAL_NODE = 0, 7, 13
+# the data-dependent loops that `utils.capture.iterate` guards
+LOOPS = ("ransac", "polish", "lm")
 
 
 class SpanTimer:
@@ -124,6 +131,12 @@ class GraphStamps:
         self.program = program
         self.labels: List[str] = []
         self.events: List[torch.cuda.Event] = []
+        # the loops' conditional bodies captured, by loop, and the kernel
+        # nodes in them; per capture holding any (by its id), its device
+        # counter of the bodies a replay ran (int32, one per loop of LOOPS)
+        self.bodies: collections.Counter = collections.Counter()
+        self.body_kernels = 0
+        self.ran: Dict[int, torch.Tensor] = {}
 
     def mark(self, label: str) -> None:
         ev = torch.cuda.Event(enable_timing=True, external=True)
@@ -165,59 +178,121 @@ def collect() -> None:
               zip(stamps.labels[1:], evs, evs[1:])}
         store.stamps.append({"program": stamps.program, "request": request,
                              "ms": ms})
+        for ran in stamps.ran.values():
+            for loop, n in zip(LOOPS, ran.tolist()):
+                store.counters[f"loop_bodies_run.{stamps.program}.{loop}"] \
+                    += n
     store.pending.clear()
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
-    """The nodes of a graph captured with `keep_graph=True` (before
-    `instantiate`): in total, kernel nodes and event-record nodes, read
-    through the CUDA driver API (`cudaGraph_t` is the driver's
-    `CUgraph`)."""
-    cu = ctypes.CDLL("libcuda.so.1")
-    cu.cuGraphGetNodes.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                   ctypes.POINTER(ctypes.c_size_t)]
-    cu.cuGraphGetNodes.restype = ctypes.c_int
-    cu.cuGraphNodeGetType.argtypes = [ctypes.c_void_p,
-                                      ctypes.POINTER(ctypes.c_int)]
-    cu.cuGraphNodeGetType.restype = ctypes.c_int
-    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    """The top-level nodes of a graph captured with `keep_graph=True`
+    (before `instantiate`): in total, kernel nodes, event-record nodes and
+    conditional nodes, read through the CUDA driver API (`cudaGraph_t` is
+    the driver's `CUgraph`)."""
+    kinds = collections.Counter(_node_types(graph.raw_cuda_graph()))
+    return {"nodes": sum(kinds.values()), "kernels": kinds[_KERNEL_NODE],
+            "events": kinds[_EVENT_RECORD_NODE],
+            "conditionals": kinds[_CONDITIONAL_NODE]}
+
+
+def _node_types(raw: int) -> List[int]:
+    """The types of the nodes of the driver's graph `raw` (a `CUgraph`)."""
     n = ctypes.c_size_t(0)
-    if cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
+    driver("cuGraphGetNodes", ctypes.c_void_p(raw), None, ctypes.byref(n))
     nodes = (ctypes.c_void_p * n.value)()
-    if cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) != 0:
-        raise RuntimeError("cuGraphGetNodes failed")
-    kinds: collections.Counter = collections.Counter()
+    driver("cuGraphGetNodes", ctypes.c_void_p(raw), nodes, ctypes.byref(n))
+    kinds = []
     for node in nodes[:n.value]:
         t = ctypes.c_int(0)
-        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(t)):
-            raise RuntimeError("cuGraphNodeGetType failed")
-        kinds[t.value] += 1
-    return {"nodes": n.value, "kernels": kinds[_KERNEL_NODE],
-            "events": kinds[_EVENT_RECORD_NODE]}
+        driver("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(t))
+        kinds.append(t.value)
+    return kinds
+
+
+# the captures in progress of traced graphs (`new_graph`), by capture id
+_capturing: Dict[int, GraphStamps] = {}
+
+
+class _TracedGraph(torch.cuda.CUDAGraph):
+    """A graph of a traced capture: while it is captured, its capture's id
+    maps to its program's stamps, where the loops' conditional bodies
+    count themselves (`loop_counter`, `body_captured`)."""
+
+    def capture_begin(self, *args, **kwargs) -> None:
+        super().capture_begin(*args, **kwargs)
+        self.capture_id = capture_of(torch.cuda.current_stream())[0]
+        _capturing[self.capture_id] = self.stamps
+
+    def capture_end(self) -> None:
+        _capturing.pop(self.capture_id, None)
+        super().capture_end()
 
 
 def new_graph(stamps: Optional[GraphStamps]) -> torch.cuda.CUDAGraph:
     """A graph to capture into: kept after its capture (for
     `count_nodes`) where the capture is traced."""
-    return torch.cuda.CUDAGraph(keep_graph=stamps is not None)
+    if stamps is None:
+        return torch.cuda.CUDAGraph()
+    graph = _TracedGraph(keep_graph=True)
+    graph.stamps = stamps
+    return graph
+
+
+def loop_counter(capture_id: int) -> Optional[torch.Tensor]:
+    """Before a loop's conditional node is added to the capture
+    `capture_id`: where the capture is traced, its graph's device counter
+    of the bodies run, made at the graph's first loop (so zeroed there at
+    every replay); else None."""
+    stamps = _capturing.get(capture_id)
+    if stamps is None:
+        return None
+    ran = stamps.ran.get(capture_id)
+    if ran is None:
+        ran = stamps.ran[capture_id] = torch.zeros(
+            len(LOOPS), dtype=torch.int32, device="cuda")
+    return ran
+
+
+def body_captured(capture_id: int, loop: str, ran: Optional[torch.Tensor],
+                  body: int) -> None:
+    """At the end of the capture of one of `loop`'s conditional bodies
+    (the driver's graph `body`, captured on the current stream) in the
+    capture `capture_id`: where that is traced (`ran` from
+    `loop_counter`), count the body and its kernel nodes, then add one to
+    `ran`'s count of the loop inside the body."""
+    if ran is None:
+        return
+    stamps = _capturing[capture_id]
+    stamps.bodies[loop] += 1
+    stamps.body_kernels += _node_types(body).count(_KERNEL_NODE)
+    ran[LOOPS.index(loop)].add_(1)
 
 
 def count_nodes(program: str, graphs: Sequence[torch.cuda.CUDAGraph],
                 stamps: Optional[GraphStamps]) -> None:
     """After a traced capture (`stamps` not None) of `program`'s graphs
-    from `new_graph`: count their nodes (`graph_nodes.<program>`,
-    `graph_kernel_nodes.<program>`, `graph_event_nodes.<program>`) and
-    instantiate them."""
+    from `new_graph`: count their top-level nodes
+    (`graph_nodes.<program>`, `graph_kernel_nodes.<program>`,
+    `graph_event_nodes.<program>`, `graph_conditional_nodes.<program>`),
+    the kernel nodes inside the loops' conditional bodies
+    (`graph_body_kernel_nodes.<program>`) and the bodies per loop
+    (`loop_bodies_captured.<program>.<loop>`), and instantiate them."""
     if stamps is None:
         return
+    c = _store.counters
     for g in graphs:
         n = graph_nodes(g)
         for key, k in (("graph_nodes", "nodes"),
                        ("graph_kernel_nodes", "kernels"),
-                       ("graph_event_nodes", "events")):
-            _store.counters[f"{key}.{program}"] += n[k]
+                       ("graph_event_nodes", "events"),
+                       ("graph_conditional_nodes", "conditionals")):
+            c[f"{key}.{program}"] += n[k]
         g.instantiate()
+    if stamps.bodies:
+        c[f"graph_body_kernel_nodes.{program}"] += stamps.body_kernels
+        for loop, k in stamps.bodies.items():
+            c[f"loop_bodies_captured.{program}.{loop}"] += k
 
 
 def snapshot() -> Dict[str, Any]:

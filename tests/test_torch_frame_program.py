@@ -399,32 +399,54 @@ class _Replays:
         monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
 
 
+FRAME_CASES = {
+    "flagship": dict(),
+    "reference_solve": dict(ransac_chunk=16, lm_unroll=0),
+    "laptop": None,
+}
+
+
+def _frame_case(case):
+    """The configuration of a `gpu` frame case: the flagship composition
+    on superpoint_pretrained, with the reference solve's adaptive loops, or
+    superpoint_laptop (fp32 sp_resnet18 at 360x1176, kernel 4, 500
+    hypotheses in chunks of 64, the while-loop LM)."""
+    if FRAME_CASES[case] is None:
+        return tpresets.superpoint_laptop()
+    return dataclasses.replace(
+        tpresets.flagship_tpu(), model_name_prefix="superpoint_pretrained",
+        **FRAME_CASES[case])
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("change", [dict(), dict(ransac_chunk=16,
-                                                 lm_unroll=0)],
-                         ids=["flagship", "reference_solve"])
-def test_cuda_frame_graph_equals_eager(change, monkeypatch):
-    """On the card, the flagship at full width from a raw 375x1242 pair:
-    the captured per-frame program (preprocessing inside it, the adaptive
-    loops masked to full length) equals the eager step on device-
-    preprocessed frames bit for bit, one replay per frame after the
-    first; one frame launches kernels 1 and 2 once each (the reference-
-    parity solve: kernel 1 alone) and kernel 3 once per conv;
-    `process_instrumented` replays three graphs and equals `process`."""
+@pytest.mark.parametrize("case", list(FRAME_CASES))
+def test_cuda_frame_graph_equals_eager(case, monkeypatch):
+    """On the card, from a raw 375x1242 pair: the captured per-frame
+    program (preprocessing inside it; the adaptive loops' iterations after
+    the first each under a conditional node that skips them once every
+    lane has stopped) equals the eager step on device-preprocessed frames
+    bit for bit, `n_ransac_hypotheses` and the carried state included, one
+    replay per frame after the first; a replayed frame counts the kernel
+    launches of its eager step (the flagship: kernels 1 and 2 once each,
+    kernel 3 once per conv; the reference-parity solve: kernel 1 alone);
+    `process_instrumented` replays three graphs and equals `process`. A
+    capture with tracing on holds one conditional node per guarded
+    iteration (none in the flagship's fused composition), its results
+    those of the untraced one, and its replays run fewer LM bodies than
+    it holds."""
     from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.utils import profiling
     dev = _cuda()
     n = 4
     frames, _, P_l, P_r = tsyn.synthetic_corridor(
         np.random.default_rng(42), n_frames=n, h=375, w=1242)
-    cfg = dataclasses.replace(
-        tpresets.flagship_tpu(), model_name_prefix="superpoint_pretrained",
-        **change)
+    cfg = _frame_case(case)
     vo = VisualOdometry(cfg, device=dev)
     noise = [pnp.gumbel_noise(tsolver.gumbel_shape(cfg),
                               torch.Generator(dev).manual_seed(f), dev
                               ).cpu().numpy() for f in range(n)]
     replays = _Replays(monkeypatch)
-    outs = []
+    outs, launched = [], []
     for f, (il, ir) in enumerate(frames):
         torch.cuda.synchronize()
         _build.reset_launches()
@@ -433,18 +455,22 @@ def test_cuda_frame_graph_equals_eager(change, monkeypatch):
                              gumbel=noise[f])
         torch.cuda.synchronize()
         assert replays.n - before == (f > 0)
-        fused = tsolver.fused_composition(cfg)
-        assert _build.launches == {"match_nn": 1, "conv_bf16": 12,
-                                   **({"fused_solve": 1} if fused else {})}
+        launched.append(dict(_build.launches))
         outs.append(info["output"])
+    if case != "laptop":
+        fused = tsolver.fused_composition(cfg)
+        assert launched[-1] == {"match_nn": 1, "conv_bf16": 12,
+                                **({"fused_solve": 1} if fused else {})}
     state = init_state(cfg, dev)
     with torch.no_grad():
         for f, (il, ir) in enumerate(frames):
             imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
                 *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
                 dst_h=cfg.image_height, dst_w=cfg.image_width)
+            _build.reset_launches()
             state, out = vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg,
                                  gumbel=torch.as_tensor(noise[f]).to(dev))
+            assert dict(_build.launches) == launched[f], f
             _assert_outputs_equal(outs[f], out, f)
     _assert_states_equal(vo.state, state)
     inst = VisualOdometry(cfg, device=dev, model=vo.model)
@@ -454,6 +480,35 @@ def test_cuda_frame_graph_equals_eager(change, monkeypatch):
                                             gumbel=noise[f])
         assert replays.n - before == (3 if f else 0)
         _assert_outputs_equal(info["output"], outs[f], f)
+    profiling.snapshot()
+    profiling.enable()
+    try:
+        traced = VisualOdometry(cfg, device=dev, model=vo.model)
+        for f, (il, ir) in enumerate(frames):
+            _, info = traced.process(il, ir, P_l, P_r, gumbel=noise[f],
+                                     want_diagnostics=True)
+            _assert_outputs_equal(info["output"], outs[f], f)
+        c = profiling.snapshot()["counters"]
+    finally:
+        profiling.disable()
+    bodies = {loop: c.get(f"loop_bodies_captured.whole.{loop}", 0)
+              for loop in profiling.LOOPS}
+    if case == "flagship":
+        assert c["graph_conditional_nodes.whole"] == 0
+        assert bodies == {"ransac": 0, "polish": 0, "lm": 0}
+        return
+    # the LM: the solve's, and the GLS pass's where landmarks are fused
+    n_chunks = pnp.chunking(cfg.ransac_chunk, cfg.ransac_iterations)[1]
+    n_lm = 2 if cfg.landmark_fusion and cfg.landmark_weighted_lm else 1
+    assert bodies == {"ransac": n_chunks, "polish": 9,
+                      "lm": n_lm * (cfg.lm_max_iterations - 1)}
+    assert c["graph_conditional_nodes.whole"] == sum(bodies.values())
+    assert c["graph_body_kernel_nodes.whole"] > c["graph_kernel_nodes.whole"]
+    ran = {loop: c[f"loop_bodies_run.whole.{loop}"]
+           for loop in profiling.LOOPS}
+    assert c["replays.whole"] == n - 1
+    assert all(ran[k] <= bodies[k] * (n - 1) for k in bodies)
+    assert ran["lm"] < bodies["lm"] * (n - 1)
 
 
 @pytest.mark.gpu

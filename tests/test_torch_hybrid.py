@@ -503,12 +503,17 @@ def test_hybrid_equals_the_per_frame_path(branch, branch_cfg):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("branch_cfg", [dict(), dict(use_pallas_solver=False)],
-                         ids=["landmark_kernel", "landmark"])
+@pytest.mark.parametrize("branch_cfg", [dict(), dict(use_pallas_solver=False),
+                                        dict(ransac_chunk=16, lm_unroll=0)],
+                         ids=["landmark_kernel", "landmark", "adaptive"])
 def test_cuda_hybrid_graph_replay_equals_eager(branch_cfg):
     """On the card: the eager run launches kernel 1 once (B=2N-1) and, in
     the kernel branch, kernel 2 N-1 times; the CUDA-graph replay equals the
-    eager run bit for bit, twice, and a new input replays the same graph."""
+    eager run bit for bit, twice, and a new input replays the same graph.
+    The adaptive solve (chunked RANSAC, while-loop LM) runs its loops'
+    iterations after the first in the graph under conditional nodes that
+    skip them once every lane has stopped, and equals the eager run's
+    exits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernels have no CPU mode")
     from spsvo_tpu_torch import _build

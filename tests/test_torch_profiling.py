@@ -155,6 +155,27 @@ def test_count_nodes_only_for_a_traced_capture():
     assert profiling.snapshot()["counters"] == {}
 
 
+def test_collect_reads_the_loop_bodies_a_replay_ran():
+    """A traced program's device counters of loop bodies (one per graph
+    holding guarded loops, one count per loop of `LOOPS`) are read with its
+    stamps, under the program's name; a capture that is not traced has no
+    counter, and a body captured into it counts nothing."""
+    s = _stamps("whole", [0.0, 1.0], ["start", "solve"])
+    s.ran = {1: torch.tensor([2, 9, 17], dtype=torch.int32),
+             2: torch.tensor([1, 0, 5], dtype=torch.int32)}
+    profiling.enable()
+    profiling.replayed("whole", s)
+    profiling.collect()
+    c = profiling.snapshot()["counters"]
+    assert profiling.LOOPS == ("ransac", "polish", "lm")
+    assert c == {"replays.whole": 1, "loop_bodies_run.whole.ransac": 3,
+                 "loop_bodies_run.whole.polish": 9,
+                 "loop_bodies_run.whole.lm": 22}
+    assert profiling.loop_counter(12345) is None
+    profiling.body_captured(12345, "lm", None, 0)
+    assert profiling.snapshot()["counters"] == {}
+
+
 def _trace_report():
     import importlib.util
     import os
@@ -164,6 +185,36 @@ def _trace_report():
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def test_trace_report_sets_loop_bodies_run_against_captured():
+    """tools/torch_trace_report.py's graph report from the set-up's and
+    the window's counters: per form its nodes, and per loop the bodies
+    captured, run, run per replay and their share; a form without loops
+    or without replays in the window reads none."""
+    report = _trace_report()
+    setup = {"graph_nodes.whole": 7000, "graph_kernel_nodes.whole": 6000,
+             "graph_conditional_nodes.whole": 56,
+             "graph_body_kernel_nodes.whole": 15000,
+             "loop_bodies_captured.whole.ransac": 8,
+             "loop_bodies_captured.whole.lm": 39,
+             "graph_nodes.hybrid": 3000, "graph_kernel_nodes.hybrid": 2900}
+    window = {"replays.whole": 4, "loop_bodies_run.whole.ransac": 4,
+              "loop_bodies_run.whole.lm": 26}
+    got = report.graph_report(setup, window)
+    assert got["whole"]["nodes"] == {"top_level": 7000, "kernel": 6000,
+                                     "conditional": 56,
+                                     "body_kernel": 15000}
+    assert got["whole"]["loops"] == {
+        "ransac": {"captured": 8, "run": 4, "replays": 4,
+                   "run_per_replay": 1.0, "run_share": 0.125},
+        "lm": {"captured": 39, "run": 26, "replays": 4,
+               "run_per_replay": 6.5, "run_share": pytest.approx(1 / 6)}}
+    assert got["hybrid"] == {
+        "nodes": {"top_level": 3000, "kernel": 2900, "conditional": 0,
+                  "body_kernel": 0}, "loops": {}}
+    assert report.graph_report(setup, {})["whole"]["loops"]["lm"][
+        "run_share"] is None
 
 
 def test_trace_report_puts_idle_gaps_under_their_innermost_span():

@@ -310,8 +310,9 @@ def test_gate_scan_on_hand_made_anomalies():
                                                  lm_unroll=0)],
                          ids=["flagship", "reference_solve"])
 def test_cuda_step_graph_equals_eager_and_owns_its_scratch(change):
-    """On the card: the captured `vo_step` program (adaptive loops masked,
-    full length) equals its eager run (loops ending early) bit for bit, and
+    """On the card: the captured `vo_step` program (the adaptive loops'
+    iterations skipped on the device by conditional nodes) equals its eager
+    run (loops ending on a host read) bit for bit, and
     goes on doing so after every pooled stream's matcher scratch was
     regrown and its memory reused."""
     if not torch.cuda.is_available():

@@ -20,9 +20,12 @@ Prints one JSON line: the card; the end-to-end metrics of an untraced
 window, or the benchmark's per-layer readings for the cell of a traced
 one; the port's trace of the window (each span's count and median host
 ms, the stamps' median device ms by program and step, the counters) and
-of the set-up (captures' seconds, graph nodes); of a traced window, the
-device's idle time by the innermost `spsvo.*` span around it and the
-longest idle gaps with their spans.
+of the set-up (captures' seconds, graph nodes); per captured form, its
+graphs' top-level, conditional and kernel nodes and the kernel nodes in
+the adaptive loops' conditional bodies, and per loop the bodies captured
+against those the window's replays ran; of a traced window, the device's
+idle time by the innermost `spsvo.*` span around it and the longest idle
+gaps with their spans.
 """
 
 import argparse
@@ -78,6 +81,35 @@ def summary(snap) -> dict:
             "n": len(snap["stamps"])},
         "span_ms": {k: [len(v), median(v)] for k, v in spans.items()},
         "counters": snap["counters"], "launches": snap["launches"]}
+
+
+def graph_report(setup: dict, window: dict) -> dict:
+    """Per captured form (from the set-up's counters): its graphs' nodes
+    (top level, conditional, kernel, and kernel nodes inside the loops'
+    conditional bodies) and, per adaptive loop, the bodies captured, the
+    bodies the window's replays ran (from its counters), those per replay,
+    and their share of the bodies the replays held."""
+    out = {}
+    forms = sorted({k.split(".", 1)[1] for k in setup
+                    if k.startswith("graph_nodes.")})
+    for form in forms:
+        nodes = {k: setup.get(f"graph_{k}_nodes.{form}", 0)
+                 for k in ("kernel", "conditional", "body_kernel")}
+        nodes["top_level"] = setup[f"graph_nodes.{form}"]
+        replays = window.get(f"replays.{form}", 0)
+        loops = {}
+        for key, captured in setup.items():
+            if not key.startswith(f"loop_bodies_captured.{form}."):
+                continue
+            loop = key.rsplit(".", 1)[1]
+            ran = window.get(f"loop_bodies_run.{form}.{loop}", 0)
+            loops[loop] = {
+                "captured": captured, "run": ran, "replays": replays,
+                "run_per_replay": ran / replays if replays else None,
+                "run_share": (ran / (captured * replays) if replays
+                              else None)}
+        out[form] = {"nodes": nodes, "loops": loops}
+    return out
 
 
 def graph_nodes_kept(st) -> dict:
@@ -183,7 +215,9 @@ def main(argv=None) -> int:
     if not args.trace:
         out["end_to_end"] = res["end_to_end"]
         out["spread"] = res["spread"]
-        out.update(summary(profiling.snapshot()))
+        snap = profiling.snapshot()
+        out.update(summary(snap))
+        out["graphs"] = graph_report(setup["counters"], snap["counters"])
         print(json.dumps(out), flush=True)
         return 0
     obs = res["observed"]
@@ -192,6 +226,7 @@ def main(argv=None) -> int:
         for m in spec.per_layer(bench, run.workload)}
     snap = profiling.snapshot()
     out.update(summary(snap))
+    out["graphs"] = graph_report(setup["counters"], snap["counters"])
     out["idle_by_span"], out["longest_gaps"] = idle_by_span(obs, snap)
     out["busy_s"], out["window_s"] = (obs["trace"]["busy_s"],
                                       obs["trace"]["window_s"])
