@@ -56,7 +56,9 @@ limit, then the result line:
      composition on superpoint_pretrained (full width, committed weights)
      over a 32-frame 375x1242 corridor drive fed as raw uint8 frames, with
      accuracy bounds and the kernels' launch counts, kernel 3's by route
-     (11 dense + 1 generic per trunk call, here and in phase 6); every
+     (11 dense + 1 generic per trunk call, here and in phase 6), kernel 2
+     at its weighted shape where landmark fusion's GLS pass runs (inside
+     the kernel, as in the hybrid); every
      per-frame configuration (here, 6 fp32, 7f, 8c, 9d, 12b) runs
      `process` as one captured CUDA graph per frame (the first frame op by
      op, then captured) against the eager step on the same frames and
@@ -1439,10 +1441,12 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     VisualOdometry.process, one captured program per frame, against the
     eager step (`frame_programs`); `cfg` defaults to the flagship
     composition. `solve_kernels`: the configuration runs kernels 1 and 2
-    once per frame (else neither: superpoint_laptop's). Returns (the
+    once per frame (else neither: superpoint_laptop's), kernel 2 with the
+    GLS pass inside it where landmark fusion weights its LM. Returns (the
     launches, graph ms per frame)."""
     import torch
 
+    from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.eval.synthetic import score_trajectory
     from spsvo_tpu_torch.pipeline import VisualOdometry
 
@@ -1485,6 +1489,12 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     elif launches.get("fused_solve", 0) != n:
         fail(f"{phase}: fused_solve launched "
              f"{launches.get('fused_solve', 0)} times, expected {n}")
+    elif _build.shapes["fused_solve"][3] != int(
+            cfg.landmark_fusion and cfg.landmark_weighted_lm
+            and cfg.refinement_degree >= 3):
+        fail(f"{phase}: fused_solve at {_build.shapes['fused_solve']}: the "
+             "GLS pass belongs inside kernel 2 exactly where landmark "
+             "fusion weights the LM")
     main_path_routes[phase] = routes
     return launches, rep["graph_ms_per_frame"]
 

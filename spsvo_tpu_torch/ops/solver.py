@@ -281,7 +281,10 @@ def solve_prepared(prep: PreparedSolve, P_l: torch.Tensor, P_r: torch.Tensor,
     to (0 = stay at lane level). `gumbel` is the (..., rows, L) sampling
     noise (`gumbel_shape`); None draws it from `generator`. `prep` may
     carry leading pair dimensions; the prior and `frame_count` broadcast
-    over them."""
+    over them. It runs no GLS pass: with landmark fusion,
+    `solve_with_landmarks` runs the fused solver with the GLS pass inside
+    it in the fused composition, and calls this, then the GLS pass op by
+    op, in every other."""
     if fused_composition(cfg):
         from spsvo_tpu_torch.ops import solver_cuda
         hyp = solver_cuda.precompute_hypotheses(prep, cfg, gumbel=gumbel,
@@ -514,14 +517,17 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     the fused current points (op by op, also after a fused solve), and
     scatter masks and landmarks to `k_capacity` slots.
 
-    Per frame (`hyp` None): `solve_prepared` samples on the substituted
-    prep and the GLS pass runs op by op. The online hybrid passes `hyp`,
-    the (S, 12) hypotheses precomputed on the UNsubstituted prep, with
-    `pts_static`, `pack_points(prep)` hoisted out of its scan: then, when
+    Per frame (`hyp` None) with `fused_composition`: the hypotheses are
+    sampled on the substituted prep and one fused solve runs RANSAC, LM
+    and the GLS pass, its kernel when `pallas_solver_eligible` holds, else
+    its plain version. The online hybrid passes `hyp`, the (S, 12)
+    hypotheses precomputed on the UNsubstituted prep, with `pts_static`,
+    `pack_points(prep)` hoisted out of its scan: then, when
     `pallas_solver_config` holds, the 3 prev-side point rows and the GLS
     weight row are spliced into the tile and one fused solve runs RANSAC,
     LM and the GLS pass (its kernel wrapper, or with `use_kernel=False`
-    its plain version)."""
+    its plain version). Any other composition (the adaptive RANSAC, the
+    while-loop LM) runs `solve_prepared` and the GLS pass op by op."""
     from spsvo_tpu_torch.ops import solver_cuda
     if (hyp is None) != (pts_static is None):
         raise ValueError("pass hyp and pts_static together (the hoisted "
@@ -530,21 +536,28 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     weighted = cfg.landmark_weighted_lm and cfg.refinement_degree >= 3
     w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(torch.float32)
              if weighted else None)
-    weighted_in_kernel = False
+    gls_fused = True
     if hyp is not None and pallas_solver_config(cfg):
         res = solver_cuda.fused_solve(
             hyp, prep2, P_l, P_r, q_pred, t_pred, frame_count, cfg,
             pts=solver_cuda.splice_points(pts_static, prep2.pts3d_prev,
                                           w_row),
             weighted_lm=weighted, use_kernel=use_kernel)
-        weighted_in_kernel = weighted
+    elif hyp is None and fused_composition(cfg):
+        res = solver_cuda.fused_solve(
+            solver_cuda.precompute_hypotheses(prep2, cfg, gumbel=gumbel,
+                                              generator=generator),
+            prep2, P_l, P_r, q_pred, t_pred, frame_count, cfg,
+            lane_weights=w_row,
+            use_kernel=pallas_solver_eligible(cfg, prep2.chain.device))
     else:
         res = solve_prepared(prep2, P_l, P_r, q_pred, t_pred, frame_count,
                              cfg, gumbel=gumbel, generator=generator)
+        gls_fused = False
     use_pred = (~res.pnp_success) | res.accel_anomaly
     inl = res.inliers
     q, t = res.q, res.t
-    if weighted and not weighted_in_kernel:
+    if weighted and not gls_fused:
         refined = lm.refine_pose(
             q, t, prep2.pts3d_curr, prep2.pts3d_prev, prep2.uv_prev_l,
             prep2.uv_prev_r, prep2.uv_curr_l, prep2.uv_curr_r,

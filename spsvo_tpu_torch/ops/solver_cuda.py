@@ -137,7 +137,8 @@ def pack_scalars(q_pred, t_pred, frame_count, P_l, P_r, lead=()
 
 
 def _plain_one(pts: torch.Tensor, hyp: torch.Tensor, scal: torch.Tensor,
-               p: SolveParams) -> Tuple[torch.Tensor, torch.Tensor]:
+               p: SolveParams, gls_lanes: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     Xc, Xp = pts[0:3].T, pts[3:6].T
     uv_pl, uv_pr = pts[6:8].T, pts[8:10].T
     uv_cl, uv_cr = pts[10:12].T, pts[12:14].T
@@ -165,14 +166,15 @@ def _plain_one(pts: torch.Tensor, hyp: torch.Tensor, scal: torch.Tensor,
     lm_improved = torch.zeros((), dtype=torch.bool, device=pts.device)
     passes = []
     if p.degree > 0 and p.lm_iters > 0:
-        passes.append(None)
+        passes.append((None, pts.shape[-1]))
         if p.weighted_lm and p.degree >= 3:
-            passes.append(pts[15])
-    for weights in passes:
+            passes.append((pts[15], gls_lanes or pts.shape[-1]))
+    for weights, n in passes:
         refined = lm.refine_pose(
-            q, t, Xc, Xp, uv_pl, uv_pr, uv_cl, uv_cr, inl & do_opt, P_l, P_r,
-            refinement_degree=p.degree, huber_delta=p.huber_delta,
-            unroll=p.lm_iters, inv_factor_weights=weights)
+            q, t, Xc[:n], Xp[:n], uv_pl[:n], uv_pr[:n], uv_cl[:n], uv_cr[:n],
+            (inl & do_opt)[:n], P_l, P_r, refinement_degree=p.degree,
+            huber_delta=p.huber_delta, unroll=p.lm_iters,
+            inv_factor_weights=None if weights is None else weights[:n])
         q = torch.where(do_opt, refined.q, q)
         t = torch.where(do_opt, refined.t, t)
         if weights is None:
@@ -186,11 +188,16 @@ def _plain_one(pts: torch.Tensor, hyp: torch.Tensor, scal: torch.Tensor,
 
 
 def fused_solve_plain(pts: torch.Tensor, hyp: torch.Tensor,
-                      scal: torch.Tensor, p: SolveParams
+                      scal: torch.Tensor, p: SolveParams,
+                      gls_lanes: Optional[int] = None
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the kernel on any device. pts (F, 16, Lp), hyp
-    (F, S, 12), scal (F, 32) -> (out (F, 20), inl (F, Lp)) float32."""
-    outs = [_plain_one(pts[f], hyp[f], scal[f], p) for f in range(pts.shape[0])]
+    (F, S, 12), scal (F, 32) -> (out (F, 20), inl (F, Lp)) float32.
+    `gls_lanes` L runs the GLS pass over the first L lanes alone (the
+    padding's zero terms change the rounding of its sums, not their
+    value), else over all Lp."""
+    outs = [_plain_one(pts[f], hyp[f], scal[f], p, gls_lanes)
+            for f in range(pts.shape[0])]
     return (torch.stack([o for o, _ in outs]),
             torch.stack([i for _, i in outs]))
 
@@ -206,14 +213,16 @@ def _lib():
 
 
 def fused_solve_packed(pts: torch.Tensor, hyp: torch.Tensor,
-                       scal: torch.Tensor, p: SolveParams
+                       scal: torch.Tensor, p: SolveParams,
+                       gls_lanes: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The kernel on packed inputs: pts (F, 16, Lp) with Lp % 128 == 0 and
     Lp <= 512, hyp (F, S, 12), scal (F, 32), all float32 and contiguous.
-    Returns (out (F, 20), inl (F, Lp))."""
+    Returns (out (F, 20), inl (F, Lp)). `gls_lanes` is the plain version's
+    (the kernel's padding lanes carry no weight)."""
     dev = pts.device
     if dev.type == "cpu":
-        return fused_solve_plain(pts, hyp, scal, p)
+        return fused_solve_plain(pts, hyp, scal, p, gls_lanes)
     if dev.type != "cuda":
         raise ValueError(f"fused_solve: unsupported device {dev}")
     F_, rows, Lp = pts.shape
@@ -252,7 +261,9 @@ def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
     """`solver.solve_prepared`'s prior-dependent core (single-batch RANSAC +
     unrolled LM) on hypotheses `hyp` (S, 12): the kernel wrapper, or with
     `use_kernel=False` the plain version on any device. `lane_weights` (L,)
-    runs the GLS weighted LM as a second pass. `pts` is a tile already
+    runs the GLS weighted LM as a second pass, in the plain version over
+    the L lanes, bit for bit `lm.refine_pose` on the unpadded prep (the
+    per-frame landmark solve's op-by-op pass). `pts` is a tile already
     packed (`pack_points`, `splice_points`); `weighted_lm` None infers the
     GLS pass from `lane_weights`, True runs it on the weights packed in
     `pts` row 15. Masks stay at lane level.
@@ -280,7 +291,8 @@ def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
     if not lead:
         pts, hyp, scal = pts[None], hyp[None], scal[None]
     run = fused_solve_packed if use_kernel else fused_solve_plain
-    out, inl = run(pts, hyp, scal.contiguous(), p)
+    out, inl = run(pts, hyp, scal.contiguous(), p,
+                   gls_lanes=None if lane_weights is None else L)
     if not lead:
         out, inl = out[0], inl[0]
     q, t = out[..., 0:4], out[..., 4:7]

@@ -27,6 +27,7 @@ from spsvo_tpu_torch.config import (DescriptorType as TDesc,
                                     Precision as TPrecision,
                                     VOConfig as TCfg)
 from spsvo_tpu_torch.eval import synthetic as tsyn
+from spsvo_tpu_torch.geometry import se3
 from spsvo_tpu_torch.ops import image as image_ops
 from spsvo_tpu_torch.ops import pnp, solver as tsolver
 from spsvo_tpu_torch.pipeline import (VisualOdometry, clone_output,
@@ -399,6 +400,10 @@ class _Replays:
         monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", counted)
 
 
+# the fused kernel's parity tolerances against its plain version
+# (tests/test_torch_solver.py)
+Q_ATOL, T_ATOL = 1e-4, 1e-3
+
 FRAME_CASES = {
     "flagship": dict(),
     "reference_solve": dict(ransac_chunk=16, lm_unroll=0),
@@ -433,7 +438,10 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
     capture with tracing on holds one conditional node per guarded
     iteration (none in the flagship's fused composition), its results
     those of the untraced one, and its replays run fewer LM bodies than
-    it holds."""
+    it holds. The flagship's landmark solve, GLS pass included, is kernel
+    2's weighted launch alone: once per replay, at most 1,600 kernel nodes
+    in the frame's graph, its pose within the kernel's tolerances of the
+    fused solver's plain version from the same state and inputs."""
     from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.utils import profiling
     dev = _cuda()
@@ -467,11 +475,29 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
             imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
                 *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
                 dst_h=cfg.image_height, dst_w=cfg.image_width)
+            g = torch.as_tensor(noise[f]).to(dev)
+            if case == "flagship":
+                with monkeypatch.context() as m:
+                    m.setattr(tsolver, "pallas_solver_eligible",
+                              lambda *_: False)
+                    _build.reset_launches()
+                    plain = vo_step(vo.model, state, imgs, Pl2, Pr2,
+                                    cfg=cfg, gumbel=g)[1]
+                    assert "fused_solve" not in _build.launches
             _build.reset_launches()
             state, out = vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg,
-                                 gumbel=torch.as_tensor(noise[f]).to(dev))
+                                 gumbel=g)
             assert dict(_build.launches) == launched[f], f
             _assert_outputs_equal(outs[f], out, f)
+            if case == "flagship":
+                assert _build.shapes["fused_solve"][3] == 1  # weighted LM
+                T_k, T_p = (se3.invert_transform(o.T_curr_prev)
+                            for o in (out, plain))
+                torch.testing.assert_close(
+                    se3.matrix_to_quat(T_k[:3, :3]),
+                    se3.matrix_to_quat(T_p[:3, :3]), atol=Q_ATOL, rtol=0)
+                torch.testing.assert_close(T_k[:3, 3], T_p[:3, 3],
+                                           atol=T_ATOL, rtol=0)
     _assert_states_equal(vo.state, state)
     inst = VisualOdometry(cfg, device=dev, model=vo.model)
     for f, (il, ir) in enumerate(frames):
@@ -488,14 +514,19 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
             _, info = traced.process(il, ir, P_l, P_r, gumbel=noise[f],
                                      want_diagnostics=True)
             _assert_outputs_equal(info["output"], outs[f], f)
-        c = profiling.snapshot()["counters"]
+            if f == 0:
+                _build.reset_launches()     # the replays' launches alone
+        snap = profiling.snapshot()
     finally:
         profiling.disable()
+    c = snap["counters"]
     bodies = {loop: c.get(f"loop_bodies_captured.whole.{loop}", 0)
               for loop in profiling.LOOPS}
     if case == "flagship":
         assert c["graph_conditional_nodes.whole"] == 0
         assert bodies == {"ransac": 0, "polish": 0, "lm": 0}
+        assert c["graph_kernel_nodes.whole"] <= 1600
+        assert snap["launches"]["fused_solve"] == c["replays.whole"] == n - 1
         return
     # the LM: the solve's, and the GLS pass's where landmarks are fused
     n_chunks = pnp.chunking(cfg.ransac_chunk, cfg.ransac_iterations)[1]

@@ -287,6 +287,83 @@ def test_solve_with_landmarks_matches_jax(rng):
                                np.asarray(jlms.pts3d)[same], atol=1e-2)
 
 
+LANDMARK_GATES = {
+    # (points, prior translation offset): a frame that passes both gates,
+    # one with too few points for PnP, one whose prior lies 2 m off
+    "normal": (150, 0.0),
+    "pnp_failure": (5, 0.0),
+    "accel_anomaly": (150, 2.0),
+}
+
+
+@pytest.mark.parametrize("k,seed", [(256, 0), (256, 1), (64, 2)])
+@pytest.mark.parametrize("gate", list(LANDMARK_GATES))
+def test_solve_with_landmarks_equals_the_op_by_op_gls_pass(gate, k, seed):
+    """The per-frame landmark solve in the fused composition (one fused
+    solve with the GLS pass inside it, its plain version on the CPU) is bit
+    for bit the composition it replaced: `solve_prepared` on the
+    substituted prep, the GLS pass op by op on the inliers of a frame that
+    no gate sent to the prior, landmark fusion, then the scatter; at k
+    solver lanes, whole tiles of 128 lanes (256) or a padded one (64)."""
+    from spsvo_tpu_torch.config import VOConfig
+    from spsvo_tpu_torch.ops import lm
+    n, dt = LANDMARK_GATES[gate]
+    n = min(n, k - 14)
+    rng = np.random.default_rng(100 + seed)
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained",
+                   max_keypoints=k, ransac_iterations=64, ransac_chunk=0,
+                   lm_unroll=6, solve_slots=0, landmark_fusion=True)
+    assert tsolver.fused_composition(cfg)
+    data, _, _ = solver_frame(rng, n=n, outlier_frac=0.15, k_pad=k)
+    lms = tsolver.LandmarkState(
+        _t((data["pts3d_prev"] + 0.02 * rng.normal(size=(k, 3))
+            ).astype(np.float32)),
+        _t(np.where(rng.random(k) < 0.33, rng.integers(1, 40, k), 0
+                    ).astype(np.int32)))
+    prep = prepared_from_frame(data, "cpu")
+    P_l, P_r = _t(P_L), _t(P_R)
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    t0 = torch.tensor([0.05, 0.02, -1.0 + dt])
+    fc = torch.tensor(12, dtype=torch.int32)
+    gumbel = torch.as_tensor(np.random.default_rng(seed).gumbel(
+        size=tsolver.gumbel_shape(cfg)).astype(np.float32))
+
+    res, got = tsolver.solve_with_landmarks(
+        prep, lms, P_l, P_r, q0, t0, fc, cfg, k_capacity=k, gumbel=gumbel)
+
+    prep2, lane_len = tsolver.substitute_landmarks(prep, lms)
+    ref = tsolver.solve_prepared(prep2, P_l, P_r, q0, t0, fc, cfg,
+                                 gumbel=gumbel)
+    use_pred = (~ref.pnp_success) | ref.accel_anomaly
+    refined = lm.refine_pose(
+        ref.q, ref.t, prep2.pts3d_curr, prep2.pts3d_prev, prep2.uv_prev_l,
+        prep2.uv_prev_r, prep2.uv_curr_l, prep2.uv_curr_r,
+        ref.inliers & ~use_pred, P_l, P_r,
+        refinement_degree=cfg.refinement_degree,
+        max_iterations=cfg.lm_max_iterations, huber_delta=cfg.huber_delta,
+        unroll=cfg.lm_unroll,
+        inv_factor_weights=torch.clamp(lane_len, max=cfg.landmark_max_age
+                                       ).to(torch.float32))
+    q = torch.where(use_pred, ref.q, refined.q)
+    t = torch.where(use_pred, ref.t, refined.t)
+    pts, length, _ = tsolver.fuse_landmarks(q, t, use_pred, ref.inliers,
+                                            prep2, lane_len, P_l, P_r, cfg)
+    want = tsolver.scatter_landmarks(pts, length, prep.sel, k)
+
+    assert bool(ref.pnp_success) == (gate != "pnp_failure")
+    if gate != "pnp_failure":
+        assert bool(ref.accel_anomaly) == (gate == "accel_anomaly")
+    if gate == "normal":
+        assert not torch.equal(refined.q, ref.q)    # the GLS pass moved it
+    ref = ref._replace(q=q, t=t, T_curr_prev=tsolver.se3.invert_transform(
+        tsolver.se3.make_transform(q, t)))
+    for name in ref._fields:
+        if name != "prior_winner":      # the fused solve's extra output
+            assert torch.equal(getattr(res, name), getattr(ref, name)), name
+    assert torch.equal(got.pts3d, want.pts3d)
+    assert torch.equal(got.length, want.length)
+
+
 def test_solve_prepared_matches_jax(rng):
     """solve_prepared without landmarks, compacted to 128 lanes and
     scattered back to 512 slots; on the CPU it takes the fused solver's
