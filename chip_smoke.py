@@ -1605,6 +1605,41 @@ def check_scan_steps(phase, hybrid, xs, P_l, P_r, n):
     return worst, k2
 
 
+def check_fused_scan(phase, hybrid, xs, P_l, P_r):
+    """Where `fused_scan_route` holds: the scan as one launch of kernel 2's
+    scan entry against the per-pair loop of `scan_step` on the same inputs
+    (inlier counts, chains, gates and track lengths equal; poses and fused
+    landmark points within 1e-5), and both timed as CUDA graphs. Returns
+    their ms per scan ({} where the route does not hold)."""
+    import torch
+
+    from spsvo_tpu_torch.parallel.sharding import fused_scan_route
+    if not fused_scan_route(hybrid.cfg, P_l.device):
+        return {}
+    with torch.no_grad():
+        got = hybrid.scan_fused(xs, P_l, P_r)
+        want = hybrid.scan_stepped(xs, P_l, P_r)
+        torch.cuda.synchronize()
+        err = {"q": (got[0] - want[0]).abs().max().item(),
+               "t": (got[1] - want[1]).abs().max().item(),
+               "landmark_m": (got[3].pts3d - want[3].pts3d).abs().max()
+               .item()}
+        same = torch.equal(got[3].length, want[3].length) and all(
+            torch.equal(got[2][k], v) for k, v in want[2].items())
+        t = {"scan_ms_fused": graph_ms(
+            lambda: hybrid.scan_fused(xs, P_l, P_r), 20),
+             "scan_ms_stepped": graph_ms(
+            lambda: hybrid.scan_stepped(xs, P_l, P_r), 3)}
+    say(phase, check="fused scan vs per-pair scan", pairs=got[0].shape[0],
+        **{f"max_err_{k}": v for k, v in err.items()},
+        diag_and_track_lengths_equal=same,
+        fused_tracks=int((got[3].length > 1).sum().item()), **t)
+    if not (same and max(err.values()) <= 1e-5):
+        fail(f"{phase}: the fused scan against the per-pair scan: {err}, "
+             f"diagnostics and track lengths equal: {same}")
+    return t
+
+
 def hybrid_inputs(raw, corridor, cfg):
     """The corridor's raw (N, 2, H, W) frames on the card, preprocessed
     there to the configuration's resolution, with the rescaled
@@ -1739,11 +1774,12 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     if launches.get("match_nn", 0) != 1 or shapes["match_nn"][0] != 2 * n - 1:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} times "
              f"at {shapes.get('match_nn')}, expected once at B={2 * n - 1}")
-    if (launches.get("fused_solve", 0) != n - 1
-            or shapes["fused_solve"][3] != 1):
-        fail(f"{phase}: fused_solve launched {launches.get('fused_solve', 0)} "
-             f"times at {shapes.get('fused_solve')}, expected {n - 1} with "
-             "the GLS pass in the kernel")
+    want = landmark_scan_launches(cfg, dev, n - 1)
+    k2 = k2_entry(want)
+    if (any(launches.get(k, 0) != v for k, v in want.items())
+            or shapes[k2][3] != 1):
+        fail(f"{phase}: kernel 2 launched {launches} at {shapes.get(k2)}, "
+             f"expected {want} with the GLS pass in the kernel")
 
     if per_frame:
         hybrid_vs_per_frame(phase, hybrid, imgs, P_l, P_r, gumbel, world_e,
@@ -1761,6 +1797,7 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     stereo, inter = match_pairs(kp_l, kp_r, cfg)
     xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
     worst, k2 = check_scan_steps(phase, hybrid, xs, P_l, P_r, n)
+    scan_t = check_fused_scan(phase, hybrid, xs, P_l, P_r)
 
     (world_g, diag_g), capture_s, replay_ms = graph_replays(
         hybrid, imgs, P_l, P_r, gumbel)
@@ -1803,7 +1840,7 @@ def phase_hybrid(dev, corridor, phase="phase6", cfg=None, model=None,
     fn = lambda: solver_cuda.fused_solve_packed(*k2, p)  # noqa: E731
     k2_t = {"ms_weighted": graph_ms(fn, 100), "bound_ms_weighted": b_ms,
             "bound_by_weighted": b_by, "plain_ms_weighted": time_ms(
-                lambda: solver_cuda.fused_solve_plain(*k2, p), 20)}
+                lambda: solver_cuda.fused_solve_plain(*k2, p), 20), **scan_t}
     say(phase, result="pass", frames_per_s=n / seq_ms * 1e3,
         sequence_ms=seq_ms, **k2_t)
     timing = {"eager_ms": float(np.median(eager_ms)), "replay_ms": seq_ms,
@@ -1988,6 +2025,28 @@ def cnn_launches(launches, want, conv: str = "conv_bf16") -> bool:
 def check_counts(tag: str, launches, want) -> None:
     if {k: launches.get(k, 0) for k in want} != want:
         fail(f"phase {tag}: launches {launches}, expected {want}")
+
+
+def landmark_scan_launches(cfg, dev, pairs: int, calls: int = 1) -> dict:
+    """Kernel 2's launches in `calls` runs of a landmark-kernel hybrid's
+    scan over `pairs` pairs: its scan entry once a run where
+    `fused_scan_route` holds, else (`landmark_refine`) its per-pair entry
+    once a pair."""
+    from spsvo_tpu_torch.parallel.sharding import fused_scan_route
+    if fused_scan_route(cfg, dev):
+        return {"fused_solve": 0, "fused_scan": calls}
+    return {"fused_solve": calls * pairs, "fused_scan": 0}
+
+
+def k2_entry(want: dict) -> str:
+    """The kernel-2 entry an expectation of launches names."""
+    return "fused_scan" if want.get("fused_scan") else "fused_solve"
+
+
+def k2_launches(launches) -> dict:
+    """`launches` without the entries of count 0: an expectation of
+    `landmark_scan_launches` as a path's launches show it."""
+    return {k: v for k, v in launches.items() if v}
 
 
 # Batch mode solves every pair from the identity prior, so no pair has the
@@ -2427,10 +2486,11 @@ def phase_cli(dev, corridor, tmp):
     drift = check_trajectory("7c", poses, gt, n)
     # the harness calls the program twice: the first call warms up
     # eagerly, captures (which launches nothing) and replays, the timed
-    # call replays; each of the three runs 1 + 31 launches
-    check_counts("7c", launches, {"match_nn": 3, "fused_solve":
-                                  3 * (n - 1)})
-    if shapes["match_nn"][0] != 2 * n - 1 or shapes["fused_solve"][3] != 1:
+    # call replays; each of the three runs kernel 1 once and kernel 2's
+    # scan entry once
+    want = landmark_scan_launches(flagship_cfg(), "cuda", n - 1, calls=3)
+    check_counts("7c", launches, {"match_nn": 3, **want})
+    if shapes["match_nn"][0] != 2 * n - 1 or shapes[k2_entry(want)][3] != 1:
         fail(f"phase 7c: shapes {shapes}")
     say("phase7c", mode="hybrid", frames=n, launches=launches,
         shapes={k: list(v) for k, v in shapes.items()},
@@ -2573,15 +2633,17 @@ def phase_classic_hybrid(dev, corridor, det, desc, n):
         eager_ms.append((time.perf_counter() - t0) * 1e3)
         if i == 0:
             launches, shapes = dict(_build.launches), dict(_build.shapes)
-    if launches != {"fused_solve": n - 1} or shapes["fused_solve"][3] != 1:
-        fail(f"{tag}: launches {launches} at {shapes}, expected fused_solve "
-             f"{n - 1} with the GLS pass in the kernel and match_nn 0")
+    want = landmark_scan_launches(cfg, dev, n - 1)
+    if launches != k2_launches(want) or shapes[k2_entry(want)][3] != 1:
+        fail(f"{tag}: launches {launches} at {shapes}, expected {want} with "
+             "the GLS pass in the kernel and match_nn 0")
 
     # kernel 2 on the classic path's own inputs, step by step
     kp_l, kp_r = hybrid.frontend(imgs)
     stereo, inter = hybrid.match(kp_l, kp_r)
     xs, _ = hybrid.prepare(kp_l, kp_r, stereo, inter, P_l, P_r, gumbel)
     worst, _ = check_scan_steps(tag, hybrid, xs, P_l, P_r, n)
+    check_fused_scan(tag, hybrid, xs, P_l, P_r)
 
     t0 = time.perf_counter()
     world_g, diag_g = hybrid(imgs, P_l, P_r, gumbel=gumbel)   # captures
@@ -2599,7 +2661,7 @@ def phase_classic_hybrid(dev, corridor, det, desc, n):
             replay_launches = dict(_build.launches)
     same = torch.equal(world_g, world_e) and all(
         torch.equal(diag_g[k], v) for k, v in diag_e.items())
-    if replay_launches != {"fused_solve": n - 1}:
+    if replay_launches != k2_launches(want):
         fail(f"{tag}: a graph replay counted {replay_launches}")
     split = phase_split_ms(hybrid, imgs, P_l, P_r, gumbel, reps=3)
     seq_ms = float(np.median(replay_ms))
@@ -2733,7 +2795,8 @@ def phase_classic_cli(dev, corridor, tmp, gt_file, orb_run):
     torch.cuda.synchronize()
     by_path["harness_orb"] = dict(_build.launches)
     # a warm-up run, the first call's replay and the timed call's replay
-    if by_path["harness_orb"] != {"fused_solve": 3 * (n - 1)}:
+    if by_path["harness_orb"] != k2_launches(
+            landmark_scan_launches(classic_cfg(), dev, n - 1, calls=3)):
         fail(f"phase 8d: the harness launched {by_path['harness_orb']}")
     drift_h = check_trajectory("8d harness", res.poses, gt, n,
                                CLASSIC_DRIFT_LIMIT["ORB/ORB"])
@@ -2768,7 +2831,8 @@ def phase_classic_cli(dev, corridor, tmp, gt_file, orb_run):
     torch.cuda.synchronize()
     feat_ms = (time.perf_counter() - t0) * 1e3
     by_path["feature_hybrid"] = dict(_build.launches)
-    if by_path["feature_hybrid"] != {"fused_solve": n - 1}:
+    if by_path["feature_hybrid"] != k2_launches(
+            landmark_scan_launches(classic_cfg(), dev, n - 1)):
         fail(f"phase 8d: the feature hybrid launched "
              f"{by_path['feature_hybrid']}")
     equal = torch.equal(world_f, world_b)
@@ -2961,7 +3025,9 @@ def phase_int8(dev, corridor, bf16_timing):
         trunk_ms={"int8_static": trunk_ms(models["static"], x),
                   "int8_dynamic": trunk_ms(models["dynamic"], x),
                   "bf16": trunk_ms(bf16, x)})
-    if launches.get("match_nn", 0) != 1 or launches.get("fused_solve") != 31:
+    if launches.get("match_nn", 0) != 1 or any(
+            launches.get(k, 0) != v
+            for k, v in landmark_scan_launches(cfg, dev, 31).items()):
         fail(f"phase9c: launches {launches}")
     p_launches, p_ms = phase_main_path(dev, corridor, "phase9d", cfg, 8,
                                        INT8_PROCESS_DRIFT_LIMIT)
@@ -3732,13 +3798,15 @@ def phase_sharded(dev, corridor):
     if not (same and same_g and mesh.group is not None):
         fail("phase11a: the sharded hybrid on a mesh of one differs from the "
              "unsharded run or from its own eager run")
-    if not cnn_launches(launches, {"match_nn": 1, "fused_solve": n - 1}) \
+    want_k2 = k2_launches(landmark_scan_launches(flagship_cfg(), "cuda",
+                                                 n - 1))
+    if not cnn_launches(launches, {"match_nn": 1, **want_k2}) \
             or shapes["match_nn"][0] != 2 * n - 1 or rep != launches:
         fail(f"phase11a: launches {launches} at {shapes}, replay {rep}")
     if not (f_same and f_same_g):
         fail("phase11a fp32: the FP32 hybrid on a mesh of one differs from "
              "the unsharded run or from its own eager run")
-    if not cnn_launches(f_launches, {"match_nn": 1, "fused_solve": n - 1},
+    if not cnn_launches(f_launches, {"match_nn": 1, **want_k2},
                         "conv_fp32") or f_rep != f_launches \
             or f_shapes["match_nn"][0] != 2 * n - 1:
         fail(f"phase11a fp32: launches {f_launches} at {f_shapes}, replay "
@@ -3788,16 +3856,19 @@ def phase_sharded(dev, corridor):
                 fail(f"{tagr}: the feature hybrid (landmark fusion {lm}) "
                      f"differs from the unsharded run from the same "
                      f"keypoints, or its graphs from its eager run: {f}")
-        want_cnn = {"match_nn": 1, "fused_solve": n - 1}
+        want_cnn = {"match_nn": 1, **want_k2}
         for p in (f"sharded_feature_lm1_r{r}", f"sharded_feature_lm0_r{r}",
                   f"sharded_hybrid_r{r}"):
             got_l, got_s = res["launches"][p], res["shapes"][p]
-            gls = "lm0" in p or got_s["fused_solve"][3] == 1
-            ok = (cnn_launches(got_l, want_cnn) if "hybrid" in p
-                  else got_l == want_cnn)       # the feature input: no CNN
+            # without landmark fusion: the per-pair entry, no GLS pass
+            want = ({"match_nn": 1, "fused_solve": n - 1} if "lm0" in p
+                    else want_cnn)
+            gls = "lm0" in p or got_s[k2_entry(want)][3] == 1
+            ok = (cnn_launches(got_l, want) if "hybrid" in p
+                  else got_l == want)       # the feature input: no CNN
             if not ok or got_s["match_nn"][0] != frames + pairs or not gls:
                 fail(f"{tagr}: {p} launched {got_l} at {got_s}, expected "
-                     f"{want_cnn} at B={frames + pairs}")
+                     f"{want} at B={frames + pairs}")
         c = res["cnn"]
         if c["kernel1_B"] != frames + pairs or not cnn_launches(
                 c["replay_launches"], want_cnn) or \
@@ -3836,7 +3907,7 @@ def phase_sharded(dev, corridor):
             fail(f"{tagr}: batch mode: {b}")
         o = res["orb"]
         ol = res["launches"][f"sharded_orb_r{r}"]
-        if ol != {"fused_solve": n - 1} or o["replay_launches"] != ol \
+        if ol != want_k2 or o["replay_launches"] != ol \
                 or not o["graph_equals_eager_bitwise"]:
             fail(f"{tagr}: the ORB hybrid launched {ol}, replay "
                  f"{o['replay_launches']}, graph check {o}")
@@ -4171,15 +4242,21 @@ def main() -> None:
     if len(unruled) != sum(map(len, classes)):
         fail("kernel report: a path is in two classes")
 
+    def launched(c, name):
+        # kernel 2: its per-pair and its scan entry
+        return c.get(name, 0) + (c.get("fused_scan", 0)
+                                 if name == "fused_solve" else 0)
+
     def counts(name):
         need, never = rules[name]
-        stray = [path for path, c in never.items() if c.get(name, 0)]
+        stray = [path for path, c in never.items() if launched(c, name)]
         if stray:
             fail(f"{name} was launched on {stray}")
-        missing = [path for path, c in need.items() if not c.get(name, 0)]
+        missing = [path for path, c in need.items()
+                   if not launched(c, name)]
         if missing:
             fail(f"{name} was not launched on {missing}")
-        by_path = {path: c.get(name, 0) for path, c in {**need, **never}
+        by_path = {path: launched(c, name) for path, c in {**need, **never}
                    .items()}
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
@@ -4192,7 +4269,11 @@ def main() -> None:
         {"name": "fused_solve", "route": "cuda",
          "source": "spsvo_tpu_torch/csrc/fused_solve.cu",
          "replaces": "spsvo_tpu/ops/solver_pallas.py:383",
-         **counts("fused_solve"), "max_abs_err": s_err,
+         **counts("fused_solve"), "scan_entry_launches_by_path": {
+             path: c["fused_scan"] for path, c in {
+                 **cnn, **fp32, **feature, **int8, **classic}.items()
+             if c.get("fused_scan")},
+         "max_abs_err": s_err,
          **{k: s_t[k] for k in keys}, **k2_t, **k2_f31},
         {"name": "conv_bf16", "route": "cuda",
          "source": "spsvo_tpu_torch/csrc/conv_bf16.cu",

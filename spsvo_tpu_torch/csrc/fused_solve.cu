@@ -47,6 +47,10 @@
 //    the Cholesky divides once per pivot and multiplies by the reciprocal.
 // Every sum has a fixed order, so results are bitwise identical from run
 // to run. F frames are F independent clusters (grid F*8).
+//
+// A second entry, fused_scan_kernel (fused_scan_launch), runs the online
+// hybrid's whole landmark scan in one launch, each pair's solve the same
+// code on one resident cluster: see its note below.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -635,26 +639,16 @@ __device__ __forceinline__ void solve_chain(Chain& ch, const float* hyp,
   for (int l = tid; l < p.Lp; l += WG) inl_g[l] = sh.inl[l];
 }
 
-__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
-fused_solve_kernel(const float* __restrict__ pts_g,
-                   const float* __restrict__ hyp_g,
-                   const float* __restrict__ scal_g, float* __restrict__ out_g,
-                   float* __restrict__ inl_g, Params p) {
-  __shared__ Smem sh;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = (int)cluster.block_rank();
-  const int f = blockIdx.x / CL;
+// RANSAC scoring over the cluster, on the point tile in each CTA's shared
+// memory: CTA `rank` scores hypotheses [S*rank/CL, S*(rank+1)/CL) of `hyp`,
+// a warp per hypothesis, and writes its first-max winner into rank 0's
+// cc/cs through distributed shared memory; then the cluster syncs.
+__device__ __forceinline__ void score_cluster(Smem& sh, const Params& p,
+                                              const float* __restrict__ hyp,
+                                              const float* Pl,
+                                              cg::cluster_group& cluster,
+                                              int rank) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* pts = pts_g + (long long)f * 16 * p.Lp;
-  const float* hyp = hyp_g + (long long)f * p.S * 12;
-  const float* scal = scal_g + (long long)f * 32;
-
-  for (int i = tid; i < 16 * p.Lp; i += NT) sh.pts[i / p.Lp][i % p.Lp] = pts[i];
-  float Pl[12];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) Pl[i] = scal[8 + i];
-  cluster.sync();   // points visible; every CTA of the cluster is running
-
   // ---- this CTA's share of the S hypotheses: a warp per hypothesis -------
   const int s_lo = p.S * rank / CL, s_hi = p.S * (rank + 1) / CL;
   int best_c = -1, best_s = 0x7fffffff;
@@ -686,18 +680,262 @@ fused_solve_kernel(const float* __restrict__ pts_g,
     cluster.map_shared_rank(sh.cs, 0)[rank] = s;
   }
   cluster.sync();
-  if (rank != 0 || tid >= WG) return;
+}
 
-  // first-max argmax over the CTAs' winners, in rank (= index) order
-  int maxc = sh.cc[0], j = sh.cs[0];
+// On rank 0 after score_cluster: the first-max argmax over the CTAs'
+// winners, in rank (= index) order.
+__device__ __forceinline__ void cluster_winner(const Smem& sh, int& maxc,
+                                               int& j) {
+  maxc = sh.cc[0];
+  j = sh.cs[0];
   for (int r = 1; r < CL; ++r)
     if (sh.cc[r] > maxc || (sh.cc[r] == maxc && sh.cs[r] < j)) {
       maxc = sh.cc[r];
       j = sh.cs[r];
     }
+}
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
+fused_solve_kernel(const float* __restrict__ pts_g,
+                   const float* __restrict__ hyp_g,
+                   const float* __restrict__ scal_g, float* __restrict__ out_g,
+                   float* __restrict__ inl_g, Params p) {
+  __shared__ Smem sh;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int f = blockIdx.x / CL;
+  const int tid = threadIdx.x;
+  const float* pts = pts_g + (long long)f * 16 * p.Lp;
+  const float* hyp = hyp_g + (long long)f * p.S * 12;
+  const float* scal = scal_g + (long long)f * 32;
+
+  for (int i = tid; i < 16 * p.Lp; i += NT) sh.pts[i / p.Lp][i % p.Lp] = pts[i];
+  float Pl[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) Pl[i] = scal[8 + i];
+  cluster.sync();   // points visible; every CTA of the cluster is running
+  score_cluster(sh, p, hyp, Pl, cluster, rank);
+  if (rank != 0 || tid >= WG) return;
+  int maxc, j;
+  cluster_winner(sh, maxc, j);
   Chain ch{sh, p, 0};
   solve_chain(ch, hyp, maxc, j, scal, out_g + (long long)f * 20,
               inl_g + (long long)f * p.Lp);
+}
+
+// ---- the persistent landmark scan ---------------------------------------
+//
+// The online hybrid's scan over P frame pairs (parallel/sharding.py,
+// scan_step in the landmark-kernel branch) in ONE launch: one cluster walks
+// the pairs in order, the carry (prior, frame count, landmarks) stays on the
+// chip. A pair's solve is fused_solve_kernel's body on the pair's tile; what
+// ran as ~220 PyTorch ops around each launch (landmark substitution, the
+// splice of the tile, the scalars, fusion, the scatter to keypoint slots)
+// runs here between the solves. The steps are serial (pair f needs pair
+// f-1's prior and landmarks), so the design keeps one cluster resident:
+//  - The landmarks, (x, y, z, track length) per keypoint slot (K x 16 bytes),
+//    live in rank 0's shared memory; every CTA gathers them at its pair's
+//    lanes through distributed shared memory while it loads its tile.
+//  - Per pair: cluster.sync (last pair's landmarks complete), tile load with
+//    the substitution, scoring (score_cluster, which ends in a second
+//    cluster.sync), then rank 0's warpgroup 0 alone: the chain, the fusion
+//    of its lanes and the scatter; the other CTAs wait at the next sync.
+// Fusion and scatter repeat solver.fuse_landmarks / scatter_landmarks; the
+// fusion rounds every product and sum on its own (the _rn intrinsics), as
+// PyTorch's elementwise kernels do, with the two small matrix products as
+// FMA chains in index order, as cuBLAS computes them: on the H100 the scan
+// then equals the per-pair loop bit for bit. What bounds it is the chain's
+// latency, as in the per-pair entry: a pair takes ~0.075 ms against that
+// entry's 0.069, the rest the tile load with the gather, the fusion and two
+// cluster syncs. The scoring reads no substituted row, so the 7 idle CTAs
+// could score the next pair during the chain; not done.
+
+constexpr int MAX_K = 8192;      // landmark slots (dynamic shared memory)
+
+struct ScanParams {
+  int L, K, max_age;             // lanes of a pair, keypoint slots, cap
+  float gate2;                   // squared fusion gate (px^2)
+};
+
+struct ScanCarry {               // rank 0's, besides the landmark slots
+  int len[MAX_L];                // lane track length after substitution
+  float scal[32];                // q_pred t_pred frame_count P_l P_r
+  float res[20];                 // the pair's output row
+};
+
+// se3.quat_to_matrix as PyTorch computes it on this card: normalise (its
+// CUDA norm of 4 values sums the squares as (q0^2 + q2^2) + (q1^2 + q3^2)),
+// then each entry.
+__device__ __forceinline__ void quat_to_R_rn(const float qin[4], float R[9]) {
+  const float n2 = __fadd_rn(
+      __fadd_rn(__fmul_rn(qin[0], qin[0]), __fmul_rn(qin[2], qin[2])),
+      __fadd_rn(__fmul_rn(qin[1], qin[1]), __fmul_rn(qin[3], qin[3])));
+  const float n = fmaxf(__fsqrt_rn(n2), 1e-12f);
+  const float x = __fdiv_rn(qin[0], n), y = __fdiv_rn(qin[1], n),
+              z = __fdiv_rn(qin[2], n), w = __fdiv_rn(qin[3], n);
+  const float xx = __fmul_rn(x, x), yy = __fmul_rn(y, y), zz = __fmul_rn(z, z);
+  const float xy = __fmul_rn(x, y), xz = __fmul_rn(x, z), yz = __fmul_rn(y, z);
+  const float wx = __fmul_rn(w, x), wy = __fmul_rn(w, y), wz = __fmul_rn(w, z);
+  R[0] = __fsub_rn(1.f, __fmul_rn(2.f, __fadd_rn(yy, zz)));
+  R[1] = __fmul_rn(2.f, __fsub_rn(xy, wz));
+  R[2] = __fmul_rn(2.f, __fadd_rn(xz, wy));
+  R[3] = __fmul_rn(2.f, __fadd_rn(xy, wz));
+  R[4] = __fsub_rn(1.f, __fmul_rn(2.f, __fadd_rn(xx, zz)));
+  R[5] = __fmul_rn(2.f, __fsub_rn(yz, wx));
+  R[6] = __fmul_rn(2.f, __fsub_rn(xz, wy));
+  R[7] = __fmul_rn(2.f, __fadd_rn(yz, wx));
+  R[8] = __fsub_rn(1.f, __fmul_rn(2.f, __fadd_rn(xx, yy)));
+}
+
+// triangulation.project: [X 1] P^T, the depth clamped, then the divides;
+// returns the squared distance to (u0, v0).
+__device__ __forceinline__ float reproj2_rn(const float* P, const float X[3],
+                                            float u0, float v0) {
+  float uvw[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    uvw[i] = __fadd_rn(fmaf(X[2], P[4 * i + 2],
+                            fmaf(X[1], P[4 * i + 1],
+                                 __fmul_rn(X[0], P[4 * i]))),
+                       P[4 * i + 3]);
+  const float w = fabsf(uvw[2]) < 1e-12f ? 1e-12f : uvw[2];
+  const float du = __fsub_rn(__fdiv_rn(uvw[0], w), u0);
+  const float dv = __fsub_rn(__fdiv_rn(uvw[1], w), v0);
+  return __fadd_rn(__fmul_rn(du, du), __fmul_rn(dv, dv));
+}
+
+// solver.fuse_landmarks + scatter_landmarks on warpgroup 0 of rank 0, from
+// the pair's output row c.res and final inlier row: the landmark slots are
+// zeroed, then each lane's fused point and length land at its slot sel[l].
+__device__ __forceinline__ void fuse_scatter(const Smem& sh,
+                                             const ScanCarry& c,
+                                             float4* lms,
+                                             const int* __restrict__ sel,
+                                             const ScanParams& sp) {
+  const int tid = threadIdx.x;
+  float R[9];
+  quat_to_R_rn(c.res, R);
+  const float t[3] = {c.res[4], c.res[5], c.res[6]};
+  const bool use_pred = !(c.res[15] > 0.f) || (c.res[16] > 0.f);
+  const float* Pl = c.scal + 8;
+  const float* Pr = c.scal + 20;
+  for (int k = tid; k < sp.K; k += WG) lms[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  wg_bar();
+  for (int l = tid; l < sp.L; l += WG) {
+    const float d[3] = {__fsub_rn(sh.pts[3][l], t[0]),
+                        __fsub_rn(sh.pts[4][l], t[1]),
+                        __fsub_rn(sh.pts[5][l], t[2])};
+    float x[3];   // R^T (X_prev - t)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      x[j] = fmaf(d[2], R[6 + j], fmaf(d[1], R[3 + j], __fmul_rn(d[0], R[j])));
+    const float e2l = reproj2_rn(Pl, x, sh.pts[10][l], sh.pts[11][l]);
+    const float e2r = reproj2_rn(Pr, x, sh.pts[12][l], sh.pts[13][l]);
+    const bool chain = sh.pts[14][l] > 0.f;
+    // max(e2l, e2r) < gate2, NaN failing as in torch.maximum
+    const bool ok = e2l < sp.gate2 && e2r < sp.gate2 && x[2] > 0.f &&
+                    isfinite(x[0]) &&
+                    isfinite(x[1]) && isfinite(x[2]);
+    const bool fuse = !use_pred && sh.inl[l] > 0.f && chain && ok;
+    const int ll = c.len[l];
+    const float w = (float)min(ll, sp.max_age);
+    const float w1 = __fadd_rn(w, 1.f);
+    float4 v;
+    v.x = fuse ? __fdiv_rn(__fadd_rn(__fmul_rn(w, x[0]), sh.pts[0][l]), w1)
+               : sh.pts[0][l];
+    v.y = fuse ? __fdiv_rn(__fadd_rn(__fmul_rn(w, x[1]), sh.pts[1][l]), w1)
+               : sh.pts[1][l];
+    v.z = fuse ? __fdiv_rn(__fadd_rn(__fmul_rn(w, x[2]), sh.pts[2][l]), w1)
+               : sh.pts[2][l];
+    int len = fuse ? min(ll + 1, sp.max_age) : 1;
+    if (!chain) {
+      v.x = v.y = v.z = 0.f;
+      len = 0;
+    }
+    v.w = __int_as_float(len);
+    lms[sel[l]] = v;
+  }
+}
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
+fused_scan_kernel(const float* __restrict__ pts_g,
+                  const float* __restrict__ hyp_g,
+                  const int* __restrict__ inter_g,
+                  const int* __restrict__ sel_g,
+                  const float* __restrict__ scal0, float* __restrict__ out_g,
+                  float* __restrict__ inl_g, float* __restrict__ lm_pts,
+                  int* __restrict__ lm_len, int pairs, Params p,
+                  ScanParams sp) {
+  __shared__ Smem sh;
+  __shared__ ScanCarry c;
+  extern __shared__ float4 lms[];   // landmark slots (rank 0's are read)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x;
+  float Pl[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) Pl[i] = scal0[8 + i];
+  if (rank == 0) {
+    if (tid < 32) c.scal[tid] = scal0[tid];
+    for (int k = tid; k < sp.K; k += NT)
+      lms[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  const float4* lm0 = cluster.map_shared_rank(lms, 0);
+
+  for (int f = 0; f < pairs; ++f) {
+    cluster.sync();   // the last pair's landmarks are complete in rank 0
+    const float* pts = pts_g + (long long)f * 16 * p.Lp;
+    const float* hyp = hyp_g + (long long)f * p.S * 12;
+    const int* inter = inter_g + (long long)f * sp.L;
+    // the tile, with the carried landmarks in rows 3-5 where a track exists
+    // (solver.substitute_landmarks) and, for the GLS pass, the clamped
+    // track length in row 15 (solver_cuda.splice_points)
+    for (int l = tid; l < p.Lp; l += NT) {
+      float v[16];
+#pragma unroll
+      for (int r = 0; r < 16; ++r) v[r] = pts[r * p.Lp + l];
+      if (l < sp.L) {
+        const int fi = inter[l];
+        const float4 lm = lm0[max(fi, 0)];
+        const int clen = __float_as_int(lm.w);
+        const bool has = fi >= 0 && clen > 0 && v[14] > 0.f &&
+                         isfinite(lm.x) && isfinite(lm.y) && isfinite(lm.z);
+        if (has) {
+          v[3] = lm.x;
+          v[4] = lm.y;
+          v[5] = lm.z;
+        }
+        const int ll = has ? clen : 1;
+        if (rank == 0) c.len[l] = ll;
+        if (p.weighted) v[15] = (float)min(ll, sp.max_age);
+      }
+#pragma unroll
+      for (int r = 0; r < 16; ++r) sh.pts[r][l] = v[r];
+    }
+    __syncthreads();
+    score_cluster(sh, p, hyp, Pl, cluster, rank);
+    if (rank != 0 || tid >= WG) continue;
+
+    int maxc, j;
+    cluster_winner(sh, maxc, j);
+    Chain ch{sh, p, 0};
+    solve_chain(ch, hyp, maxc, j, c.scal, c.res, inl_g + (long long)f * p.Lp);
+    wg_bar();
+    fuse_scatter(sh, c, lms, sel_g + (long long)f * sp.L, sp);
+    if (tid < 20) out_g[(long long)f * 20 + tid] = c.res[tid];
+    if (tid < 7) c.scal[tid] = c.res[7 + tid];   // q_pred', t_pred'
+    if (tid == 7) c.scal[7] += 1.f;               // frame count
+  }
+  if (rank == 0 && tid < WG) {   // the landmarks after the last pair
+    wg_bar();
+    for (int k = tid; k < sp.K; k += WG) {
+      const float4 v = lms[k];
+      lm_pts[3 * k] = v.x;
+      lm_pts[3 * k + 1] = v.y;
+      lm_pts[3 * k + 2] = v.z;
+      lm_len[k] = __float_as_int(v.w);
+    }
+  }
 }
 
 }  // namespace
@@ -718,5 +956,41 @@ extern "C" int fused_solve_launch(const void* pts, const void* hyp,
   fused_solve_kernel<<<F * CL, NT, 0, (cudaStream_t)stream>>>(
       (const float*)pts, (const float*)hyp, (const float*)scal, (float*)out,
       (float*)inl, p);
+  return (int)cudaGetLastError();
+}
+
+// Returns the cudaError_t of the launch (0 = success). One cluster of CL
+// CTAs walks the `pairs` pairs; inter and sel are int32 (pairs, L), lm_pts
+// (K, 3) and lm_len (K,) the landmarks after the last pair.
+extern "C" int fused_scan_launch(const void* pts, const void* hyp,
+                                 const void* inter, const void* sel,
+                                 const void* scal0, void* out, void* inl,
+                                 void* lm_pts, void* lm_len, int pairs, int S,
+                                 int Lp, int L, int K, float thr2,
+                                 float reproj, float delta, float min_inliers,
+                                 float dt, float max_acc, float ignore_fc,
+                                 int degree, int lm_iters, int polish_iters,
+                                 int weighted, float gate2, int max_age,
+                                 void* stream) {
+  if (pairs <= 0 || S <= 0 || Lp <= 0 || Lp > MAX_L || Lp % WG || L <= 0 ||
+      L > Lp || K <= 0 || K > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  Params p{S, Lp, thr2, reproj, delta, min_inliers, dt, max_acc, ignore_fc,
+           degree, lm_iters, polish_iters, weighted};
+  ScanParams sp{L, K, max_age, gate2};
+  const int dyn = K * (int)sizeof(float4);
+  // the default limit of dynamic shared memory is 48 KB less the static
+  // ~40 KB: raised once (the first launch runs before any graph capture)
+  static int dyn_set = 0;
+  if (dyn > dyn_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+    dyn_set = dyn;
+  }
+  fused_scan_kernel<<<CL, NT, dyn, (cudaStream_t)stream>>>(
+      (const float*)pts, (const float*)hyp, (const int*)inter,
+      (const int*)sel, (const float*)scal0, (float*)out, (float*)inl,
+      (float*)lm_pts, (int*)lm_len, pairs, p, sp);
   return (int)cudaGetLastError();
 }

@@ -17,6 +17,11 @@ thread-block cluster per frame); the per-frame path launches F=1.
 version (`fused_solve_plain`, op by op: `pnp._score_mask`,
 `pnp.refit_polish`, `lm.refine_pose` and the gates, i.e. `solve_prepared`'s
 single-batch route) only for CPU tensors; it never falls back.
+
+`fused_scan_packed` is the kernel's second entry: the online hybrid's whole
+landmark scan (per pair: landmark substitution, the tile's splice, the
+solve, fusion and the scatter to keypoint slots) in one launch, its plain
+version `fused_scan_plain` the same steps op by op.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ import torch
 from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import VOConfig
 from spsvo_tpu_torch.geometry import se3
-from spsvo_tpu_torch.ops import lm, pnp
+from spsvo_tpu_torch.ops import lm, pnp, solver
 from spsvo_tpu_torch.ops.solver import PreparedSolve, SolveResult
 
 N_OUT = 20
+SCAN_MAX_K = 8192   # landmark slots of the scan entry (csrc MAX_K)
 
 
 class SolveParams(NamedTuple):
@@ -85,13 +91,18 @@ def precompute_hypotheses(prep: PreparedSolve, cfg: VOConfig, *,
         torch.float32).contiguous()
 
 
+def padded_lanes(L: int) -> int:
+    """The kernel's lanes for L solver lanes: a multiple of 128."""
+    return max(128, -(-L // 128) * 128)
+
+
 def pack_points(prep: PreparedSolve,
                 lane_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
     """PreparedSolve -> the kernel's (..., 16, Lp) row layout, Lp = L rounded
     up to a multiple of 128. Row 15 holds the GLS lane weights (zeros when
     None)."""
     L = prep.chain.shape[-1]
-    Lp = max(128, -(-L // 128) * 128)
+    Lp = padded_lanes(L)
     lead = tuple(prep.chain.shape[:-1])
     T = lambda x: x.transpose(-1, -2)  # noqa: E731
     rows = torch.cat([
@@ -250,6 +261,138 @@ def fused_solve_packed(pts: torch.Tensor, hyp: torch.Tensor,
     _build.count_launch("fused_solve",
                         (F_, hyp.shape[1], Lp, int(p.weighted_lm)))
     return out, inl
+
+
+def landmark_solve_params(cfg: VOConfig) -> SolveParams:
+    """The kernel's parameters in the landmark solve: the GLS pass where
+    `solver.solve_with_landmarks` runs it."""
+    return solve_params(cfg, weighted_lm=bool(
+        cfg.landmark_weighted_lm and cfg.refinement_degree >= 3))
+
+
+def fused_scan_fits(k_capacity: int, lanes: int) -> bool:
+    """The scan entry holds `k_capacity` landmark slots (16 bytes each) in
+    shared memory and a tile of `lanes` solver lanes."""
+    return k_capacity <= SCAN_MAX_K and padded_lanes(lanes) <= 512
+
+
+def _tile_prep(pts: torch.Tensor, inter_sel: torch.Tensor,
+               sel: torch.Tensor) -> PreparedSolve:
+    """The prep a (16, Lp) tile was packed from, its first L = len(sel)
+    lanes (no `num_chain_total`)."""
+    L = sel.shape[-1]
+    rows = lambda a, b: pts[a:b, :L].T  # noqa: E731
+    return PreparedSolve(rows(0, 3), rows(3, 6), rows(10, 12), rows(12, 14),
+                         rows(6, 8), rows(8, 10), pts[14, :L] > 0, sel, None,
+                         inter_sel)
+
+
+def fused_scan_plain(pts: torch.Tensor, hyp: torch.Tensor,
+                     inter_sel: torch.Tensor, sel: torch.Tensor,
+                     scal0: torch.Tensor, cfg: VOConfig, k_capacity: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor,
+                                solver.LandmarkState]:
+    """Plain version of the scan entry on any device: per pair, the ops of
+    `solver.solve_with_landmarks` on the hoisted tile (substitution, splice,
+    `fused_solve_plain`, `fuse_landmarks`, `scatter_landmarks`) and the
+    carry of the prior and the frame count in the scalars. Bit for bit the
+    online hybrid's per-pair `scan_step` loop in the landmark-kernel
+    branch without `landmark_refine`."""
+    p = landmark_solve_params(cfg)
+    lms = solver.init_landmarks(k_capacity, pts.device)
+    P_l, P_r = scal0[8:20].reshape(3, 4), scal0[20:32].reshape(3, 4)
+    scal, outs, inls = scal0, [], []
+    for f in range(pts.shape[0]):
+        prep = _tile_prep(pts[f], inter_sel[f], sel[f])
+        prep2, lane_len = solver.substitute_landmarks(prep, lms)
+        w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(
+            torch.float32) if p.weighted_lm else None)
+        out, inl = fused_solve_plain(
+            splice_points(pts[f], prep2.pts3d_prev, w_row)[None],
+            hyp[f][None], scal[None], p)
+        out, inl = out[0], inl[0]
+        use_pred = ~(out[15] > 0) | (out[16] > 0)
+        inliers = (inl[:sel.shape[-1]] > 0) & prep.chain
+        pts_l, len_l, _ = solver.fuse_landmarks(
+            out[0:4], out[4:7], use_pred, inliers, prep2, lane_len, P_l, P_r,
+            cfg)
+        lms = solver.scatter_landmarks(pts_l, len_l, sel[f].long(),
+                                       k_capacity)
+        scal = torch.cat([out[7:14], scal[7:8] + 1, scal[8:]])
+        outs.append(out)
+        inls.append(inl)
+    return torch.stack(outs), torch.stack(inls), lms
+
+
+def _scan_lib():
+    fn = _build.load("fused_solve").fused_scan_launch
+    if fn.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P] * 9 + [I] * 5 + [Fl] * 7 + [I] * 4 + [Fl, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_scan_packed(pts: torch.Tensor, hyp: torch.Tensor,
+                      inter_sel: torch.Tensor, sel: torch.Tensor,
+                      scal0: torch.Tensor, cfg: VOConfig, k_capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
+                                 solver.LandmarkState]:
+    """The scan entry on the hoisted inputs of P pairs: pts (P, 16, Lp)
+    tiles packed from the unsubstituted preps, hyp (P, S, 12), inter_sel
+    and sel (P, L) integer lanes-to-slots maps, scal0 (32,) the first
+    pair's scalars (`pack_scalars`), float32 and contiguous where float.
+    Returns (out (P, 20), inl (P, Lp), the landmarks in `k_capacity` slots
+    after the last pair): out's rows as `fused_solve_packed`'s. CPU
+    tensors take the plain version."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return fused_scan_plain(pts, hyp, inter_sel, sel, scal0, cfg,
+                                k_capacity)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_scan: unsupported device {dev}")
+    P_, rows, Lp = pts.shape
+    L = sel.shape[-1]
+    if rows != 16 or Lp % 128 or not 0 < Lp <= 512:
+        raise ValueError(f"pts must be (P, 16, Lp) with Lp a multiple of 128 "
+                         f"up to 512, got {tuple(pts.shape)}")
+    if hyp.dim() != 3 or hyp.shape[0] != P_ or hyp.shape[2] != 12:
+        raise ValueError(f"hyp must be (P, S, 12), got {tuple(hyp.shape)}")
+    for name, x in (("inter_sel", inter_sel), ("sel", sel)):
+        if tuple(x.shape) != (P_, L) or not 0 < L <= Lp or x.device != dev:
+            raise ValueError(f"{name} must be (P, L) with L <= {Lp} on {dev}, "
+                             f"got {tuple(x.shape)}")
+    if tuple(scal0.shape) != (32,):
+        raise ValueError(f"scal0 must be (32,), got {tuple(scal0.shape)}")
+    if not 0 < k_capacity <= SCAN_MAX_K:
+        raise ValueError(f"fused_scan holds at most {SCAN_MAX_K} landmark "
+                         f"slots, got {k_capacity}")
+    for name, x in (("pts", pts), ("hyp", hyp), ("scal0", scal0)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    p = landmark_solve_params(cfg)
+    inter32 = inter_sel.to(torch.int32).contiguous()
+    sel32 = sel.to(torch.int32).contiguous()
+    out = torch.empty((P_, N_OUT), dtype=torch.float32, device=dev)
+    inl = torch.empty((P_, Lp), dtype=torch.float32, device=dev)
+    lm_pts = torch.empty((k_capacity, 3), dtype=torch.float32, device=dev)
+    lm_len = torch.empty((k_capacity,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gate = float(cfg.landmark_gate_px)
+    with torch.cuda.device(dev):
+        err = _scan_lib()(pts.data_ptr(), hyp.data_ptr(), inter32.data_ptr(),
+                          sel32.data_ptr(), scal0.data_ptr(), out.data_ptr(),
+                          inl.data_ptr(), lm_pts.data_ptr(), lm_len.data_ptr(),
+                          P_, hyp.shape[1], Lp, L, k_capacity, p.thr2,
+                          p.reproj_threshold, p.huber_delta, p.min_inliers,
+                          p.time_interval, p.max_acceleration,
+                          p.ignore_frame_count, p.degree, p.lm_iters,
+                          p.polish_iters, int(p.weighted_lm), gate * gate,
+                          int(cfg.landmark_max_age), stream)
+    _build.check_status(err, "fused_scan")
+    _build.count_launch("fused_scan",
+                        (P_, hyp.shape[1], Lp, int(p.weighted_lm)))
+    return out, inl, solver.LandmarkState(lm_pts, lm_len)
 
 
 def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,

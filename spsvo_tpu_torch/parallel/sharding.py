@@ -24,9 +24,12 @@ then a sequential scan over the pairs carries only the prior-dependent core
 (motion prior, frame counter, fused landmarks). In the flagship branch
 (landmark fusion + fused solver) each step splices the carried landmarks
 into the hoisted tile and makes one launch of the fused solver, with the
-GLS pass in the kernel. With `speculative_solve` (and neither landmark
-fusion nor the fused solver) a step only scores the prior lane and keeps
-the hoisted sampled winner unless the prior is strictly better. Last,
+GLS pass in the kernel; on CUDA without `landmark_refine`
+(`fused_scan_route`) the whole scan is instead one launch of the fused
+solver's scan entry, which walks the pairs on one resident cluster. With
+`speculative_solve` (and neither landmark fusion nor the fused solver) a
+step only scores the prior lane and keeps the hoisted sampled winner unless
+the prior is strictly better. Last,
 
   4. pose chaining: a log-depth cumulative product of the per-pair motions.
 
@@ -289,6 +292,18 @@ def scan_step(carry: Carry, x: ScanInputs, P_l: torch.Tensor,
                                     cfg, gumbel=x.gumbel)
         diag = _diag_of(res)
     return Carry(res.q_pred, res.t_pred, fc + 1, lms), res, diag
+
+
+def fused_scan_route(cfg: VOConfig, device) -> bool:
+    """The landmark scan as one launch of kernel 2's scan entry: the
+    landmark-kernel branch, without `landmark_refine` (its op-by-op LM pass
+    after fusion), on a CUDA device, with the keypoint slots and solver
+    lanes within the kernel's shared memory."""
+    return (cfg.landmark_fusion and solver.pallas_solver_config(cfg)
+            and not cfg.landmark_refine
+            and torch.device(device).type == "cuda"
+            and solver_cuda.fused_scan_fits(
+                cfg.max_keypoints, solver.gumbel_shape(cfg)[1]))
 
 
 def cumulative_product(T: torch.Tensor) -> torch.Tensor:
@@ -569,7 +584,17 @@ class OnlineHybrid:
 
     def scan(self, xs: ScanInputs, P_l: torch.Tensor, P_r: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
-        """The sequential scan over the N-1 pairs -> (qs, ts, diag)."""
+        """The sequential scan over the N-1 pairs -> (qs, ts, diag): one
+        launch of kernel 2's scan entry where `fused_scan_route` holds on
+        the inputs' device, else `scan_step` per pair."""
+        run = (self.scan_fused if fused_scan_route(self.cfg, xs.gumbel.device)
+               else self.scan_stepped)
+        return run(xs, P_l, P_r)[:3]
+
+    def scan_stepped(self, xs: ScanInputs, P_l: torch.Tensor,
+                     P_r: torch.Tensor):
+        """The scan as `scan_step` per pair -> (qs, ts, diag, the
+        landmarks after the last pair, None without landmark fusion)."""
         carry = self.init_carry()
         qs: List[torch.Tensor] = []
         ts: List[torch.Tensor] = []
@@ -583,7 +608,32 @@ class OnlineHybrid:
             ts.append(res.t)
             diags.append(d)
         diag = {k: torch.stack([d[k] for d in diags]) for k in diags[0]}
-        return torch.stack(qs), torch.stack(ts), diag
+        return torch.stack(qs), torch.stack(ts), diag, carry.landmarks
+
+    def scan_fused(self, xs: ScanInputs, P_l: torch.Tensor,
+                   P_r: torch.Tensor):
+        """The landmark-kernel branch's scan (without `landmark_refine`) as
+        one call of `solver_cuda.fused_scan_packed` from the initial carry
+        (its plain version on CPU tensors) -> `scan_stepped`'s results."""
+        cfg = self.cfg
+        c = self.init_carry()
+        scal0 = solver_cuda.pack_scalars(c.q_pred, c.t_pred, c.frame_count,
+                                         P_l, P_r)
+        out, _, lms = solver_cuda.fused_scan_packed(
+            xs.pts.contiguous(), xs.hyp.contiguous(), xs.prep.inter_sel,
+            xs.prep.sel, scal0, cfg, cfg.max_keypoints)
+        n_pairs = out.shape[0]
+        i32 = torch.int32
+        diag = {"num_chain": out[:, 19].to(i32),
+                "num_inliers": out[:, 14].to(i32),
+                "pnp_success": out[:, 15] > 0,
+                "accel_anomaly": out[:, 16] > 0,
+                "chain_truncated": (xs.prep.num_chain_total
+                                    > xs.prep.chain.shape[-1]),
+                "n_ransac_hypotheses": torch.full(
+                    (n_pairs,), cfg.ransac_iterations, dtype=i32,
+                    device=out.device)}
+        return out[:, 0:4], out[:, 4:7], diag, lms
 
     # -- the program ------------------------------------------------------
     def shard(self, n_frames: int) -> _Shard:
@@ -715,13 +765,17 @@ class OnlineHybrid:
         graphs' static ones), `spsvo.capture` at a shape's first call,
         `spsvo.segment.launch` (the replay; on the CPU the op-by-op run)
         and `spsvo.segment.copy` (the copies of the world and
-        diagnostics)."""
+        diagnostics). It counts its pairs under `scan_pairs.fused` or
+        `scan_pairs.stepped`, by the scan's route."""
         leaves = tuple(images) if self.feature_input else (images,)
         n = leaves[0].shape[0]
         if n < 2:
             raise ValueError("the online hybrid needs at least 2 frames")
         self.calls += 1
         cuda = self.device.type == "cuda"
+        fused = fused_scan_route(self.cfg, self.device)
+        profiling.count("scan_pairs.fused", (n - 1) * fused)
+        profiling.count("scan_pairs.stepped", (n - 1) * (not fused))
         with profiling.span("spsvo.segment", request=self.calls):
             with profiling.span("spsvo.segment.feed"):
                 if gumbel is None:

@@ -18,8 +18,9 @@ entry points pay a function call per span.
   (`replayed`); `collect`, after a host read has waited on the stream,
   reads the device ms between consecutive boundaries into the store.
 - Counters: each graph's nodes at capture (`graph_nodes`, with tracing on,
-  where the graph was kept for it), replays per program, and the hand
-  kernels' launches as `_build` counts them. The data-dependent loops
+  where the graph was kept for it), replays per program, the pairs of the
+  online hybrid's scan by route (`count`), and the hand kernels' launches
+  as `_build` counts them. The data-dependent loops
   (`utils.capture.iterate`) of a traced capture count their conditional
   bodies per loop, and the graph carries one device counter per loop that
   each body adds one to: `collect` reads the bodies a replay ran.
@@ -183,6 +184,12 @@ def collect() -> None:
                 store.counters[f"loop_bodies_run.{stamps.program}.{loop}"] \
                     += n
     store.pending.clear()
+
+
+def count(name: str, n: int) -> None:
+    """With tracing on, add `n` to the counter `name` (0 shows it)."""
+    if enabled():
+        _store.counters[name] += n
 
 
 def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:

@@ -210,9 +210,11 @@ def test_build_orb_hybrid_wants_a_device_classic_config():
                                       ("AKAZE", "AKAZE")])
 def test_orb_hybrid_on_the_card(det, desc):
     """On the card the ORB hybrid is one CUDA graph per input shape: its
-    replay equals the eager run bit for bit, launches the solver kernel
-    N-1 times and the matcher kernel never, and agrees with the CPU run
-    (the kernel's plain version) on the same noise within 2e-3; AKAZE
+    replay equals the eager run bit for bit, launches the solver kernel's
+    scan entry once for the N-1 pairs (landmark fusion and the fused
+    solver: `fused_scan_route`) and the matcher kernel never, and agrees
+    with the CPU run (the kernel's plain version) on the same noise within
+    2e-3; AKAZE
     within 2e-2: at this size its first pair's solve rests on under 10
     inliers, in the JAX package too, and amplifies the two solvers' float
     order."""
@@ -229,9 +231,10 @@ def test_orb_hybrid_on_the_card(det, desc):
     args = (_t(imgs).cuda(), _t(P_l).cuda(), _t(P_r).cuda())
     eager_w, eager_d = hybrid.eager(*args, noise.cuda())
     hybrid(*args, gumbel=noise.cuda())                  # capture
+    assert _build.shapes["fused_scan"][0] == N - 1
     _build.reset_launches()
     world, diag = hybrid(*args, gumbel=noise.cuda())
-    assert dict(_build.launches) == {"fused_solve": N - 1}
+    assert dict(_build.launches) == {"fused_scan": 1}
     assert torch.equal(world, eager_w)
     for k in diag:
         assert torch.equal(diag[k], eager_d[k]), k

@@ -335,7 +335,9 @@ def test_traced_entry_points_record_their_spans():
     """With tracing on, a CPU `process` (with diagnostics) and
     `process_instrumented` record the frame's spans under the frame's
     request id, and an `OnlineHybrid` call the segment's under the call's;
-    the poses and the world are those of an untraced run."""
+    the poses and the world are those of an untraced run. The CPU records
+    no stamps, and of the counters only the hybrid's scan pairs by route
+    (its two pairs stepped, none fused)."""
     from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
     from spsvo_tpu_torch.utils import profiling
     cfg = _tcfg()
@@ -376,7 +378,8 @@ def test_traced_entry_points_record_their_spans():
                        ("spsvo.segment.feed", "spsvo.segment"),
                        ("spsvo.segment.launch", "spsvo.segment")]}
     assert hybrid.calls == 2 and vo.frames == 2
-    assert snap["stamps"] == [] and snap["counters"] == {}
+    assert snap["stamps"] == [] and snap["counters"] == {
+        "scan_pairs.fused": 0, "scan_pairs.stepped": 2}
 
 
 # ---- on the card ----------------------------------------------------------

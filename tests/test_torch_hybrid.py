@@ -508,8 +508,9 @@ def test_hybrid_equals_the_per_frame_path(branch, branch_cfg):
                          ids=["landmark_kernel", "landmark", "adaptive"])
 def test_cuda_hybrid_graph_replay_equals_eager(branch_cfg):
     """On the card: the eager run launches kernel 1 once (B=2N-1) and, in
-    the kernel branch, kernel 2 N-1 times; the CUDA-graph replay equals the
-    eager run bit for bit, twice, and a new input replays the same graph.
+    the kernel branch, kernel 2's scan entry once for the N-1 pairs and its
+    per-pair entry never; the CUDA-graph replay equals the eager run bit for
+    bit, twice, and a new input replays the same graph.
     The adaptive solve (chunked RANSAC, while-loop LM) runs its loops'
     iterations after the first in the graph under conditional nodes that
     skip them once every lane has stopped, and equals the eager run's
@@ -533,7 +534,10 @@ def test_cuda_hybrid_graph_replay_equals_eager(branch_cfg):
     assert _build.launches["match_nn"] == 1
     assert _build.shapes["match_nn"][0] == 2 * n - 1
     kernel = hybrid.branch == tsh.LANDMARK_KERNEL
-    assert _build.launches["fused_solve"] == (n - 1 if kernel else 0)
+    assert _build.launches["fused_scan"] == (1 if kernel else 0)
+    assert _build.launches["fused_solve"] == 0
+    if kernel:
+        assert _build.shapes["fused_scan"] == (n - 1, S, 128, 1)
     for _ in range(2):
         w_graph, d_graph = hybrid(*args, gumbel=gumbel)
         torch.cuda.synchronize()
@@ -545,6 +549,143 @@ def test_cuda_hybrid_graph_replay_equals_eager(branch_cfg):
     w2, _ = hybrid(*args, gumbel=g2)
     assert torch.equal(w2, hybrid.eager(*args, g2)[0])
     assert len(hybrid._graphs) == 1
+
+
+def _hoisted(hybrid, n, generator):
+    """The corridor's scan inputs (every pair's hoisted tile, hypotheses
+    and preps) from the hybrid's op-by-op program, and the projections."""
+    from spsvo_tpu_torch.eval import synthetic as tsyn
+    imgs, P_l, P_r, _ = _corridor(n, tsyn)
+    dev = hybrid.device
+    args = [torch.as_tensor(a).to(dev) for a in (imgs, P_l, P_r)]
+    state = hybrid.run(*args, hybrid.draw_gumbel(n, generator))
+    xs, _ = hybrid.gathered(state)
+    return xs, state["in"][1], state["in"][2]
+
+
+def test_fused_scan_route_holds_for_the_flagship_on_cuda_alone():
+    """The route of the landmark scan through kernel 2's scan entry holds
+    for the flagship on CUDA alone: not on the CPU, not with
+    `landmark_refine` (its op-by-op LM pass after fusion), without landmark
+    fusion, without the fused solver, or with more keypoint slots than the
+    kernel's shared memory holds."""
+    flagship = tpresets.flagship_tpu()
+    assert tsh.fused_scan_route(flagship, "cuda")
+    assert not tsh.fused_scan_route(flagship, "cpu")
+    for change in (dict(landmark_refine=True), dict(landmark_fusion=False),
+                   dict(use_pallas_solver=False),
+                   dict(max_keypoints=solver_cuda.SCAN_MAX_K + 1)):
+        assert not tsh.fused_scan_route(
+            dataclasses.replace(flagship, **change), "cuda"), change
+
+
+@pytest.mark.parametrize("gls", [True, False], ids=["gls", "no_gls"])
+def test_fused_scan_plain_version_equals_the_stepped_scan(gls):
+    """On the CPU `scan` is the per-pair `scan_step` loop, and the scan
+    entry's plain version, through the hybrid's own assembly of its
+    outputs, equals that loop bit for bit over 4 pairs, with and without
+    the GLS pass: poses, every diagnostic, and the landmarks after the
+    last pair."""
+    hybrid = tsh.build_online_hybrid(_tcfg(landmark_weighted_lm=gls),
+                                     device="cpu")
+    xs, P_l, P_r = _hoisted(hybrid, 5, torch.Generator().manual_seed(3))
+    qs, ts, diag, lms = hybrid.scan_stepped(xs, P_l, P_r)
+    for got in (hybrid.scan(xs, P_l, P_r) + (lms,),
+                hybrid.scan_fused(xs, P_l, P_r)):
+        assert torch.equal(got[0], qs) and torch.equal(got[1], ts)
+        assert list(got[2]) == list(diag)
+        for k, v in diag.items():
+            assert got[2][k].dtype == v.dtype and torch.equal(got[2][k], v), k
+        assert torch.equal(got[3].pts3d, lms.pts3d)
+        assert torch.equal(got[3].length, lms.length)
+    assert (lms.length > 1).sum() > 20      # tracks carried and fused
+
+
+@pytest.mark.parametrize("landmark_fusion", [True, False],
+                         ids=["landmark_kernel", "kernel"])
+def test_scan_pair_counters_count_the_stepped_route_on_the_cpu(
+        landmark_fusion):
+    """With tracing on, a hybrid call counts its N-1 pairs under
+    `scan_pairs.stepped` and 0 under `scan_pairs.fused` on the CPU, where
+    the scan runs `scan_step` per pair in every branch; with tracing off
+    it counts nothing."""
+    from spsvo_tpu_torch.eval import synthetic as tsyn
+    from spsvo_tpu_torch.utils import profiling
+    n = 3
+    hybrid = tsh.build_online_hybrid(
+        _tcfg(landmark_fusion=landmark_fusion), device="cpu")
+    imgs, P_l, P_r, _ = _corridor(n, tsyn)
+    args = [torch.as_tensor(a) for a in (imgs, P_l, P_r)]
+    g = hybrid.draw_gumbel(n, torch.Generator().manual_seed(0))
+    profiling.snapshot()
+    hybrid(*args, gumbel=g)
+    assert "scan_pairs.stepped" not in profiling.snapshot()["counters"]
+    profiling.enable()
+    try:
+        for _ in range(2):
+            hybrid(*args, gumbel=g)
+        counters = profiling.snapshot()["counters"]
+    finally:
+        profiling.disable()
+    assert counters["scan_pairs.fused"] == 0
+    assert counters["scan_pairs.stepped"] == 2 * (n - 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("gls", [True, False], ids=["gls", "no_gls"])
+def test_cuda_fused_scan_equals_the_per_pair_scan(gls):
+    """On the card: the flagship's scan as one launch of kernel 2's scan
+    entry against the per-pair loop of `scan_step` (a launch of kernel 2
+    per pair, the substitution, fusion and scatter op by op) on the same
+    hoisted inputs over 8 frames, with and without the GLS pass: equal
+    inlier counts, chains, gates and track lengths, poses within 1e-5 and
+    fused landmark points within 1e-5 m (the kernel's fusion rounds as
+    PyTorch's ops do on this card, and read bit for bit equal there); one
+    launch of the entry and none of the per-pair entry a segment, counted
+    as 7 fused pairs by the tracing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.eval import synthetic as tsyn
+    from spsvo_tpu_torch.utils import profiling
+    n = 8
+    cfg = dataclasses.replace(tpresets.flagship_tpu(), **SMALL,
+                              landmark_weighted_lm=gls)
+    hybrid = tsh.build_online_hybrid(cfg)
+    dev = hybrid.device
+    xs, P_l, P_r = _hoisted(hybrid, n, torch.Generator(dev).manual_seed(0))
+    qs, ts, diag, lms = hybrid.scan_stepped(xs, P_l, P_r)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    got = hybrid.scan_fused(xs, P_l, P_r)
+    torch.cuda.synchronize()
+    assert dict(_build.launches) == {"fused_scan": 1}
+    assert diag["pnp_success"].all() and (diag["num_inliers"] > 30).all()
+    for k, v in diag.items():
+        assert torch.equal(got[2][k], v), (k, got[2][k], v)
+    torch.testing.assert_close(got[0], qs, atol=1e-5, rtol=0)
+    torch.testing.assert_close(got[1], ts, atol=1e-5, rtol=0)
+    assert torch.equal(got[3].length, lms.length)
+    assert (lms.length > 1).sum() > 50
+    torch.testing.assert_close(got[3].pts3d, lms.pts3d, atol=1e-5, rtol=0)
+
+    imgs, P_l0, P_r0, _ = _corridor(n, tsyn)
+    args = [torch.as_tensor(a).to(dev) for a in (imgs, P_l0, P_r0)]
+    g = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
+    hybrid(*args, gumbel=g)                 # captures
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    profiling.enable()
+    try:
+        hybrid(*args, gumbel=g)
+        torch.cuda.synchronize()
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+    assert snap["launches"]["fused_scan"] == 1
+    assert "fused_solve" not in snap["launches"]
+    assert snap["counters"]["scan_pairs.fused"] == n - 1
+    assert snap["counters"]["scan_pairs.stepped"] == 0
 
 
 @pytest.mark.gpu
