@@ -3777,7 +3777,7 @@ def phase_sharded(dev, corridor):
             group=mesh.group is not None, nccl_probe=probe.tolist(),
             launches=launches, shapes=shapes, bitwise_vs_unsharded=same,
             graph_equals_eager_bitwise=same_g, replay_launches=rep,
-            graphs=len(next(iter(hybrid._graphs.values())).stretches),
+            graphs=len(next(iter(hybrid._graphs.values())).graphs),
             replay_ms=rep_ms)
         del hybrid
         # config (a) at FP32 on the same mesh of one

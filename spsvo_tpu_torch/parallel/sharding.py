@@ -67,14 +67,11 @@ graph. The RANSAC noise is drawn outside the graphs.
 from __future__ import annotations
 
 import functools
-import gc
-import warnings
 from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence,
                     Tuple)
 
 import torch
 
-from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import Precision, SelectorType, VOConfig
 from spsvo_tpu_torch.geometry import se3
 from spsvo_tpu_torch.models import zoo
@@ -85,7 +82,7 @@ from spsvo_tpu_torch.parallel.mesh import (Mesh, build_kernels,
                                            pair_counts, shard_bounds)
 from spsvo_tpu_torch.pipeline import (StepProgram, _mdesc, init_state,
                                       matcher_gate, vo_step)
-from spsvo_tpu_torch.utils import profiling
+from spsvo_tpu_torch.utils import capture, profiling
 
 # scan branches, chosen from the configuration alone
 LANDMARK_KERNEL = "landmark_kernel"   # flagship: hoisted tile + fused solve
@@ -374,123 +371,6 @@ class _Shard(NamedTuple):
         return stereo if halo is None else torch.cat([stereo, halo[0][None]])
 
 
-def _run_steps(steps, state: dict):
-    """Run ("graph" | "comm", name, fn(state)) steps in order, each result
-    stored under its name; returns the last."""
-    for _, name, fn in steps:
-        state[name] = fn(state)
-    return state[steps[-1][1]]
-
-
-def _stretches(steps) -> List[Tuple[str, list]]:
-    """The steps as stretches: each "comm" step alone, consecutive "graph"
-    steps together -> [(kind, [(name, fn), ...])]."""
-    out: List[Tuple[str, list]] = []
-    for kind, name, fn in steps:
-        if kind == "graph" and out and out[-1][0] == "graph":
-            out[-1][1].append((name, fn))
-        else:
-            out.append((kind, [(name, fn)]))
-    return out
-
-
-class _StepGraphs:
-    """A program of steps as one CUDA graph per stretch of "graph" steps,
-    the "comm" steps (collectives) run eagerly between the replays into
-    buffers the next graph reads; a program without collectives is one
-    graph. Built by one eager run on a side stream (it builds the kernels
-    and uploads the front end's tables), then the captures in order on that
-    stream (a collective runs on the not yet computed buffers then, every
-    rank alike, to size its results). Captures are in CUDA's global mode,
-    as the program alone needs, but thread-local where collectives run
-    between them (the backend's threads query CUDA events meanwhile).
-    Python's garbage collector is off while capturing: a collected CUDA
-    graph's destructor would end the capture. Only the collectives' step
-    functions are kept after the capture, so the graphs hold no reference
-    to the program that made them. `inputs` are the static buffers
-    state["in"] is made of, `scratch` kernel 1's that the graphs alone
-    own.
-
-    Captured with tracing on (`utils.profiling`), the graphs hold device
-    stamps before the first step ("start") and after each step (named as
-    the step; a collective's, outside the graphs, at the start of the
-    stretch after it) and their nodes are counted, under "hybrid";
-    `replay` is the span `spsvo.segment.launch`."""
-
-    def __init__(self, steps, state: dict, dev: torch.device,
-                 inputs: List[torch.Tensor],
-                 scratch: Optional[Tuple[torch.Tensor, torch.Tensor]]):
-        self.state, self.inputs, self.scratch = state, inputs, scratch
-        self.last = steps[-1][1]
-        mode = ("thread_local" if any(kind == "comm" for kind, _, _ in steps)
-                else "global")
-        # per stretch: (its steps' names, the collective's function or
-        # None, its graph or None, the launches the graph holds)
-        self.stretches: List[tuple] = []
-        self.stamps = profiling.capture_stamps("hybrid", dev)
-        gc_on = gc.isenabled()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                _run_steps(steps, dict(state))
-            torch.cuda.current_stream(dev).wait_stream(stream)
-            gc.disable()
-            try:
-                before = "start"
-                for kind, part in _stretches(steps):
-                    self.stretches.append(self._capture(kind, part, stream,
-                                                        mode, before))
-                    before = part[-1][0]
-            finally:
-                if gc_on:
-                    gc.enable()
-        profiling.count_nodes("hybrid", [g for _, _, g, _ in self.stretches
-                                         if g is not None], self.stamps)
-
-    def _capture(self, kind: str, part, stream, mode: str,
-                 before: str) -> tuple:
-        """One stretch; `before` names the step before it ("start" for
-        the first)."""
-        names = tuple(name for name, _ in part)
-        if kind == "comm":
-            (name, fn), = part
-            self.state[name] = fn(self.state)
-            return names, fn, None, None
-        graph = profiling.new_graph(self.stamps)
-        launched = _build.captured.copy()
-        marks = self.stamps
-        # a step may launch nothing (the feature input's front end is views)
-        with warnings.catch_warnings():
-            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
-            with torch.cuda.graph(graph, stream=stream,
-                                  capture_error_mode=mode):
-                if marks is not None:
-                    marks.mark(before)
-                for name, fn in part:
-                    self.state[name] = fn(self.state)
-                    if marks is not None:
-                        marks.mark(name)
-        return names, None, graph, _build.captured_since(launched)
-
-    def replay(self):
-        """Every stretch once; returns the last step's outputs."""
-        if self.stamps is not None:
-            profiling.collect()
-        with profiling.span("spsvo.segment.launch"):
-            for names, fn, graph, recorded in self.stretches:
-                if graph is not None:
-                    graph.replay()
-                    _build.count_replay(recorded)
-                else:
-                    got = fn(self.state)
-                    for dst, src in zip(self.state[names[0]] or (),
-                                        got or ()):
-                        dst.copy_(src)
-        profiling.replayed("hybrid", self.stamps)
-        return self.state[self.last]
-
-
 class OnlineHybrid:
     """`hybrid(images, P_l, P_r, *, gumbel=None, generator=None) -> (world
     (N, 4, 4), diag)`. `images` (N, 2, H, W) are preprocessed frames in
@@ -535,7 +415,9 @@ class OnlineHybrid:
             self.branch = PLAIN
         k = cfg.max_keypoints
         self.lanes = min(cfg.solve_slots, k) if cfg.solve_slots else k
-        self._graphs: Dict[tuple, _StepGraphs] = {}
+        # per input shape: the program's graphs, their state holding its
+        # static inputs ("in"), kernel 1's scratch and the steps' results
+        self._graphs: Dict[tuple, capture.Graphs] = {}
         self.calls = 0       # calls made: the traced request id
 
     # -- the phases -------------------------------------------------------
@@ -640,16 +522,17 @@ class OnlineHybrid:
         """This rank's part of an `n_frames` sequence."""
         return _Shard.of(self.mesh, n_frames)
 
-    def steps(self, shard: _Shard, scratch=None) -> list:
-        """The program as steps for `_run_steps` / `_StepGraphs`, on
+    def steps(self, shard: _Shard) -> list:
+        """The program as (kind, name, fn) steps (`capture.stretches`), on
         state["in"] = (this rank's frames or Keypoints, P_l, P_r, the whole
-        sequence's noise): the front end, the keypoint halo, the matching,
-        the stereo halo, the pair preparation, the gather, and the
-        replicated scan with the pose chaining. On a mesh of one the
-        collectives are identities that touch no device, so they are
-        "graph" steps and the program is one graph."""
+        sequence's noise) and state["scratch"] (kernel 1's, or None): the
+        front end, the keypoint halo, the matching, the stereo halo, the
+        pair preparation, the gather, and the replicated scan with the
+        pose chaining. The collectives are "eager" steps; on a mesh of one
+        they are identities that touch no device, so they are "graph"
+        steps and the program is one graph."""
         mesh, p0, m = shard.mesh, shard.a, shard.pairs
-        comm = "comm" if mesh.size > 1 else "graph"
+        comm = "eager" if mesh.size > 1 else "graph"
 
         def extended(s):
             return shard.extend(*s["frontend"], s["halo_kp"])
@@ -677,7 +560,7 @@ class OnlineHybrid:
             ("graph", "frontend", lambda s: self.frontend(s["in"][0])),
             (comm, "halo_kp", lambda s: shard.halo_keypoints(*s["frontend"])),
             ("graph", "match", lambda s: self.match(
-                *extended(s), scratch, n_stereo=shard.frames)),
+                *extended(s), s["scratch"], n_stereo=shard.frames)),
             (comm, "halo_st", lambda s: mesh.halo_next([s["match"][0][0]])),
             ("graph", "prepare", prepare),
             (comm, "gather", gather),
@@ -721,9 +604,9 @@ class OnlineHybrid:
         every step's result by name (`steps`; "scan" holds (world,
         diag))."""
         shard, ins = self._inputs(images, P_l, P_r, gumbel)
-        state = {"in": self._state_in(ins)}
-        _run_steps(self.steps(shard, scratch), state)
-        return state
+        state = {"in": self._state_in(ins), "scratch": scratch}
+        return capture.run_parts(
+            [(name, fn) for _, name, fn in self.steps(shard)], state)
 
     def eager(self, images, P_l: torch.Tensor,
               P_r: torch.Tensor, gumbel: torch.Tensor,
@@ -756,8 +639,8 @@ class OnlineHybrid:
                  P_r: torch.Tensor, *, gumbel: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """On CUDA the program's graphs (`_StepGraphs`, built at the first
-        call of each input shape) replayed on this call's inputs.
+        """On CUDA the program's graphs (`capture.Graphs`, built at the
+        first call of each input shape) replayed on this call's inputs.
 
         Traced (`utils.profiling`), a call is the span `spsvo.segment`
         (request id: the instance's call counter) around
@@ -785,20 +668,21 @@ class OnlineHybrid:
                     key = tuple((tuple(t.shape), t.dtype) for t in leaves)
                     prog = self._graphs.get(key)
                     if prog is not None:
-                        for dst, src in zip(prog.inputs, ins):
+                        static = [t for x in prog.state["in"] for t in (
+                            x if isinstance(x, Keypoints) else (x,))]
+                        for dst, src in zip(static, ins):
                             dst.copy_(src)
             if not cuda:
                 with profiling.span("spsvo.segment.launch"):
                     return self.eager(images, P_l, P_r, gumbel)
             if prog is None:
                 with profiling.span("spsvo.capture", form="hybrid"):
-                    static = [t.clone() for t in ins]
-                    scratch = self.match_scratch(n)
-                    prog = self._graphs[key] = _StepGraphs(
-                        self.steps(shard, scratch),
-                        {"in": self._state_in(static)}, self.device, static,
-                        scratch)
-            world, diag = prog.replay()
+                    state = {"in": self._state_in([t.clone() for t in ins]),
+                             "scratch": self.match_scratch(n)}
+                    prog = self._graphs[key] = capture.Graphs.capture(
+                        "hybrid", self.device,
+                        capture.stretches(self.steps(shard)), state)[0]
+            world, diag = prog.replay("spsvo.segment.launch")["scan"]
             with profiling.span("spsvo.segment.copy"):
                 return world.clone(), {k: v.clone() for k, v in diag.items()}
 

@@ -42,13 +42,12 @@ from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
-from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import Precision, SelectorType, VOConfig
 from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import image as image_ops
 from spsvo_tpu_torch.ops import matching, pnp, solver
 from spsvo_tpu_torch.ops.postprocess import Keypoints, extract_keypoints
-from spsvo_tpu_torch.utils import profiling
+from spsvo_tpu_torch.utils import capture, profiling
 
 
 class VOState(NamedTuple):
@@ -366,21 +365,19 @@ class StepProgram:
 
     `feed` fills the buffers and `run` runs the frame, as one program or
     (`split`) one program per stage. With `graph` (the default on a CUDA
-    device) the first `run` of each form runs the frame op by op on a side
-    stream, which builds the kernels, uploads the static tables and packs
-    the weights, and captures each program as a CUDA graph after it; every
-    later `run` replays them. The graphs own the matcher kernel's scratch,
-    and the stages' graphs share one memory pool. Without `graph` every
-    run is op by op. A frame with `real=False` (tail padding of a chunk)
-    leaves the state as it was: every state tensor is reverted by
-    `torch.where`, inside the program.
+    device) the first `run` of each form runs the frame op by op and
+    captures each program as a CUDA graph after it (`capture.Graphs`);
+    every later `run` replays them. The graphs own the matcher kernel's
+    scratch. Without `graph` every run is op by op. A frame with
+    `real=False` (tail padding of a chunk) leaves the state as it was:
+    every state tensor is reverted by `torch.where`, inside the program.
 
     Traced (`utils.profiling`): `spsvo.capture` around a form's first run,
-    `spsvo.frame.launch` around each replay (each op-by-op run without
-    `graph`); a form captured with tracing on holds device stamps before
-    `prepare` ("start") and after each stage (named as its function: the
-    whole step's is "whole"), and its graphs' nodes are counted, under
-    the form's name, "whole" or "split"."""
+    `spsvo.frame.launch` around each program's replay (each op-by-op run
+    without `graph`); a form captured with tracing on holds device stamps
+    before `prepare` ("start") and after each stage (named as its
+    function: the whole step's is "whole"), and its graphs' nodes are
+    counted, under the form's name, "whole" or "split"."""
 
     def __init__(self, step, cfg: VOConfig, device, frame_shape,
                  frame_dtype=torch.float32, graph: Optional[bool] = None,
@@ -404,9 +401,7 @@ class StepProgram:
             from spsvo_tpu_torch.ops.matching_cuda import match_scratch
             k = cfg.max_keypoints
             self.scratch = match_scratch(dev, 2, k, k)
-        # split -> (graphs, their outputs, the kernel launches each holds,
-        # their device stamps or None)
-        self._graphs: Dict[bool, tuple] = {}
+        self._graphs: Dict[bool, capture.Graphs] = {}     # by `split`
 
     def set_projections(self, P_l: torch.Tensor, P_r: torch.Tensor) -> None:
         self.P_l.copy_(P_l)
@@ -434,21 +429,31 @@ class StepProgram:
         self.gumbel.copy_(gumbel)
         self.real.fill_(bool(real))
 
-    def _part(self, stages: range, carry,
-              marks: Optional[profiling.GraphStamps] = None):
-        for i in stages:
-            if i == 0:
-                if marks is not None:
-                    marks.mark("start")
-                carry = self.prepare(self.images, self.P_l, self.P_r)
-            carry = self.stages[i](self, *carry)
-            if marks is not None:
-                marks.mark(self.stages[i].__name__)
-        if stages[-1] == len(self.stages) - 1:
-            new, carry = carry
-            for dst, src in zip(state_leaves(self.state), state_leaves(new)):
-                dst.copy_(torch.where(self.real, src, dst))
-        return carry
+    def _stretches(self, split: bool) -> List[capture.Stretch]:
+        """The stages as parts (`capture.Part`), each named as its
+        function and taking its predecessor's result: the first prepares
+        the frame from the buffers, the last writes the new state where
+        the frame is real and returns the output. One stretch, or one per
+        stage with `split`."""
+        def part(i: int) -> capture.Part:
+            stage = self.stages[i]
+
+            def fn(results: dict):
+                carry = (results[self.stages[i - 1].__name__] if i else
+                         self.prepare(self.images, self.P_l, self.P_r))
+                carry = stage(self, *carry)
+                if i < len(self.stages) - 1:
+                    return carry
+                new, out = carry
+                for dst, src in zip(state_leaves(self.state),
+                                    state_leaves(new)):
+                    dst.copy_(torch.where(self.real, src, dst))
+                return out
+            return stage.__name__, fn
+
+        parts = [part(i) for i in range(len(self.stages))]
+        return ([("graph", [p]) for p in parts] if split
+                else [("graph", parts)])
 
     @torch.no_grad()
     def run(self, split: bool = False,
@@ -457,61 +462,24 @@ class StepProgram:
         replay: the graph's own outputs) the next run overwrites.
         `on_stage(k, outputs)` is called after program k (each stage with
         `split`, else the whole step once)."""
-        n = len(self.stages)
-        parts = ([range(k, k + 1) for k in range(n)] if split
-                 else [range(n)])
-        form = "split" if split else "whole"
+        last = self.stages[-1].__name__
+        launch = "spsvo.frame.launch"
         if split in self._graphs:
-            graphs, outs, recorded, stamps = self._graphs[split]
-            if stamps is not None:
-                profiling.collect()
-            for k, g in enumerate(graphs):
-                with profiling.span("spsvo.frame.launch"):
-                    g.replay()
-                _build.count_replay(recorded[k])
-                if on_stage is not None:
-                    on_stage(k, outs[k])
-            profiling.replayed(form, stamps)
-            return outs[-1]
-        if not self.use_graph:
-            carry = ()
-            for k, part in enumerate(parts):
-                with profiling.span("spsvo.frame.launch"):
-                    carry = self._part(part, carry)
-                if on_stage is not None:
-                    on_stage(k, carry)
-            return carry
-        with profiling.span("spsvo.capture", form=form):
-            return self._capture(split, parts, on_stage, form)
-
-    def _capture(self, split: bool, parts, on_stage, form: str
-                 ) -> VOStepOutput:
-        """The first run of a form: each program runs op by op on a side
-        stream (the frame's result), then is captured on that stream."""
-        dev = self.device
-        graphs, outs, recorded = [], [], []
-        stamps = profiling.capture_stamps(form, dev)
-        pool = torch.cuda.graph_pool_handle()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.Stream(dev)
-            stream.wait_stream(torch.cuda.current_stream(dev))
-            with torch.cuda.stream(stream):
-                carry = static = ()
-                for k, part in enumerate(parts):
-                    carry = self._part(part, carry)
-                    graph = profiling.new_graph(stamps)
-                    before = _build.captured.copy()
-                    with torch.cuda.graph(graph, pool=pool, stream=stream):
-                        static = self._part(part, static, stamps)
-                    graphs.append(graph)
-                    outs.append(static)
-                    recorded.append(_build.captured_since(before))
-                    if on_stage is not None:
-                        on_stage(k, carry)
-            torch.cuda.current_stream(dev).wait_stream(stream)
-        profiling.count_nodes(form, graphs, stamps)
-        self._graphs[split] = (graphs, outs, recorded, stamps)
-        return carry
+            return self._graphs[split].replay(launch, on_stage)[last]
+        stretches = self._stretches(split)
+        if self.use_graph:
+            form = "split" if split else "whole"
+            with profiling.span("spsvo.capture", form=form):
+                self._graphs[split], first = capture.Graphs.capture(
+                    form, self.device, stretches, {}, on_stage)
+            return first[last]
+        results: dict = {}
+        for k, (_, parts) in enumerate(stretches):
+            with profiling.span(launch):
+                capture.run_parts(parts, results)
+            if on_stage is not None:
+                on_stage(k, results[parts[-1][0]])
+        return results[last]
 
     @torch.no_grad()
     def step(self, images: torch.Tensor, gumbel: torch.Tensor,

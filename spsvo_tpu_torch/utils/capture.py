@@ -1,15 +1,32 @@
-"""CUDA-graph capture: what code that may run under one has to ask, and
-the iteration of a data-dependent loop that a captured program skips on
-the device (a conditional IF node, through the CUDA driver API)."""
+"""CUDA-graph capture, in one place: a program run once op by op,
+captured as CUDA graphs and replayed (`Graphs`); what code that may run
+under a capture has to ask; the iteration of a data-dependent loop that a
+captured program skips on the device (a conditional IF node, through the
+CUDA driver API); and, for a capture traced by `utils.profiling`, the
+graphs' nodes and the loops' bodies counted into its store."""
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import ctypes
 import functools
-from typing import Callable, Dict, Iterator, Tuple
+import gc
+import warnings
+from typing import (Any, Callable, Dict, Iterator, List, NamedTuple,
+                    Optional, Sequence, Tuple)
 
 import torch
+
+from spsvo_tpu_torch import _build
+from spsvo_tpu_torch.utils import profiling
+
+# a part of a program: its name and `fn(state)`, whose result the program
+# stores in the dict `state` under the name
+Part = Tuple[str, Callable[[dict], Any]]
+# a stretch of parts: ("graph", the parts one graph holds) or ("eager",
+# one part run between the graphs, such as a collective)
+Stretch = Tuple[str, List[Part]]
 
 
 def host_may_read(x: torch.Tensor) -> bool:
@@ -28,8 +45,8 @@ def iterate(go: torch.Tensor, body: Callable[[], None], loop: str) -> bool:
     capture `body` is captured as the body of a conditional IF node on
     `go` (`if_node`), so a replay launches it only where `go` holds on the
     device, as the eager loop ends; off the card (a CPU tensor the host may
-    not read) it runs, masked. With the capture traced
-    (`utils.profiling`), `loop` names the body's counters."""
+    not read) it runs, masked. Where `Graphs` traces the capture, `loop`
+    names the body's counters."""
     if host_may_read(go):
         if not bool(go):
             return False
@@ -161,7 +178,7 @@ def if_node(go: torch.Tensor, loop: str) -> Iterator[None]:
     dev = go.device
     parent = torch.cuda.current_stream(dev)
     cid, graph = capture_of(parent)
-    ran = profiling.loop_counter(cid)       # made before the node
+    ran = loop_counter(cid)       # made before the node
     ctx, handle = _V(0), ctypes.c_uint64(0)
     driver("cuCtxGetCurrent", ctypes.byref(ctx))
     driver("cuGraphConditionalHandleCreate", ctypes.byref(handle), _V(graph),
@@ -192,9 +209,246 @@ def if_node(go: torch.Tensor, loop: str) -> Iterator[None]:
     try:
         with torch.cuda.stream(stream):
             yield
-            profiling.body_captured(cid, loop, ran, body)
+            body_captured(cid, loop, ran, body)
     finally:
         torch._C._cuda_endAllocateToPool(dev.index, pool)
         done = _V(0)
         driver("cuStreamEndCapture", _V(stream.cuda_stream),
                ctypes.byref(done))
+
+
+# -- a traced capture's accounting ------------------------------------------
+
+# CUgraphNodeType of the CUDA driver API
+_KERNEL_NODE, _EVENT_RECORD_NODE, _CONDITIONAL_NODE = 0, 7, 13
+# the traced captures in progress (`Graphs`), their stamps by capture id
+_capturing: Dict[int, profiling.GraphStamps] = {}
+
+
+def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
+    """The top-level nodes of a graph kept after its capture (before
+    `instantiate`), in total and by type, through the CUDA driver API
+    (`cudaGraph_t` is the driver's `CUgraph`)."""
+    kinds = collections.Counter(_node_types(graph.raw_cuda_graph()))
+    return {"nodes": sum(kinds.values()), "kernels": kinds[_KERNEL_NODE],
+            "events": kinds[_EVENT_RECORD_NODE],
+            "conditionals": kinds[_CONDITIONAL_NODE]}
+
+
+def _node_types(raw: int) -> List[int]:
+    """The types of the nodes of the driver's graph `raw` (a `CUgraph`)."""
+    n = _S(0)
+    driver("cuGraphGetNodes", _V(raw), None, ctypes.byref(n))
+    nodes = (_V * n.value)()
+    driver("cuGraphGetNodes", _V(raw), nodes, ctypes.byref(n))
+    kinds = []
+    for node in nodes[:n.value]:
+        t = ctypes.c_int(0)
+        driver("cuGraphNodeGetType", _V(node), ctypes.byref(t))
+        kinds.append(t.value)
+    return kinds
+
+
+def loop_counter(capture_id: int) -> Optional[torch.Tensor]:
+    """Where the capture `capture_id` is traced, its graph's device
+    counter of the loop bodies run (int32 per loop of `profiling.LOOPS`),
+    made before its first loop's node (so zeroed at every replay); else
+    None."""
+    stamps = _capturing.get(capture_id)
+    if stamps is None:
+        return None
+    if capture_id not in stamps.ran:
+        stamps.ran[capture_id] = torch.zeros(
+            len(profiling.LOOPS), dtype=torch.int32, device="cuda")
+    return stamps.ran[capture_id]
+
+
+def body_captured(capture_id: int, loop: str, ran: Optional[torch.Tensor],
+                  body: int) -> None:
+    """At the end of the capture of a body of `loop` (the driver's graph
+    `body`) in a traced capture (`ran` from `loop_counter`): count it and
+    its kernel nodes, and add one to `ran`'s count of the loop inside
+    it."""
+    if ran is None:
+        return
+    program = _capturing[capture_id].program
+    profiling.count(f"loop_bodies_captured.{program}.{loop}", 1)
+    profiling.count(f"graph_body_kernel_nodes.{program}",
+                    _node_types(body).count(_KERNEL_NODE))
+    ran[profiling.LOOPS.index(loop)].add_(1)
+
+
+def count_nodes(program: str, graphs: Sequence[torch.cuda.CUDAGraph],
+                stamps: Optional[profiling.GraphStamps]) -> None:
+    """After a traced capture (`stamps` not None) of `program`'s graphs,
+    kept for it: count their top-level nodes (`graph_nodes.<program>`,
+    `graph_<type>_nodes.<program>`) and instantiate them."""
+    if stamps is None:
+        return
+    for g in graphs:
+        n = graph_nodes(g)
+        profiling.count(f"graph_nodes.{program}", n["nodes"])
+        for key in ("kernel", "event", "conditional"):
+            profiling.count(f"graph_{key}_nodes.{program}", n[key + "s"])
+        g.instantiate()
+
+
+# -- programs as CUDA graphs -------------------------------------------------
+
+def run_parts(parts: Sequence[Part], state: dict) -> dict:
+    """The parts op by op, each result stored in `state` under its
+    name; returns `state`."""
+    for name, fn in parts:
+        state[name] = fn(state)
+    return state
+
+
+def stretches(steps: Sequence[Tuple[str, str, Callable]]) -> List[Stretch]:
+    """(kind, name, fn) steps as stretches: consecutive "graph" steps in
+    one, each "eager" step alone."""
+    out: List[Stretch] = []
+    for kind, name, fn in steps:
+        if kind == "graph" and out and out[-1][0] == "graph":
+            out[-1][1].append((name, fn))
+        else:
+            out.append((kind, [(name, fn)]))
+    return out
+
+
+def new_graph(keep: bool) -> torch.cuda.CUDAGraph:
+    """A graph to capture into; with `keep` (a traced capture, to count
+    its nodes) kept after its capture and instantiated later."""
+    return torch.cuda.CUDAGraph(keep_graph=keep)
+
+
+class _Replayed(NamedTuple):
+    names: Tuple[str, ...]        # its parts'
+    graph: Optional[torch.cuda.CUDAGraph]       # None: an eager part
+    recorded: Optional[collections.Counter]     # the graph's launches
+    fn: Optional[Callable]        # the eager part's
+
+
+class Graphs:
+    """A program of stretches as CUDA graphs that read and write the dict
+    `state`: a graph per "graph" stretch; an "eager" part runs between
+    the replays, its results (tensors, or None) copied into those its run
+    at the capture returned, which later graphs read. Only the eager
+    parts' functions are kept, so the graphs hold no reference to their
+    owner. `graphs` lists the graphs in order.
+
+    Traced (`utils.profiling`), the graphs hold stamps: "start" before
+    the first part, one after each part under its name, and an eager
+    part's at the start of the graph after it; their nodes and the loops'
+    bodies are counted under `program`."""
+
+    def __init__(self, program: str, state: dict,
+                 stamps: Optional[profiling.GraphStamps]) -> None:
+        self.program, self.state, self.stamps = program, state, stamps
+        self._stretches: List[_Replayed] = []
+
+    @property
+    def graphs(self) -> List[torch.cuda.CUDAGraph]:
+        return [s.graph for s in self._stretches if s.graph is not None]
+
+    @classmethod
+    def capture(cls, program: str, device: torch.device,
+                stretches: Sequence[Stretch], state: dict,
+                after: Optional[Callable] = None) -> Tuple["Graphs", dict]:
+        """Each stretch runs op by op on a side stream over a copy of
+        `state` (building the kernels, uploading the static tables,
+        packing the weights), then is captured on that stream over
+        `state`; `after(k, result)` follows stretch k with its last part's
+        op-by-op result. One memory pool; CUDA's global capture mode, but
+        thread-local where eager parts lie between the graphs (a
+        collective's threads query CUDA events meanwhile). Python's
+        garbage collector is off: a CUDA graph it collected during a
+        capture would end the capture in its destructor. Returns (the
+        graphs, the op-by-op run's results by name)."""
+        prog = cls(program, state, profiling.capture_stamps(program, device))
+        first = dict(state)
+        mode = ("thread_local" if any(kind == "eager" for kind, _ in
+                                      stretches) else "global")
+        pool = torch.cuda.graph_pool_handle()
+        before: Optional[str] = "start"
+        gc_on = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device):
+                stream = torch.cuda.Stream(device)
+                stream.wait_stream(torch.cuda.current_stream(device))
+                with torch.cuda.stream(stream):
+                    for k, (kind, parts) in enumerate(stretches):
+                        run_parts(parts, first)
+                        if kind == "eager":
+                            (name, fn), = parts
+                            state[name] = fn(state)
+                            prog._stretches.append(
+                                _Replayed((name,), None, None, fn))
+                            before = name
+                        else:
+                            prog._capture(parts, stream, pool, mode, before)
+                            before = None
+                        if after is not None:
+                            after(k, first[parts[-1][0]])
+                torch.cuda.current_stream(device).wait_stream(stream)
+        finally:
+            if gc_on:
+                gc.enable()
+        count_nodes(program, prog.graphs, prog.stamps)
+        return prog, first
+
+    def _capture(self, parts: List[Part], stream, pool, mode: str,
+                 before: Optional[str]) -> None:
+        """One "graph" stretch, after the stamp `before` unless None."""
+        marks = self.stamps
+        graph = new_graph(marks is not None)
+        launched = _build.captured.copy()
+        # a part may launch nothing (the feature input's front end is views)
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", "The CUDA Graph is empty")
+            with torch.cuda.graph(graph, pool=pool, stream=stream,
+                                  capture_error_mode=mode):
+                if marks is not None:
+                    cid = capture_of(stream)[0]
+                    _capturing[cid] = marks
+                    if before is not None:
+                        marks.mark(before)
+                try:
+                    for name, fn in parts:
+                        self.state[name] = fn(self.state)
+                        if marks is not None:
+                            marks.mark(name)
+                finally:
+                    if marks is not None:
+                        del _capturing[cid]
+        self._stretches.append(_Replayed(
+            tuple(name for name, _ in parts), graph,
+            _build.captured_since(launched), None))
+
+    def replay(self, span: str, after: Optional[Callable] = None) -> dict:
+        """Every stretch once, in order, inside the span `span`; with
+        `after`, each stretch in a span of its own, followed by `after(k,
+        result)` with its last part's result. Returns `state`. Traced, the
+        last replay's stamps are read first: a replay overwrites them."""
+        if self.stamps is not None:
+            profiling.collect()
+        if after is None:
+            with profiling.span(span):
+                for s in self._stretches:
+                    self._run(s)
+        else:
+            for k, s in enumerate(self._stretches):
+                with profiling.span(span):
+                    self._run(s)
+                after(k, self.state[s.names[-1]])
+        profiling.replayed(self.program, self.stamps)
+        return self.state
+
+    def _run(self, s: _Replayed) -> None:
+        if s.graph is not None:
+            s.graph.replay()
+            _build.count_replay(s.recorded)
+            return
+        got = s.fn(self.state)
+        for dst, src in zip(self.state[s.names[0]] or (), got or ()):
+            dst.copy_(src)

@@ -17,13 +17,13 @@ entry points pay a function call per span.
   tracing off holds none). A replay with tracing on queues them
   (`replayed`); `collect`, after a host read has waited on the stream,
   reads the device ms between consecutive boundaries into the store.
-- Counters: each graph's nodes at capture (`graph_nodes`, with tracing on,
-  where the graph was kept for it), replays per program, the pairs of the
-  online hybrid's scan by route (`count`), and the hand kernels' launches
-  as `_build` counts them. The data-dependent loops
-  (`utils.capture.iterate`) of a traced capture count their conditional
-  bodies per loop, and the graph carries one device counter per loop that
-  each body adds one to: `collect` reads the bodies a replay ran.
+- Counters (`count`): replays per program, and what others count into
+  the store: a traced capture's graph nodes and loop bodies
+  (`utils.capture`), the pairs of the online hybrid's scan by route;
+  beside them the hand kernels' launches as `_build` counts them. A
+  traced graph with data-dependent loops (`utils.capture.iterate`)
+  carries one device counter per loop that each conditional body adds
+  one to: `collect` reads the bodies a replay ran.
 - `snapshot()`: everything stored since the last one, which it clears.
 """
 
@@ -31,18 +31,13 @@ from __future__ import annotations
 
 import collections
 import contextlib
-import ctypes
 import os
 import time
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Dict, Iterator, List, Optional
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
 
-from spsvo_tpu_torch.utils.capture import capture_of, driver
-
-# CUgraphNodeType of the CUDA driver API
-_KERNEL_NODE, _EVENT_RECORD_NODE, _CONDITIONAL_NODE = 0, 7, 13
 # the data-dependent loops that `utils.capture.iterate` guards
 LOOPS = ("ransac", "polish", "lm")
 
@@ -132,11 +127,8 @@ class GraphStamps:
         self.program = program
         self.labels: List[str] = []
         self.events: List[torch.cuda.Event] = []
-        # the loops' conditional bodies captured, by loop, and the kernel
-        # nodes in them; per capture holding any (by its id), its device
-        # counter of the bodies a replay ran (int32, one per loop of LOOPS)
-        self.bodies: collections.Counter = collections.Counter()
-        self.body_kernels = 0
+        # per capture holding loops (by its id), its device counter of the
+        # bodies a replay ran (int32, one per loop of LOOPS)
         self.ran: Dict[int, torch.Tensor] = {}
 
     def mark(self, label: str) -> None:
@@ -190,116 +182,6 @@ def count(name: str, n: int) -> None:
     """With tracing on, add `n` to the counter `name` (0 shows it)."""
     if enabled():
         _store.counters[name] += n
-
-
-def graph_nodes(graph: torch.cuda.CUDAGraph) -> Dict[str, int]:
-    """The top-level nodes of a graph captured with `keep_graph=True`
-    (before `instantiate`): in total, kernel nodes, event-record nodes and
-    conditional nodes, read through the CUDA driver API (`cudaGraph_t` is
-    the driver's `CUgraph`)."""
-    kinds = collections.Counter(_node_types(graph.raw_cuda_graph()))
-    return {"nodes": sum(kinds.values()), "kernels": kinds[_KERNEL_NODE],
-            "events": kinds[_EVENT_RECORD_NODE],
-            "conditionals": kinds[_CONDITIONAL_NODE]}
-
-
-def _node_types(raw: int) -> List[int]:
-    """The types of the nodes of the driver's graph `raw` (a `CUgraph`)."""
-    n = ctypes.c_size_t(0)
-    driver("cuGraphGetNodes", ctypes.c_void_p(raw), None, ctypes.byref(n))
-    nodes = (ctypes.c_void_p * n.value)()
-    driver("cuGraphGetNodes", ctypes.c_void_p(raw), nodes, ctypes.byref(n))
-    kinds = []
-    for node in nodes[:n.value]:
-        t = ctypes.c_int(0)
-        driver("cuGraphNodeGetType", ctypes.c_void_p(node), ctypes.byref(t))
-        kinds.append(t.value)
-    return kinds
-
-
-# the captures in progress of traced graphs (`new_graph`), by capture id
-_capturing: Dict[int, GraphStamps] = {}
-
-
-class _TracedGraph(torch.cuda.CUDAGraph):
-    """A graph of a traced capture: while it is captured, its capture's id
-    maps to its program's stamps, where the loops' conditional bodies
-    count themselves (`loop_counter`, `body_captured`)."""
-
-    def capture_begin(self, *args, **kwargs) -> None:
-        super().capture_begin(*args, **kwargs)
-        self.capture_id = capture_of(torch.cuda.current_stream())[0]
-        _capturing[self.capture_id] = self.stamps
-
-    def capture_end(self) -> None:
-        _capturing.pop(self.capture_id, None)
-        super().capture_end()
-
-
-def new_graph(stamps: Optional[GraphStamps]) -> torch.cuda.CUDAGraph:
-    """A graph to capture into: kept after its capture (for
-    `count_nodes`) where the capture is traced."""
-    if stamps is None:
-        return torch.cuda.CUDAGraph()
-    graph = _TracedGraph(keep_graph=True)
-    graph.stamps = stamps
-    return graph
-
-
-def loop_counter(capture_id: int) -> Optional[torch.Tensor]:
-    """Before a loop's conditional node is added to the capture
-    `capture_id`: where the capture is traced, its graph's device counter
-    of the bodies run, made at the graph's first loop (so zeroed there at
-    every replay); else None."""
-    stamps = _capturing.get(capture_id)
-    if stamps is None:
-        return None
-    ran = stamps.ran.get(capture_id)
-    if ran is None:
-        ran = stamps.ran[capture_id] = torch.zeros(
-            len(LOOPS), dtype=torch.int32, device="cuda")
-    return ran
-
-
-def body_captured(capture_id: int, loop: str, ran: Optional[torch.Tensor],
-                  body: int) -> None:
-    """At the end of the capture of one of `loop`'s conditional bodies
-    (the driver's graph `body`, captured on the current stream) in the
-    capture `capture_id`: where that is traced (`ran` from
-    `loop_counter`), count the body and its kernel nodes, then add one to
-    `ran`'s count of the loop inside the body."""
-    if ran is None:
-        return
-    stamps = _capturing[capture_id]
-    stamps.bodies[loop] += 1
-    stamps.body_kernels += _node_types(body).count(_KERNEL_NODE)
-    ran[LOOPS.index(loop)].add_(1)
-
-
-def count_nodes(program: str, graphs: Sequence[torch.cuda.CUDAGraph],
-                stamps: Optional[GraphStamps]) -> None:
-    """After a traced capture (`stamps` not None) of `program`'s graphs
-    from `new_graph`: count their top-level nodes
-    (`graph_nodes.<program>`, `graph_kernel_nodes.<program>`,
-    `graph_event_nodes.<program>`, `graph_conditional_nodes.<program>`),
-    the kernel nodes inside the loops' conditional bodies
-    (`graph_body_kernel_nodes.<program>`) and the bodies per loop
-    (`loop_bodies_captured.<program>.<loop>`), and instantiate them."""
-    if stamps is None:
-        return
-    c = _store.counters
-    for g in graphs:
-        n = graph_nodes(g)
-        for key, k in (("graph_nodes", "nodes"),
-                       ("graph_kernel_nodes", "kernels"),
-                       ("graph_event_nodes", "events"),
-                       ("graph_conditional_nodes", "conditionals")):
-            c[f"{key}.{program}"] += n[k]
-        g.instantiate()
-    if stamps.bodies:
-        c[f"graph_body_kernel_nodes.{program}"] += stamps.body_kernels
-        for loop, k in stamps.bodies.items():
-            c[f"loop_bodies_captured.{program}.{loop}"] += k
 
 
 def snapshot() -> Dict[str, Any]:

@@ -599,7 +599,7 @@ def test_cuda_traced_capture_holds_stamps_and_equals_untraced(monkeypatch):
     graphs' nodes are the untraced graphs' (kept to count them) plus one
     event-record node per boundary, the untraced ones holding none."""
     from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
-    from spsvo_tpu_torch.utils import profiling
+    from spsvo_tpu_torch.utils import capture, profiling
     dev = _cuda()
     n = 4
     frames, _, P_l, P_r = tsyn.synthetic_corridor(
@@ -610,13 +610,13 @@ def test_cuda_traced_capture_holds_stamps_and_equals_untraced(monkeypatch):
                               torch.Generator(dev).manual_seed(f), dev
                               ).cpu().numpy() for f in range(n)]
     kept = []
-    monkeypatch.setattr(profiling, "new_graph", lambda stamps: kept.append(
+    monkeypatch.setattr(capture, "new_graph", lambda keep: kept.append(
         torch.cuda.CUDAGraph(keep_graph=True)) or kept[-1])
     plain = VisualOdometry(cfg, device=dev)
     want = [plain.process(il, ir, P_l, P_r, gumbel=noise[f],
                           want_diagnostics=True)[1]["output"]
             for f, (il, ir) in enumerate(frames)]
-    untraced = profiling.graph_nodes(kept[0])
+    untraced = capture.graph_nodes(kept[0])
     imgs = torch.stack([image_ops.preprocess_stereo_pair(
         *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
         dst_h=cfg.image_height, dst_w=cfg.image_width)[0]
@@ -627,7 +627,7 @@ def test_cuda_traced_capture_holds_stamps_and_equals_untraced(monkeypatch):
     g = torch.stack([torch.as_tensor(x) for x in noise[1:]]).to(dev)
     hybrid = build_online_hybrid(cfg, device=dev, model=plain.model)
     world = hybrid(imgs, Pl2, Pr2, gumbel=g)[0]
-    untraced_hybrid = profiling.graph_nodes(kept[-1])
+    untraced_hybrid = capture.graph_nodes(kept[-1])
     assert untraced["events"] == untraced_hybrid["events"] == 0
     monkeypatch.undo()
     profiling.snapshot()

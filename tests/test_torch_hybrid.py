@@ -706,7 +706,7 @@ def test_cuda_hybrid_graph_owns_its_matcher_scratch():
     hybrid = tsh.build_online_hybrid(cfg)
     gumbel = hybrid.draw_gumbel(n, torch.Generator(dev).manual_seed(0))
     w_graph, _ = hybrid(*args, gumbel=gumbel)         # captures the graph
-    keys, tickets = next(iter(hybrid._graphs.values())).scratch
+    keys, tickets = next(iter(hybrid._graphs.values())).state["scratch"]
     assert (keys.numel(), tickets.numel()) == ((2 * n - 1) * 2 * K, 2 * n - 1)
     # B=300 regrows any per-stream scratch (> 256 tickets, > 2^16 keys); the
     # stream pool hands out 32 streams round-robin, so 40 reach every one

@@ -151,7 +151,8 @@ def test_snapshot_clears_the_store_and_carries_the_launch_counts():
 
 def test_count_nodes_only_for_a_traced_capture():
     """A capture with tracing off keeps no graph and counts nothing."""
-    profiling.count_nodes("whole", [object()], None)
+    from spsvo_tpu_torch.utils import capture
+    capture.count_nodes("whole", [object()], None)
     assert profiling.snapshot()["counters"] == {}
 
 
@@ -171,8 +172,9 @@ def test_collect_reads_the_loop_bodies_a_replay_ran():
     assert c == {"replays.whole": 1, "loop_bodies_run.whole.ransac": 3,
                  "loop_bodies_run.whole.polish": 9,
                  "loop_bodies_run.whole.lm": 22}
-    assert profiling.loop_counter(12345) is None
-    profiling.body_captured(12345, "lm", None, 0)
+    from spsvo_tpu_torch.utils import capture
+    assert capture.loop_counter(12345) is None
+    capture.body_captured(12345, "lm", None, 0)
     assert profiling.snapshot()["counters"] == {}
 
 

@@ -115,20 +115,18 @@ def graph_report(setup: dict, window: dict) -> dict:
 def graph_nodes_kept(st) -> dict:
     """Nodes of the graphs the driver's program captured, kept by
     `--keep-graphs` (with tracing off)."""
-    from spsvo_tpu_torch.utils import profiling
-    out = collections.Counter()
+    from spsvo_tpu_torch.utils import capture
+    programs = []
     if st.get("vo") is not None:
-        for prog in st["vo"]._frame_programs.values():
-            for split, (graphs, *_rest) in prog._graphs.items():
-                for g in graphs:
-                    for k, v in profiling.graph_nodes(g).items():
-                        out[f"{k}.{'split' if split else 'whole'}"] += v
+        programs += [prog for frame in st["vo"]._frame_programs.values()
+                     for prog in frame._graphs.values()]
     if st.get("hybrid") is not None:
-        for prog in st["hybrid"]._graphs.values():
-            for _, _, g, _ in prog.stretches:
-                if g is not None:
-                    for k, v in profiling.graph_nodes(g).items():
-                        out[f"{k}.hybrid"] += v
+        programs += list(st["hybrid"]._graphs.values())
+    out = collections.Counter()
+    for prog in programs:
+        for g in prog.graphs:
+            for k, v in capture.graph_nodes(g).items():
+                out[f"{k}.{prog.program}"] += v
     return dict(out)
 
 
@@ -193,7 +191,8 @@ def main(argv=None) -> int:
         workload=args.workload, seed=args.seed, seconds=args.seconds,
         trace=args.trace), bench, torch.device("cuda", 0))
     if args.keep_graphs:
-        profiling.new_graph = lambda stamps: torch.cuda.CUDAGraph(
+        from spsvo_tpu_torch.utils import capture
+        capture.new_graph = lambda keep: torch.cuda.CUDAGraph(
             keep_graph=True)
     if args.enable != "none":
         profiling.enable()
