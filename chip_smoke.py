@@ -1435,6 +1435,156 @@ def frame_programs(phase, vo, frames, P_l, P_r, eager_step, noise=None):
     return infos, launches, routes, traj, rep
 
 
+def frame_bound(pts, gumbel, lms, out, p):
+    """Kernel 2's frame entry, a count of its fp32 work on this solve's
+    data: the weighted solve's (`solver_bound`); per (hypothesis, lane) 4
+    for the noise's sum and the top-3's comparisons; per hypothesis ~800
+    for Horn (centroids and cross-covariance of 3 pairs, 16 power
+    iterations on the 4x4 matrix, the rotation and translation); ~50 per
+    lane for substitution and fusion. Bytes: the tile, the noise, the
+    carried and fused landmarks, the slots and scalars read or written
+    once; the hypotheses, out and inl written once."""
+    _, Lp = pts.shape
+    S, L = gumbel.shape
+    K = lms.length.shape[0]
+    iters = p.polish_iters + p.lm_iters * p.degree * (
+        2 if p.weighted_lm and p.degree >= 3 else 1)
+    ops = (43.0 * S * Lp + 300.0 * float(out[14]) * iters + 4.0 * S * L
+           + 800.0 * S + 50.0 * L)
+    n_bytes = (pts.numel() * 4 + gumbel.numel() * 4 + 2 * K * 16 + L * 12
+               + 32 * 4 + S * 12 * 4 + out.numel() * 4 + Lp * 4)
+    return bound(n_bytes, ops, "fp32")
+
+
+# kernel 2's frame entry against its plain version, by phase
+frame_entry: dict = {}
+
+
+def check_fused_frame(phase, vo, frames, eager_step, noise=None,
+                      n: int = 4):
+    """Where `solver.fused_frame_route` holds: kernel 2's frame entry
+    (`solver_cuda.fused_frame_packed`) on the landmark solves of the
+    drive's first `n` frames, recorded from `eager_step` (the noise as
+    `frame_programs` draws it), against its plain version
+    (`fused_frame_plain`): the hypotheses bit for bit; the winner (first
+    best count over them), the inlier row, the counts and flags and the
+    landmark lengths equal; the pose within the limits of kernel 2's LM
+    against its plain LM (`check_scan_steps`: q 1e-4, t 1e-3) and the
+    landmark points within 1e-3. And against the composition it replaced
+    (`solver.solve_with_landmarks` off the route: the per-frame entry,
+    whose chain the frame entry shares, between PyTorch ops): the same
+    equalities, the pose and the landmark points within 1e-5. Both entry
+    and plain version timed as CUDA graphs on the last solve with tracks,
+    beside its bound. Returns the times ({} where the route does not
+    hold)."""
+    import torch
+
+    from spsvo_tpu_torch.ops import pnp, solver, solver_cuda
+    from spsvo_tpu_torch.pipeline import init_state
+    cfg, dev = vo.cfg, vo.device
+    if not solver.fused_frame_route(cfg, dev):
+        return {}
+    calls = []
+    entry = solver_cuda.fused_frame
+
+    def recorded(prep, lms, *args, **kw):
+        calls.append((prep, solver.LandmarkState(*(x.clone() for x in lms)),
+                      args, kw))
+        return entry(prep, lms, *args, **kw)
+    gen = torch.Generator(dev).manual_seed(vo.seed)
+    state = init_state(cfg, dev, vo.desc_dim)
+    solver_cuda.fused_frame = recorded
+    try:
+        with torch.no_grad():
+            for f, (il, ir) in enumerate(frames[:n]):
+                g = (pnp.gumbel_noise(solver.gumbel_shape(cfg), gen, dev)
+                     if noise is None else torch.as_tensor(noise[f]).to(dev))
+                state = eager_step(state, il, ir, g)[0]
+    finally:
+        solver_cuda.fused_frame = entry
+    if len(calls) != n or any(kw.get("gumbel") is None
+                              for *_, kw in calls):
+        fail(f"{phase}: {len(calls)} frame-entry solves with their noise "
+             f"recorded in {n} eager frames, expected {n}")
+    thr2 = cfg.ransac_reproj_threshold ** 2
+    route = solver.fused_frame_route
+    err = {k: 0.0 for k in ("q", "t", "landmark_m", "stepped_pose",
+                            "stepped_landmark_m")}
+    differ = set()
+    tracks = 0
+    for prep, lms, args, kw in calls:
+        P_l, P_r, q0, t0, fc, _, k = args
+        L = prep.chain.shape[0]
+        g = kw["gumbel"].to(torch.float32).contiguous()
+        a = (solver_cuda.pack_points(prep), prep.inter_sel, prep.sel, g,
+             lms, solver_cuda.pack_scalars(q0, t0, fc, P_l, P_r).contiguous(),
+             cfg, k)
+        with torch.no_grad():
+            out, inl, hyp, got = solver_cuda.fused_frame_packed(*a)
+            out_p, inl_p, hyp_p, want = solver_cuda.fused_frame_plain(*a)
+            solver.fused_frame_route = lambda *_: False
+            try:
+                res_s, lms_s = solver.solve_with_landmarks(
+                    prep, lms, P_l, P_r, q0, t0, fc, cfg, k_capacity=k,
+                    gumbel=g)
+            finally:
+                solver.fused_frame_route = route
+            winner = [int(torch.argmax(pnp._score_mask(
+                h[:, :9].reshape(-1, 3, 3), h[:, 9:], prep.pts3d_curr,
+                prep.uv_prev_l, prep.chain, P_l, thr2).sum(-1)))
+                for h in (hyp, hyp_p)]
+            res = solver._masks_to_slots(
+                solver_cuda.solve_result(out, inl, prep, cfg), prep.sel, k)
+        torch.cuda.synchronize()
+        checks = {
+            "hypotheses": torch.equal(hyp, hyp_p),
+            "winner": winner[0] == winner[1],
+            "inlier_row": torch.equal(inl[:L] > 0, inl_p[:L] > 0),
+            # inliers, success, anomaly, prior winner, chain size
+            "counts": torch.equal(out[[14, 15, 16, 18, 19]],
+                                  out_p[[14, 15, 16, 18, 19]]),
+            "landmark_lengths": torch.equal(got.length, want.length),
+            "stepped_inliers_counts": all(torch.equal(
+                getattr(res, name), getattr(res_s, name)) for name in (
+                    "inliers", "chain_valid", "num_inliers", "num_chain",
+                    "pnp_success", "accel_anomaly", "prior_winner")),
+            "stepped_landmark_lengths": torch.equal(got.length,
+                                                    lms_s.length)}
+        differ |= {name for name, ok in checks.items() if not ok}
+        new = {"q": (out[0:4] - out_p[0:4]).abs().max(),
+               "t": (out[4:7] - out_p[4:7]).abs().max(),
+               "landmark_m": (got.pts3d - want.pts3d).abs().max(),
+               "stepped_pose": torch.cat([(res.q - res_s.q).abs(),
+                                          (res.t - res_s.t).abs()]).max(),
+               "stepped_landmark_m": (got.pts3d - lms_s.pts3d).abs().max()}
+        err = {key: max(err[key], v.item()) for key, v in new.items()}
+        if int((lms.length > 0).sum()):
+            tracks += 1
+            timed = (a, out)
+    say(phase, check="frame entry vs plain and vs the stepped composition",
+        solves=n, solves_with_tracks=tracks, differing=sorted(differ),
+        **{f"max_err_{k}": v for k, v in err.items()})
+    limits = {"q": 1e-4, "t": 1e-3, "landmark_m": 1e-3, "stepped_pose": 1e-5,
+              "stepped_landmark_m": 1e-5}
+    over = {k: v for k, v in err.items() if not v <= limits[k]}
+    if differ or over or not tracks:
+        fail(f"{phase}: kernel 2's frame entry against its plain version "
+             f"and the stepped composition: {sorted(differ)} differ, errors "
+             f"over their limits {over}, {tracks} solves with carried "
+             "tracks")
+    a, out = timed
+    b_ms, b_by = frame_bound(a[0], a[3], a[4], out,
+                             solver_cuda.landmark_solve_params(cfg))
+    t = {"ms_frame": graph_ms(lambda: solver_cuda.fused_frame_packed(*a),
+                              100),
+         "plain_ms_frame": graph_ms(
+             lambda: solver_cuda.fused_frame_plain(*a), 5),
+         "bound_ms_frame": b_ms, "bound_by_frame": b_by}
+    say(phase, check="frame entry times", **t)
+    frame_entry[phase] = t
+    return t
+
+
 def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
                     drift_limit=5.0, solve_kernels: bool = True):
     """The corridor drive (its first `n` frames) through
@@ -1455,8 +1605,10 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     frames, gt = frames[:n], gt[:n]
     cfg = cfg or flagship_cfg()
     vo = VisualOdometry(cfg, device=dev, seed=0)
+    step = cnn_eager_step(vo, P_l, P_r)
     infos, launches, routes, traj, rep = frame_programs(
-        phase, vo, frames, P_l, P_r, cnn_eager_step(vo, P_l, P_r))
+        phase, vo, frames, P_l, P_r, step)
+    check_fused_frame(phase, vo, frames, step)
     del vo
     gc.collect()                    # the programs' graphs and pools
     torch.cuda.empty_cache()
@@ -1479,22 +1631,27 @@ def phase_main_path(dev, corridor, phase="phase5", cfg=None, n=None,
     if not score["final_drift_percent"] < drift_limit:
         fail(f"{phase}: drift {score['final_drift_percent']:.3f}% >= "
              f"{drift_limit}%")
+    want = frame_k2(cfg, dev, n)
+    k2 = next(k for k, v in want.items() if v)
+    got = {k: launches.get(k, 0) for k in want}
+    if phase == "phase5" and want != {"fused_frame": n, "fused_solve": 0}:
+        fail(f"{phase}: the flagship's landmark solve does not take kernel "
+             f"2's frame entry on the card (expected launches {want})")
     if not solve_kernels:
-        if launches.get("match_nn", 0) or launches.get("fused_solve", 0):
+        if launches.get("match_nn", 0) or any(got.values()):
             fail(f"{phase}: launches {launches} in a configuration that "
                  "runs neither kernel 1 nor kernel 2")
     elif launches.get("match_nn", 0) != n:
         fail(f"{phase}: match_nn launched {launches.get('match_nn', 0)} "
              f"times, expected {n}")
-    elif launches.get("fused_solve", 0) != n:
-        fail(f"{phase}: fused_solve launched "
-             f"{launches.get('fused_solve', 0)} times, expected {n}")
-    elif _build.shapes["fused_solve"][3] != int(
+    elif got != want:
+        fail(f"{phase}: kernel 2 launched {got}, expected {want}: its frame "
+             "entry runs exactly where landmark fusion runs per frame")
+    elif _build.shapes[k2][-1] != int(
             cfg.landmark_fusion and cfg.landmark_weighted_lm
             and cfg.refinement_degree >= 3):
-        fail(f"{phase}: fused_solve at {_build.shapes['fused_solve']}: the "
-             "GLS pass belongs inside kernel 2 exactly where landmark "
-             "fusion weights the LM")
+        fail(f"{phase}: {k2} at {_build.shapes[k2]}: the GLS pass belongs "
+             "inside kernel 2 exactly where landmark fusion weights the LM")
     main_path_routes[phase] = routes
     return launches, rep["graph_ms_per_frame"]
 
@@ -1912,7 +2069,8 @@ def phase_laptop(dev, corridor):
            "drift_percent": score["final_drift_percent"],
            "peak_memory_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
     say(tag, preset="superpoint_laptop", config=cfg.config_string, **rep)
-    if launches.get("match_nn", 0) or launches.get("fused_solve", 0):
+    if launches.get("match_nn", 0) or launches.get("fused_solve", 0) or \
+            launches.get("fused_frame", 0):
         fail(f"{tag}: launches {launches} in a configuration that runs "
              "neither kernel 1 nor kernel 2")
     if not (same_g and same_fe):
@@ -2025,6 +2183,16 @@ def cnn_launches(launches, want, conv: str = "conv_bf16") -> bool:
 def check_counts(tag: str, launches, want) -> None:
     if {k: launches.get(k, 0) for k in want} != want:
         fail(f"phase {tag}: launches {launches}, expected {want}")
+
+
+def frame_k2(cfg, dev, n: int) -> dict:
+    """Kernel 2's launches in `n` per-frame solves of `cfg`: its frame
+    entry where `solver.fused_frame_route` holds (landmark fusion per
+    frame), else its per-frame entry."""
+    from spsvo_tpu_torch.ops import solver
+    if solver.fused_frame_route(cfg, dev):
+        return {"fused_frame": n, "fused_solve": 0}
+    return {"fused_solve": n, "fused_frame": 0}
 
 
 def landmark_scan_launches(cfg, dev, pairs: int, calls: int = 1) -> dict:
@@ -2253,9 +2421,9 @@ def phase_stream_and_scan(dev, corridor, root):
     # padding frame
     steps = n + (-n % chunk)
     check_counts("7e stream", stream_launches,
-                 {"match_nn": steps, "fused_solve": steps})
+                 {"match_nn": steps, **frame_k2(cfg, dev, steps)})
     check_counts("7e stream, recorded in the graph", dict(_build.captured),
-                 {"match_nn": 1, "fused_solve": 1})
+                 {"match_nn": 1, **frame_k2(cfg, dev, 1)})
     if [i for i, _ in out] != list(range(n)):
         fail(f"phase 7e: process_stream yielded {[i for i, _ in out]}")
     vo.reset()
@@ -2274,13 +2442,14 @@ def phase_stream_and_scan(dev, corridor, root):
     w_eager, d_eager = scan.eager(imgs, Pl_t, Pr_t, gumbel=gumbel)
     torch.cuda.synchronize()
     scan_launches = dict(_build.launches)
-    check_counts("7e scan", scan_launches, {"match_nn": n, "fused_solve": n})
+    check_counts("7e scan", scan_launches,
+                 {"match_nn": n, **frame_k2(cfg, dev, n)})
     _build.reset_launches()
     w_graph, d_graph = scan(imgs, Pl_t, Pr_t, gumbel=gumbel)
     torch.cuda.synchronize()
     graph_launches = dict(_build.launches)
     check_counts("7e scan, graph", graph_launches,
-                 {"match_nn": n, "fused_solve": n})
+                 {"match_nn": n, **frame_k2(cfg, dev, n)})
     times = {"eager": [], "graph": []}
     for _ in range(3):
         for name, fn in (("eager", scan.eager), ("graph", scan)):
@@ -2445,7 +2614,8 @@ def phase_cli(dev, corridor, tmp):
     if rows[0] != ["detect", "match", "solve", "total"] or \
             len(rows) != n + 1:
         fail(f"phase 7a: latency CSV header {rows[0]}, {len(rows)} rows")
-    check_counts("7a", launches, {"match_nn": n, "fused_solve": n})
+    check_counts("7a", launches,
+                 {"match_nn": n, **frame_k2(flagship_cfg(), dev, n)})
     total = float(np.median([float(r[3]) for r in rows[5:]]))
     # `total` starts once the frame source has handed the pair over, so
     # the decode time stands beside it, not inside
@@ -2711,15 +2881,19 @@ def phase_classic_vo(dev, corridor):
                              torch.Generator(dev).manual_seed(0),
                              dev).cpu().numpy()
     vo = ClassicVisualOdometry(cfg, device=dev)
+    step = classic_eager_step(vo, P_l, P_r)
     infos, launches, _, traj, prog = frame_programs(
-        "phase8c", vo, frames, P_l, P_r, classic_eager_step(vo, P_l, P_r),
-        noise=noise)
+        "phase8c", vo, frames, P_l, P_r, step, noise=noise)
+    if not check_fused_frame("phase8c", vo, frames, step, noise):
+        fail("phase 8c: the flagship solve behind the device ORB front end "
+             "does not take kernel 2's frame entry")
     del vo
     gc.collect()
     torch.cuda.empty_cache()
-    if launches != {"fused_solve": n}:
-        fail(f"phase 8c: process launched {launches}, expected fused_solve "
-             f"{n} and match_nn 0")
+    want_k2 = {k: v for k, v in frame_k2(cfg, dev, n).items() if v}
+    if launches != want_k2:
+        fail(f"phase 8c: process launched {launches}, expected {want_k2} "
+             "and match_nn 0")
     drift = check_trajectory("8c process", traj, gt, n,
                              CLASSIC_DRIFT_LIMIT["ORB/ORB"])
     kps = [i["num_keypoints_left"] for i in infos[1:]]
@@ -2742,9 +2916,10 @@ def phase_classic_vo(dev, corridor):
     # the step program's first frame op by op, then one graph replay per
     # frame and per padding frame
     steps = n + (-n % chunk)
-    if stream_launches != {"fused_solve": steps}:
+    want_k2 = {k: v for k, v in frame_k2(cfg, dev, steps).items() if v}
+    if stream_launches != want_k2:
         fail(f"phase 8c: process_stream launched {stream_launches}, expected "
-             f"fused_solve {steps} and match_nn 0")
+             f"{want_k2} and match_nn 0")
     if [i for i, _ in out] != list(range(n)):
         fail(f"phase 8c: process_stream yielded {[i for i, _ in out]}")
     diff = float(np.abs(np.stack(vo_s.trajectory) - np.stack(traj)).max())
@@ -3031,7 +3206,7 @@ def phase_int8(dev, corridor, bf16_timing):
         fail(f"phase9c: launches {launches}")
     p_launches, p_ms = phase_main_path(dev, corridor, "phase9d", cfg, 8,
                                        INT8_PROCESS_DRIFT_LIMIT)
-    check_counts("9d", p_launches, {"match_nn": 8, "fused_solve": 8})
+    check_counts("9d", p_launches, {"match_nn": 8, **frame_k2(cfg, dev, 8)})
     say("phase9d", result="pass", median_process_ms=p_ms)
     d = zoo.reference_models_dir()
     present = {p: os.path.exists(os.path.join(d, f"{p}_b1.onnx"))
@@ -4243,9 +4418,9 @@ def main() -> None:
         fail("kernel report: a path is in two classes")
 
     def launched(c, name):
-        # kernel 2: its per-pair and its scan entry
-        return c.get(name, 0) + (c.get("fused_scan", 0)
-                                 if name == "fused_solve" else 0)
+        # kernel 2: its per-pair, its scan and its frame entry
+        return c.get(name, 0) + (c.get("fused_scan", 0) + c.get(
+            "fused_frame", 0) if name == "fused_solve" else 0)
 
     def counts(name):
         need, never = rules[name]
@@ -4273,8 +4448,13 @@ def main() -> None:
              path: c["fused_scan"] for path, c in {
                  **cnn, **fp32, **feature, **int8, **classic}.items()
              if c.get("fused_scan")},
+         "frame_entry_launches_by_path": {
+             path: c["fused_frame"] for path, c in {
+                 **cnn, **fp32, **feature, **int8, **classic}.items()
+             if c.get("fused_frame")},
          "max_abs_err": s_err,
-         **{k: s_t[k] for k in keys}, **k2_t, **k2_f31},
+         **{k: s_t[k] for k in keys}, **k2_t, **k2_f31,
+         **frame_entry["phase5"]},
         {"name": "conv_bf16", "route": "cuda",
          "source": "spsvo_tpu_torch/csrc/conv_bf16.cu",
          "replaces": "spsvo_tpu/models/onnx_import.py:261",

@@ -50,7 +50,9 @@
 //
 // A second entry, fused_scan_kernel (fused_scan_launch), runs the online
 // hybrid's whole landmark scan in one launch, each pair's solve the same
-// code on one resident cluster: see its note below.
+// code on one resident cluster; a third, fused_frame_kernel
+// (fused_frame_launch), one frame's whole landmark solve with its
+// hypotheses drawn inside: see their notes below.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -517,11 +519,11 @@ __device__ __forceinline__ bool lm_iterations(Chain& ch, float q[4],
   return cost < c0;
 }
 
-// The solve after the winner, on warpgroup 0 of the frame's first CTA.
-__device__ __forceinline__ void solve_chain(Chain& ch, const float* hyp,
-                                            int maxc, int j,
-                                            const float* scal, float* out,
-                                            float* inl_g) {
+// The solve after the winner (`hw`, its [R | t] row; `maxc`, its count), on
+// warpgroup 0 of the frame's first CTA.
+__device__ __forceinline__ void solve_chain(Chain& ch, const float* hw,
+                                            int maxc, const float* scal,
+                                            float* out, float* inl_g) {
   Smem& sh = ch.sh;
   const Params& p = ch.p;
   const int tid = threadIdx.x;
@@ -538,9 +540,8 @@ __device__ __forceinline__ void solve_chain(Chain& ch, const float* hyp,
   const float count_prior = score_row(ch, sh.cand, R, t_pred, Pl);
   const bool sampled = (float)maxc >= count_prior;
   if (sampled) {
-    const float* h = hyp + 12 * j;
-    for (int i = 0; i < 9; ++i) R[i] = h[i];
-    for (int i = 0; i < 3; ++i) t[i] = h[9 + i];
+    for (int i = 0; i < 9; ++i) R[i] = hw[i];
+    for (int i = 0; i < 3; ++i) t[i] = hw[9 + i];
     score_row(ch, sh.inl, R, t, Pl);
   } else {
     for (int i = 0; i < 3; ++i) t[i] = t_pred[i];
@@ -642,12 +643,16 @@ __device__ __forceinline__ void solve_chain(Chain& ch, const float* hyp,
 // RANSAC scoring over the cluster, on the point tile in each CTA's shared
 // memory: CTA `rank` scores hypotheses [S*rank/CL, S*(rank+1)/CL) of `hyp`,
 // a warp per hypothesis, and writes its first-max winner into rank 0's
-// cc/cs through distributed shared memory; then the cluster syncs.
+// cc/cs through distributed shared memory; then the cluster syncs. With
+// kOwn, `hyp` holds only the CTA's share, in its shared memory, and each
+// CTA also copies its winner's row into rank 0's `crow[rank]`.
+template <bool kOwn = false>
 __device__ __forceinline__ void score_cluster(Smem& sh, const Params& p,
                                               const float* __restrict__ hyp,
                                               const float* Pl,
                                               cg::cluster_group& cluster,
-                                              int rank) {
+                                              int rank,
+                                              float* crow = nullptr) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   // ---- this CTA's share of the S hypotheses: a warp per hypothesis -------
   const int s_lo = p.S * rank / CL, s_hi = p.S * (rank + 1) / CL;
@@ -655,7 +660,8 @@ __device__ __forceinline__ void score_cluster(Smem& sh, const Params& p,
   for (int s = s_lo + warp; s < s_hi; s += NWARP) {   // s increasing
     float h[12];
 #pragma unroll
-    for (int i = 0; i < 12; ++i) h[i] = __ldg(hyp + 12 * s + i);
+    for (int i = 0; i < 12; ++i)
+      h[i] = kOwn ? hyp[12 * (s - s_lo) + i] : __ldg(hyp + 12 * s + i);
     int c = 0;
     for (int l = lane; l < p.Lp; l += 128) {   // Lp % 128 == 0
       bool m[4];
@@ -678,6 +684,10 @@ __device__ __forceinline__ void score_cluster(Smem& sh, const Params& p,
       }
     cluster.map_shared_rank(sh.cc, 0)[rank] = c;
     cluster.map_shared_rank(sh.cs, 0)[rank] = s;
+    if (kOwn && c >= 0) {
+      float* dst = cluster.map_shared_rank(crow, 0) + 12 * rank;
+      for (int i = 0; i < 12; ++i) dst[i] = hyp[12 * (s - s_lo) + i];
+    }
   }
   cluster.sync();
 }
@@ -719,7 +729,7 @@ fused_solve_kernel(const float* __restrict__ pts_g,
   int maxc, j;
   cluster_winner(sh, maxc, j);
   Chain ch{sh, p, 0};
-  solve_chain(ch, hyp, maxc, j, scal, out_g + (long long)f * 20,
+  solve_chain(ch, hyp + 12 * j, maxc, scal, out_g + (long long)f * 20,
               inl_g + (long long)f * p.Lp);
 }
 
@@ -807,10 +817,11 @@ __device__ __forceinline__ float reproj2_rn(const float* P, const float X[3],
 // solver.fuse_landmarks + scatter_landmarks on warpgroup 0 of rank 0, from
 // the pair's output row c.res and final inlier row: the landmark slots are
 // zeroed, then each lane's fused point and length land at its slot sel[l].
+template <typename Slot>
 __device__ __forceinline__ void fuse_scatter(const Smem& sh,
                                              const ScanCarry& c,
                                              float4* lms,
-                                             const int* __restrict__ sel,
+                                             const Slot* __restrict__ sel,
                                              const ScanParams& sp) {
   const int tid = threadIdx.x;
   float R[9];
@@ -857,6 +868,42 @@ __device__ __forceinline__ void fuse_scatter(const Smem& sh,
   }
 }
 
+// The tile, with the carried landmarks in rows 3-5 where a track exists
+// (solver.substitute_landmarks) and, for the GLS pass, the clamped track
+// length in row 15 (solver_cuda.splice_points); `lm(k)` is slot k's
+// landmark (x, y, z, track length as int bits). With `keep_len` each
+// lane's length after substitution goes to c.len.
+template <class Lookup>
+__device__ __forceinline__ void load_substituted(Smem& sh, ScanCarry& c,
+                                                 const float* pts,
+                                                 const int* inter,
+                                                 const Params& p,
+                                                 const ScanParams& sp,
+                                                 bool keep_len, Lookup lm) {
+  for (int l = threadIdx.x; l < p.Lp; l += NT) {
+    float v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r) v[r] = pts[r * p.Lp + l];
+    if (l < sp.L) {
+      const int fi = inter[l];
+      const float4 m = lm(max(fi, 0));
+      const int clen = __float_as_int(m.w);
+      const bool has = fi >= 0 && clen > 0 && v[14] > 0.f && isfinite(m.x) &&
+                       isfinite(m.y) && isfinite(m.z);
+      if (has) {
+        v[3] = m.x;
+        v[4] = m.y;
+        v[5] = m.z;
+      }
+      const int ll = has ? clen : 1;
+      if (keep_len) c.len[l] = ll;
+      if (p.weighted) v[15] = (float)min(ll, sp.max_age);
+    }
+#pragma unroll
+    for (int r = 0; r < 16; ++r) sh.pts[r][l] = v[r];
+  }
+}
+
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
 fused_scan_kernel(const float* __restrict__ pts_g,
                   const float* __restrict__ hyp_g,
@@ -887,31 +934,8 @@ fused_scan_kernel(const float* __restrict__ pts_g,
     const float* pts = pts_g + (long long)f * 16 * p.Lp;
     const float* hyp = hyp_g + (long long)f * p.S * 12;
     const int* inter = inter_g + (long long)f * sp.L;
-    // the tile, with the carried landmarks in rows 3-5 where a track exists
-    // (solver.substitute_landmarks) and, for the GLS pass, the clamped
-    // track length in row 15 (solver_cuda.splice_points)
-    for (int l = tid; l < p.Lp; l += NT) {
-      float v[16];
-#pragma unroll
-      for (int r = 0; r < 16; ++r) v[r] = pts[r * p.Lp + l];
-      if (l < sp.L) {
-        const int fi = inter[l];
-        const float4 lm = lm0[max(fi, 0)];
-        const int clen = __float_as_int(lm.w);
-        const bool has = fi >= 0 && clen > 0 && v[14] > 0.f &&
-                         isfinite(lm.x) && isfinite(lm.y) && isfinite(lm.z);
-        if (has) {
-          v[3] = lm.x;
-          v[4] = lm.y;
-          v[5] = lm.z;
-        }
-        const int ll = has ? clen : 1;
-        if (rank == 0) c.len[l] = ll;
-        if (p.weighted) v[15] = (float)min(ll, sp.max_age);
-      }
-#pragma unroll
-      for (int r = 0; r < 16; ++r) sh.pts[r][l] = v[r];
-    }
+    load_substituted(sh, c, pts, inter, p, sp, rank == 0,
+                     [&](int k) { return lm0[k]; });
     __syncthreads();
     score_cluster(sh, p, hyp, Pl, cluster, rank);
     if (rank != 0 || tid >= WG) continue;
@@ -919,7 +943,8 @@ fused_scan_kernel(const float* __restrict__ pts_g,
     int maxc, j;
     cluster_winner(sh, maxc, j);
     Chain ch{sh, p, 0};
-    solve_chain(ch, hyp, maxc, j, c.scal, c.res, inl_g + (long long)f * p.Lp);
+    solve_chain(ch, hyp + 12 * j, maxc, c.scal, c.res,
+                inl_g + (long long)f * p.Lp);
     wg_bar();
     fuse_scatter(sh, c, lms, sel_g + (long long)f * sp.L, sp);
     if (tid < 20) out_g[(long long)f * 20 + tid] = c.res[tid];
@@ -935,6 +960,251 @@ fused_scan_kernel(const float* __restrict__ pts_g,
       lm_pts[3 * k + 2] = v.z;
       lm_len[k] = __float_as_int(v.w);
     }
+  }
+}
+
+// ---- the per-frame landmark solve ---------------------------------------
+//
+// A frame's landmark solve (solver.solve_with_landmarks per frame, where
+// solver.fused_frame_route holds) in ONE launch: what ran as ~330 PyTorch
+// ops around the per-frame entry (substitution, the Gumbel top-3 sampling
+// and the Horn solves of precompute_hypotheses on the substituted prep, the
+// pose inverse, fusion, the scatter to keypoint slots) runs inside it. Unlike
+// the scan, the hypotheses are drawn after substitution (Horn reads the
+// carried landmarks), so each CTA draws its own share of the S rows:
+//  - every CTA loads the tile and substitutes the carried landmarks, read
+//    from global memory (load_substituted, the scan's);
+//  - CTA `rank` draws rows [S*rank/CL, S*(rank+1)/CL): a warp per row takes
+//    the top 3 of where(chain, 0, -inf) + gumbel over the L lanes in the
+//    order of torch.sort(descending, stable) (NaN first, ties to the lower
+//    index) by a butterfly merge of per-lane top-3 lists; then a thread per
+//    row runs Horn on the three pairs (horn3_rn). Rows stay in the CTA's
+//    shared memory, where score_cluster reads them, and go to hyp_g;
+//  - scoring, the chain with its GLS pass, fusion and the scatter are the
+//    other entries' code; each CTA hands its winner's row to rank 0.
+// Horn rounds as the op-by-op composition does on this card: every product
+// and sum on its own (_rn intrinsics), the sums over the three points and
+// the norms in the order of PyTorch's CUDA reductions, and the batched
+// products as cuBLAS sums them: a matrix product (H) as one FMA chain in
+// index order, a matrix-vector product as two FMA chains over the halves
+// of the index, (a0 b0 + a1 b1) + (a2 b2 + a3 b3). Bound, as
+// the other entries: the chain's latency; the sampling and Horn add one
+// ~16-step serial chain per thread, the scoring's and fusion's lane passes
+// stay as they were.
+
+__device__ __forceinline__ float clamp_min(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);   // torch.clamp: NaN propagates
+}
+
+// torch.sort's descending stable order: NaN first, then larger keys, equal
+// keys by lower index.
+__device__ __forceinline__ bool sorts_before(float a, int ia, float b,
+                                             int ib) {
+  const bool an = a != a, bn = b != b;
+  if (an != bn) return an;
+  if (!an && a != b) return a > b;
+  return ia < ib;
+}
+
+struct Top3 {
+  float k[3];
+  int i[3];
+};
+
+__device__ __forceinline__ void top3_insert(Top3& t, float k, int i) {
+  if (!sorts_before(k, i, t.k[2], t.i[2])) return;
+  if (sorts_before(k, i, t.k[1], t.i[1])) {
+    t.k[2] = t.k[1];
+    t.i[2] = t.i[1];
+    if (sorts_before(k, i, t.k[0], t.i[0])) {
+      t.k[1] = t.k[0];
+      t.i[1] = t.i[0];
+      t.k[0] = k;
+      t.i[0] = i;
+    } else {
+      t.k[1] = k;
+      t.i[1] = i;
+    }
+  } else {
+    t.k[2] = k;
+    t.i[2] = i;
+  }
+}
+
+// pnp._horn on three point pairs with unit weights (src: rows 0-2 of the
+// tile at the lanes, dst: the substituted rows 3-5), then [R | t] as
+// precompute_hypotheses packs it.
+__device__ __forceinline__ void horn3_rn(const Smem& sh, const int idx[3],
+                                         float row[12]) {
+  const float wn = __fdiv_rn(1.f, 3.f);   // w / sum(w), w = 1
+  float src[3][3], dst[3][3];
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      src[n][i] = sh.pts[i][idx[n]];
+      dst[n][i] = sh.pts[3 + i][idx[n]];
+    }
+  // centroids: a sum over 3 strided values, ((x0 + x1) + x2)
+  float cs[3], cd[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    cs[i] = __fadd_rn(__fadd_rn(__fmul_rn(src[0][i], wn),
+                                __fmul_rn(src[1][i], wn)),
+                      __fmul_rn(src[2][i], wn));
+    cd[i] = __fadd_rn(__fadd_rn(__fmul_rn(dst[0][i], wn),
+                                __fmul_rn(dst[1][i], wn)),
+                      __fmul_rn(dst[2][i], wn));
+  }
+  // H = einsum(src0, dst0, wn): dst0 * wn first, then a batched product
+  // over the 3 points
+  float s0[3][3], d0w[3][3];
+#pragma unroll
+  for (int n = 0; n < 3; ++n)
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      s0[n][i] = __fsub_rn(src[n][i], cs[i]);
+      d0w[n][i] = __fmul_rn(__fsub_rn(dst[n][i], cd[i]), wn);
+    }
+  float H[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      H[3 * i + j] = fmaf(s0[2][i], d0w[2][j],
+                          fmaf(s0[1][i], d0w[1][j],
+                               __fmul_rn(s0[0][i], d0w[0][j])));
+  float sq[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) sq[k] = __fmul_rn(H[k], H[k]);
+  // the Frobenius norm: 9 values over 8 lanes (lane 0 adds its second
+  // value), then the shuffles at offsets 4, 2, 1
+  const float fro2 = __fadd_rn(
+      __fadd_rn(__fadd_rn(__fadd_rn(sq[0], sq[8]), sq[4]),
+                __fadd_rn(sq[2], sq[6])),
+      __fadd_rn(__fadd_rn(sq[1], sq[5]), __fadd_rn(sq[3], sq[7])));
+  const float sigma = __fadd_rn(__fmul_rn(2.f, __fsqrt_rn(fro2)), 1e-9f);
+  const float sxx = H[0], sxy = H[1], sxz = H[2], syx = H[3], syy = H[4],
+              syz = H[5], szx = H[6], szy = H[7], szz = H[8];
+  float N[4][4] = {
+      {__fadd_rn(__fadd_rn(sxx, syy), szz), __fsub_rn(syz, szy),
+       __fsub_rn(szx, sxz), __fsub_rn(sxy, syx)},
+      {__fsub_rn(syz, szy), __fsub_rn(__fsub_rn(sxx, syy), szz),
+       __fadd_rn(sxy, syx), __fadd_rn(szx, sxz)},
+      {__fsub_rn(szx, sxz), __fadd_rn(sxy, syx),
+       __fsub_rn(__fadd_rn(-sxx, syy), szz), __fadd_rn(syz, szy)},
+      {__fsub_rn(sxy, syx), __fadd_rn(szx, sxz), __fadd_rn(syz, szy),
+       __fadd_rn(__fsub_rn(-sxx, syy), szz)}};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) N[i][i] = __fadd_rn(N[i][i], sigma);
+  float v[4] = {1.f, 1.f, 1.f, 1.f};
+  for (int it = 0; it < 16; ++it) {
+    float w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      w[i] = __fadd_rn(fmaf(N[i][1], v[1], __fmul_rn(N[i][0], v[0])),
+                       fmaf(N[i][3], v[3], __fmul_rn(N[i][2], v[2])));
+    // a norm of 4 values: (w0^2 + w2^2) + (w1^2 + w3^2)
+    const float n2 =
+        __fadd_rn(__fadd_rn(__fmul_rn(w[0], w[0]), __fmul_rn(w[2], w[2])),
+                  __fadd_rn(__fmul_rn(w[1], w[1]), __fmul_rn(w[3], w[3])));
+    const float n = clamp_min(__fsqrt_rn(n2), 1e-20f);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) v[i] = __fdiv_rn(w[i], n);
+  }
+  const float q[4] = {v[1], v[2], v[3], v[0]};   // (w,x,y,z) -> xyzw
+  quat_to_R_rn(q, row);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    row[9 + i] = __fsub_rn(
+        cd[i], __fadd_rn(fmaf(row[3 * i + 1], cs[1],
+                              __fmul_rn(row[3 * i], cs[0])),
+                         __fmul_rn(row[3 * i + 2], cs[2])));
+}
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(NT)
+fused_frame_kernel(const float* __restrict__ pts,
+                   const int* __restrict__ inter,
+                   const long long* __restrict__ sel,
+                   const float* __restrict__ gumbel,
+                   const float* __restrict__ lm_in_pts,
+                   const int* __restrict__ lm_in_len,
+                   const float* __restrict__ scal, float* __restrict__ hyp_g,
+                   float* __restrict__ out_g, float* __restrict__ inl_g,
+                   float* __restrict__ lm_pts, int* __restrict__ lm_len,
+                   Params p, ScanParams sp) {
+  __shared__ Smem sh;
+  __shared__ ScanCarry c;
+  __shared__ float crow[CL * 12];   // each CTA's winning row (rank 0's)
+  extern __shared__ float4 dyn[];   // landmark slots, then hypothesis rows
+  float4* lms = dyn;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int s_lo = p.S * rank / CL, rows = p.S * (rank + 1) / CL - s_lo;
+  float* hrow = reinterpret_cast<float*>(dyn + sp.K);
+  int* hidx = reinterpret_cast<int*>(hrow + 12 * ((p.S + CL - 1) / CL));
+  if (rank == 0 && tid < 32) c.scal[tid] = scal[tid];
+  load_substituted(sh, c, pts, inter, p, sp, rank == 0, [&](int k) {
+    return make_float4(lm_in_pts[3 * k], lm_in_pts[3 * k + 1],
+                       lm_in_pts[3 * k + 2], __int_as_float(lm_in_len[k]));
+  });
+  __syncthreads();
+
+  // ---- this CTA's hypotheses: the top 3 of each row, a warp per row -----
+  for (int r = warp; r < rows; r += NWARP) {
+    const float* g = gumbel + (long long)(s_lo + r) * sp.L;
+    Top3 t{{-INFINITY, -INFINITY, -INFINITY},
+           {0x7fffffff, 0x7fffffff, 0x7fffffff}};
+    for (int l = lane; l < sp.L; l += 32)   // index increasing
+      top3_insert(t, __fadd_rn(sh.pts[14][l] > 0.f ? 0.f : -INFINITY, g[l]),
+                  l);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      float k[3];
+      int i[3];
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        k[m] = __shfl_xor_sync(FULL, t.k[m], off);
+        i[m] = __shfl_xor_sync(FULL, t.i[m], off);
+      }
+#pragma unroll
+      for (int m = 0; m < 3; ++m) top3_insert(t, k[m], i[m]);
+    }
+    if (lane < 3) hidx[3 * r + lane] = t.i[lane];
+  }
+  __syncthreads();
+  for (int r = tid; r < rows; r += NT) {
+    float row[12];
+    horn3_rn(sh, hidx + 3 * r, row);
+#pragma unroll
+    for (int i = 0; i < 12; ++i) {
+      hrow[12 * r + i] = row[i];
+      hyp_g[12 * (long long)(s_lo + r) + i] = row[i];
+    }
+  }
+  float Pl[12];
+#pragma unroll
+  for (int i = 0; i < 12; ++i) Pl[i] = scal[8 + i];
+  cluster.sync();   // rows in place; every CTA of the cluster is running
+  score_cluster<true>(sh, p, hrow, Pl, cluster, rank, crow);
+  if (tid >= WG || rank != 0) return;   // rank 0's warpgroup 0 goes on
+
+  int maxc, j, wr = 0;
+  cluster_winner(sh, maxc, j);
+  while (sh.cs[wr] != j) ++wr;   // the CTA that holds row j
+  Chain ch{sh, p, 0};
+  solve_chain(ch, crow + 12 * wr, maxc, c.scal, c.res, inl_g);
+  wg_bar();
+  fuse_scatter(sh, c, lms, sel, sp);
+  if (tid < 20) out_g[tid] = c.res[tid];
+  wg_bar();
+  for (int k = tid; k < sp.K; k += WG) {
+    const float4 v = lms[k];
+    lm_pts[3 * k] = v.x;
+    lm_pts[3 * k + 1] = v.y;
+    lm_pts[3 * k + 2] = v.z;
+    lm_len[k] = __float_as_int(v.w);
   }
 }
 
@@ -992,5 +1262,43 @@ extern "C" int fused_scan_launch(const void* pts, const void* hyp,
       (const float*)pts, (const float*)hyp, (const int*)inter,
       (const int*)sel, (const float*)scal0, (float*)out, (float*)inl,
       (float*)lm_pts, (int*)lm_len, pairs, p, sp);
+  return (int)cudaGetLastError();
+}
+
+// Returns the cudaError_t of the launch (0 = success). One cluster of CL
+// CTAs solves one frame: inter (L,) int32 and sel (L,) int64 the lanes'
+// previous-frame and keypoint slots, gumbel (S, L), lm_in_pts (K, 3) and
+// lm_in_len (K,) the carried landmarks; hyp (S, 12), out (20,), inl (Lp,),
+// lm_pts (K, 3) and lm_len (K,) the outputs.
+extern "C" int fused_frame_launch(const void* pts, const void* inter,
+                                  const void* sel, const void* gumbel,
+                                  const void* lm_in_pts,
+                                  const void* lm_in_len, const void* scal,
+                                  void* hyp, void* out, void* inl,
+                                  void* lm_pts, void* lm_len, int S, int Lp,
+                                  int L, int K, float thr2, float reproj,
+                                  float delta, float min_inliers, float dt,
+                                  float max_acc, float ignore_fc, int degree,
+                                  int lm_iters, int polish_iters, int weighted,
+                                  float gate2, int max_age, void* stream) {
+  if (S <= 0 || Lp <= 0 || Lp > MAX_L || Lp % WG || L < 3 || L > Lp ||
+      K <= 0 || K > MAX_K)
+    return (int)cudaErrorInvalidValue;
+  Params p{S, Lp, thr2, reproj, delta, min_inliers, dt, max_acc, ignore_fc,
+           degree, lm_iters, polish_iters, weighted};
+  ScanParams sp{L, K, max_age, gate2};
+  const int dyn = K * (int)sizeof(float4) + ((S + CL - 1) / CL) * 15 * 4;
+  static int dyn_set = 0;   // raised once, as for the scan entry
+  if (dyn > dyn_set) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_frame_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, dyn);
+    if (e != cudaSuccess) return (int)e;
+    dyn_set = dyn;
+  }
+  fused_frame_kernel<<<CL, NT, dyn, (cudaStream_t)stream>>>(
+      (const float*)pts, (const int*)inter, (const long long*)sel,
+      (const float*)gumbel, (const float*)lm_in_pts, (const int*)lm_in_len,
+      (const float*)scal, (float*)hyp, (float*)out, (float*)inl,
+      (float*)lm_pts, (int*)lm_len, p, sp);
   return (int)cudaGetLastError();
 }

@@ -499,6 +499,36 @@ def scatter_landmarks(pts_lanes: torch.Tensor, len_lanes: torch.Tensor,
                          _scatter(len_lanes, sel, k_capacity))
 
 
+def fused_frame_route(cfg: VOConfig, device,
+                      prep: Optional[PreparedSolve] = None,
+                      k_capacity: int = 0) -> bool:
+    """A frame's landmark solve as one launch of kernel 2's frame entry
+    (`solver_cuda.fused_frame`): landmark fusion without `landmark_refine`
+    (its op-by-op LM pass after fusion), the per-frame fused-kernel gate,
+    and the keypoint slots and solver lanes within the kernel's shared
+    memory: the configuration's, and, given a `prep`, its own (one frame,
+    no leading dimension, `k_capacity` slots). `solve_with_landmarks` takes
+    it for a prep without hoisted hypotheses."""
+    from spsvo_tpu_torch.ops import solver_cuda
+    if not (cfg.landmark_fusion and not cfg.landmark_refine
+            and pallas_solver_eligible(cfg, device)
+            and solver_cuda.fused_scan_fits(cfg.max_keypoints,
+                                            gumbel_shape(cfg)[1])):
+        return False
+    return prep is None or (prep.chain.dim() == 1 and solver_cuda.
+                            fused_scan_fits(k_capacity, prep.chain.shape[0]))
+
+
+def _masks_to_slots(res: SolveResult, sel: torch.Tensor,
+                    k_capacity: int) -> SolveResult:
+    """A landmark solve's lane masks scattered to `k_capacity` slots."""
+    if sel.shape[-1] >= k_capacity:
+        return res
+    return res._replace(
+        inliers=_scatter(res.inliers & res.chain_valid, sel, k_capacity),
+        chain_valid=_scatter(res.chain_valid, sel, k_capacity))
+
+
 def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
                          P_l: torch.Tensor, P_r: torch.Tensor,
                          q_pred: torch.Tensor, t_pred: torch.Tensor,
@@ -520,9 +550,11 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     Per frame (`hyp` None) with `fused_composition`: the hypotheses are
     sampled on the substituted prep and one fused solve runs RANSAC, LM
     and the GLS pass, its kernel when `pallas_solver_eligible` holds, else
-    its plain version. The online hybrid passes `hyp`, the (S, 12)
-    hypotheses precomputed on the UNsubstituted prep, with `pts_static`,
-    `pack_points(prep)` hoisted out of its scan: then, when
+    its plain version. Where `fused_frame_route` holds, for one frame's
+    prep whose slots and lanes fit, all of it, substitution to scatter, is
+    one launch of kernel 2's frame entry. The online hybrid passes `hyp`,
+    the (S, 12) hypotheses precomputed on the UNsubstituted prep, with
+    `pts_static`, `pack_points(prep)` hoisted out of its scan: then, when
     `pallas_solver_config` holds, the 3 prev-side point rows and the GLS
     weight row are spliced into the tile and one fused solve runs RANSAC,
     LM and the GLS pass (its kernel wrapper, or with `use_kernel=False`
@@ -532,6 +564,12 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
     if (hyp is None) != (pts_static is None):
         raise ValueError("pass hyp and pts_static together (the hoisted "
                          "hypotheses and point tile)")
+    if hyp is None and fused_frame_route(cfg, prep.chain.device, prep,
+                                         k_capacity):
+        res, new_lms = solver_cuda.fused_frame(
+            prep, lms, P_l, P_r, q_pred, t_pred, frame_count, cfg, k_capacity,
+            gumbel=gumbel, generator=generator)
+        return _masks_to_slots(res, prep.sel, k_capacity), new_lms
     prep2, lane_len = substitute_landmarks(prep, lms)
     weighted = cfg.landmark_weighted_lm and cfg.refinement_degree >= 3
     w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(torch.float32)
@@ -586,10 +624,5 @@ def solve_with_landmarks(prep: PreparedSolve, lms: LandmarkState,
         t = torch.where(use_pred, t, refined.t)
     res = res._replace(q=q, t=t, T_curr_prev=se3.invert_transform(
         se3.make_transform(q, t)))
-    L = prep.chain.shape[0]
-    if L < k_capacity:
-        res = res._replace(
-            inliers=_scatter(res.inliers & res.chain_valid, prep.sel,
-                             k_capacity),
-            chain_valid=_scatter(res.chain_valid, prep.sel, k_capacity))
-    return res, scatter_landmarks(pts_lanes, len_lanes, prep.sel, k_capacity)
+    return (_masks_to_slots(res, prep.sel, k_capacity),
+            scatter_landmarks(pts_lanes, len_lanes, prep.sel, k_capacity))

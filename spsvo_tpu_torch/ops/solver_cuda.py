@@ -21,7 +21,11 @@ single-batch route) only for CPU tensors; it never falls back.
 `fused_scan_packed` is the kernel's second entry: the online hybrid's whole
 landmark scan (per pair: landmark substitution, the tile's splice, the
 solve, fusion and the scatter to keypoint slots) in one launch, its plain
-version `fused_scan_plain` the same steps op by op.
+version `fused_scan_plain` the same steps op by op. `fused_frame_packed`
+is the third: one frame's landmark solve (substitution, the hypotheses
+drawn on the substituted prep, the solve, fusion and the scatter), for
+`solver.solve_with_landmarks` per frame (`fused_frame`), its plain
+version `fused_frame_plain`.
 """
 
 from __future__ import annotations
@@ -287,6 +291,38 @@ def _tile_prep(pts: torch.Tensor, inter_sel: torch.Tensor,
                          inter_sel)
 
 
+def _landmark_solve_plain(pts: torch.Tensor, inter_sel: torch.Tensor,
+                          sel: torch.Tensor, lms: solver.LandmarkState,
+                          scal: torch.Tensor, cfg: VOConfig, k_capacity: int,
+                          hyp: Optional[torch.Tensor] = None,
+                          gumbel: Optional[torch.Tensor] = None,
+                          gls_lanes: Optional[int] = None):
+    """One landmark solve on a (16, Lp) tile packed from the unsubstituted
+    prep, op by op: `solver.substitute_landmarks`, the hypotheses (`hyp`,
+    or sampled from `gumbel` on the substituted prep), `splice_points`,
+    `fused_solve_plain` with the GLS pass, `solver.fuse_landmarks` and
+    `solver.scatter_landmarks`. Returns (out (20,), inl (Lp,), hyp (S, 12),
+    the landmarks in `k_capacity` slots)."""
+    p = landmark_solve_params(cfg)
+    P_l, P_r = scal[8:20].reshape(3, 4), scal[20:32].reshape(3, 4)
+    prep = _tile_prep(pts, inter_sel, sel)
+    prep2, lane_len = solver.substitute_landmarks(prep, lms)
+    w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(
+        torch.float32) if p.weighted_lm else None)
+    if hyp is None:
+        hyp = precompute_hypotheses(prep2, cfg, gumbel=gumbel)
+    out, inl = fused_solve_plain(
+        splice_points(pts, prep2.pts3d_prev, w_row)[None], hyp[None],
+        scal[None], p, gls_lanes=gls_lanes if p.weighted_lm else None)
+    out, inl = out[0], inl[0]
+    use_pred = ~(out[15] > 0) | (out[16] > 0)
+    inliers = (inl[:sel.shape[-1]] > 0) & prep.chain
+    pts_l, len_l, _ = solver.fuse_landmarks(
+        out[0:4], out[4:7], use_pred, inliers, prep2, lane_len, P_l, P_r, cfg)
+    return out, inl, hyp, solver.scatter_landmarks(pts_l, len_l, sel.long(),
+                                                   k_capacity)
+
+
 def fused_scan_plain(pts: torch.Tensor, hyp: torch.Tensor,
                      inter_sel: torch.Tensor, sel: torch.Tensor,
                      scal0: torch.Tensor, cfg: VOConfig, k_capacity: int
@@ -298,26 +334,12 @@ def fused_scan_plain(pts: torch.Tensor, hyp: torch.Tensor,
     carry of the prior and the frame count in the scalars. Bit for bit the
     online hybrid's per-pair `scan_step` loop in the landmark-kernel
     branch without `landmark_refine`."""
-    p = landmark_solve_params(cfg)
     lms = solver.init_landmarks(k_capacity, pts.device)
-    P_l, P_r = scal0[8:20].reshape(3, 4), scal0[20:32].reshape(3, 4)
     scal, outs, inls = scal0, [], []
     for f in range(pts.shape[0]):
-        prep = _tile_prep(pts[f], inter_sel[f], sel[f])
-        prep2, lane_len = solver.substitute_landmarks(prep, lms)
-        w_row = (torch.clamp(lane_len, max=cfg.landmark_max_age).to(
-            torch.float32) if p.weighted_lm else None)
-        out, inl = fused_solve_plain(
-            splice_points(pts[f], prep2.pts3d_prev, w_row)[None],
-            hyp[f][None], scal[None], p)
-        out, inl = out[0], inl[0]
-        use_pred = ~(out[15] > 0) | (out[16] > 0)
-        inliers = (inl[:sel.shape[-1]] > 0) & prep.chain
-        pts_l, len_l, _ = solver.fuse_landmarks(
-            out[0:4], out[4:7], use_pred, inliers, prep2, lane_len, P_l, P_r,
-            cfg)
-        lms = solver.scatter_landmarks(pts_l, len_l, sel[f].long(),
-                                       k_capacity)
+        out, inl, _, lms = _landmark_solve_plain(
+            pts[f], inter_sel[f], sel[f], lms, scal, cfg, k_capacity,
+            hyp=hyp[f])
         scal = torch.cat([out[7:14], scal[7:8] + 1, scal[8:]])
         outs.append(out)
         inls.append(inl)
@@ -395,6 +417,150 @@ def fused_scan_packed(pts: torch.Tensor, hyp: torch.Tensor,
     return out, inl, solver.LandmarkState(lm_pts, lm_len)
 
 
+def fused_frame_plain(pts: torch.Tensor, inter_sel: torch.Tensor,
+                      sel: torch.Tensor, gumbel: torch.Tensor,
+                      lms: solver.LandmarkState, scal: torch.Tensor,
+                      cfg: VOConfig, k_capacity: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 solver.LandmarkState]:
+    """Plain version of the frame entry on any device: the ops of
+    `solver.solve_with_landmarks`'s per-frame fused branch in their order
+    (`substitute_landmarks`, `precompute_hypotheses` on the substituted
+    prep, `fused_solve_plain` with the GLS pass over the L lanes,
+    `fuse_landmarks`, `scatter_landmarks`) on the tile of the
+    unsubstituted prep."""
+    return _landmark_solve_plain(pts, inter_sel, sel, lms, scal, cfg,
+                                 k_capacity, gumbel=gumbel,
+                                 gls_lanes=sel.shape[-1])
+
+
+def _frame_lib():
+    fn = _build.load("fused_solve").fused_frame_launch
+    if fn.argtypes is None:
+        P, I, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fn.argtypes = [P] * 12 + [I] * 4 + [Fl] * 7 + [I] * 4 + [Fl, I, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def fused_frame_packed(pts: torch.Tensor, inter_sel: torch.Tensor,
+                       sel: torch.Tensor, gumbel: torch.Tensor,
+                       lms: solver.LandmarkState, scal: torch.Tensor,
+                       cfg: VOConfig, k_capacity: int
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  solver.LandmarkState]:
+    """The frame entry: one frame's landmark solve from pts (16, Lp), the
+    tile packed from the unsubstituted prep, inter_sel and sel (L,) its
+    lanes' previous-frame and keypoint slots, gumbel (S, L) the sampling
+    noise, `lms` the carried landmarks in `k_capacity` slots and scal
+    (32,) (`pack_scalars`). Returns (out (20,), inl (Lp,), hyp (S, 12)
+    the hypotheses drawn on the substituted prep, the fused landmarks in
+    `k_capacity` slots): out's rows as `fused_solve_packed`'s. CPU tensors
+    take the plain version."""
+    dev = pts.device
+    if dev.type == "cpu":
+        return fused_frame_plain(pts, inter_sel, sel, gumbel, lms, scal, cfg,
+                                 k_capacity)
+    if dev.type != "cuda":
+        raise ValueError(f"fused_frame: unsupported device {dev}")
+    rows, Lp = pts.shape
+    L = sel.shape[-1]
+    S = gumbel.shape[0]
+    if rows != 16 or Lp % 128 or not 0 < Lp <= 512:
+        raise ValueError(f"pts must be (16, Lp) with Lp a multiple of 128 "
+                         f"up to 512, got {tuple(pts.shape)}")
+    for name, x in (("inter_sel", inter_sel), ("sel", sel)):
+        if tuple(x.shape) != (L,) or not 3 <= L <= Lp or x.device != dev:
+            raise ValueError(f"{name} must be (L,) with 3 <= L <= {Lp} on "
+                             f"{dev}, got {tuple(x.shape)}")
+    if tuple(gumbel.shape) != (S, L) or S <= 0:
+        raise ValueError(f"gumbel must be (S, {L}), got "
+                         f"{tuple(gumbel.shape)}")
+    if not 0 < k_capacity <= SCAN_MAX_K or tuple(lms.pts3d.shape) != (
+            k_capacity, 3) or tuple(lms.length.shape) != (k_capacity,):
+        raise ValueError(f"landmarks must be ({k_capacity}, 3) and "
+                         f"({k_capacity},) with at most {SCAN_MAX_K} slots")
+    if tuple(scal.shape) != (32,):
+        raise ValueError(f"scal must be (32,), got {tuple(scal.shape)}")
+    for name, x in (("pts", pts), ("gumbel", gumbel), ("scal", scal),
+                    ("landmark points", lms.pts3d)):
+        if x.dtype != torch.float32 or not x.is_contiguous() or x.device != dev:
+            raise ValueError(f"{name} must be contiguous float32 on {dev}")
+    if lms.length.dtype != torch.int32 or not lms.length.is_contiguous():
+        raise ValueError("landmark lengths must be contiguous int32")
+    p = landmark_solve_params(cfg)
+    inter32 = inter_sel.to(torch.int32).contiguous()
+    sel64 = sel.to(torch.int64).contiguous()
+    hyp = torch.empty((S, 12), dtype=torch.float32, device=dev)
+    out = torch.empty((N_OUT,), dtype=torch.float32, device=dev)
+    inl = torch.empty((Lp,), dtype=torch.float32, device=dev)
+    lm_pts = torch.empty((k_capacity, 3), dtype=torch.float32, device=dev)
+    lm_len = torch.empty((k_capacity,), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gate = float(cfg.landmark_gate_px)
+    with torch.cuda.device(dev):
+        err = _frame_lib()(pts.data_ptr(), inter32.data_ptr(),
+                           sel64.data_ptr(), gumbel.data_ptr(),
+                           lms.pts3d.data_ptr(), lms.length.data_ptr(),
+                           scal.data_ptr(), hyp.data_ptr(), out.data_ptr(),
+                           inl.data_ptr(), lm_pts.data_ptr(),
+                           lm_len.data_ptr(), S, Lp, L, k_capacity, p.thr2,
+                           p.reproj_threshold, p.huber_delta, p.min_inliers,
+                           p.time_interval, p.max_acceleration,
+                           p.ignore_frame_count, p.degree, p.lm_iters,
+                           p.polish_iters, int(p.weighted_lm), gate * gate,
+                           int(cfg.landmark_max_age), stream)
+    _build.check_status(err, "fused_frame")
+    _build.count_launch("fused_frame", (S, Lp, int(p.weighted_lm)))
+    return out, inl, hyp, solver.LandmarkState(lm_pts, lm_len)
+
+
+def fused_frame(prep: PreparedSolve, lms: solver.LandmarkState,
+                P_l: torch.Tensor, P_r: torch.Tensor, q_pred: torch.Tensor,
+                t_pred: torch.Tensor, frame_count, cfg: VOConfig,
+                k_capacity: int, *, gumbel: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[SolveResult, solver.LandmarkState]:
+    """One frame's landmark solve (`solver.solve_with_landmarks` where
+    `solver.fused_frame_route` holds) as ONE launch of kernel 2's frame
+    entry: substitution, the hypotheses on the substituted prep, the solve
+    with its GLS pass, fusion and the scatter to `k_capacity` slots. `prep`
+    is one frame's (no leading dimension); `gumbel` (S, L) as for
+    `solve_prepared`, None draws it from `generator` as the sampling
+    would. Masks stay at lane level."""
+    L = prep.chain.shape[-1]
+    if gumbel is None:
+        gumbel = pnp.gumbel_noise((cfg.ransac_iterations, L), generator,
+                                  prep.chain.device)
+    out, inl, _, new = fused_frame_packed(
+        pack_points(prep), prep.inter_sel, prep.sel,
+        gumbel.to(prep.chain.device, torch.float32).contiguous(), lms,
+        pack_scalars(q_pred, t_pred, frame_count, P_l, P_r).contiguous(),
+        cfg, k_capacity)
+    return solve_result(out, inl, prep, cfg), new
+
+
+def solve_result(out: torch.Tensor, inl: torch.Tensor, prep: PreparedSolve,
+                 cfg: VOConfig) -> SolveResult:
+    """The kernel's out row(s) (..., 20) and inlier row(s) (..., Lp) as a
+    `SolveResult` of `prep`'s lanes, the pose's inverse computed once."""
+    L = prep.chain.shape[-1]
+    q, t = out[..., 0:4], out[..., 4:7]
+    chain = prep.chain
+    return SolveResult(
+        q=q, t=t, T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
+        q_pred=out[..., 7:11], t_pred=out[..., 11:14],
+        chain_valid=chain, inliers=(inl[..., :L] > 0) & chain,
+        num_chain=out[..., 19].to(torch.int32),
+        num_inliers=out[..., 14].to(torch.int32),
+        pnp_success=out[..., 15] > 0, accel_anomaly=out[..., 16] > 0,
+        lm_improved=out[..., 17] > 0,
+        n_ransac_hypotheses=torch.full(out.shape[:-1], cfg.ransac_iterations,
+                                       dtype=torch.int32, device=out.device),
+        chain_truncated=prep.num_chain_total > L,
+        prior_winner=out[..., 18] > 0)
+
+
 def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
                 P_r: torch.Tensor, q_pred: torch.Tensor, t_pred: torch.Tensor,
                 frame_count, cfg: VOConfig,
@@ -438,17 +604,4 @@ def fused_solve(hyp: torch.Tensor, prep: PreparedSolve, P_l: torch.Tensor,
                    gls_lanes=None if lane_weights is None else L)
     if not lead:
         out, inl = out[0], inl[0]
-    q, t = out[..., 0:4], out[..., 4:7]
-    chain = prep.chain
-    return SolveResult(
-        q=q, t=t, T_curr_prev=se3.invert_transform(se3.make_transform(q, t)),
-        q_pred=out[..., 7:11], t_pred=out[..., 11:14],
-        chain_valid=chain, inliers=(inl[..., :L] > 0) & chain,
-        num_chain=out[..., 19].to(torch.int32),
-        num_inliers=out[..., 14].to(torch.int32),
-        pnp_success=out[..., 15] > 0, accel_anomaly=out[..., 16] > 0,
-        lm_improved=out[..., 17] > 0,
-        n_ransac_hypotheses=torch.full(lead, cfg.ransac_iterations,
-                                       dtype=torch.int32, device=out.device),
-        chain_truncated=prep.num_chain_total > L,
-        prior_winner=out[..., 18] > 0)
+    return solve_result(out, inl, prep, cfg)

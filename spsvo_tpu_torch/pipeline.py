@@ -42,6 +42,7 @@ from typing import (Any, Callable, Dict, Iterable, List, NamedTuple, Optional,
 import numpy as np
 import torch
 
+from spsvo_tpu_torch import _build
 from spsvo_tpu_torch.config import Precision, SelectorType, VOConfig
 from spsvo_tpu_torch.models import zoo
 from spsvo_tpu_torch.ops import image as image_ops
@@ -574,6 +575,11 @@ def apply_pose_update(vo, T: np.ndarray) -> np.ndarray:
     return T
 
 
+def _frame_entry_launches() -> int:
+    """Kernel 2's frame-entry launches so far, run or captured."""
+    return _build.launches["fused_frame"] + _build.captured["fused_frame"]
+
+
 class OnlineVO:
     """The per-frame API that `VisualOdometry` and
     `frontend_classic.ClassicVisualOdometry` share: the carried state, the
@@ -596,7 +602,10 @@ class OnlineVO:
     program's `spsvo.frame.launch` (or `spsvo.capture`),
     `spsvo.frame.read`, `spsvo.frame.pose` and, under `want_diagnostics`,
     `spsvo.frame.diagnostics`; the program's stamps are read after the
-    frame's host read."""
+    frame's host read. A call counts its solve under `frame_solves.fused`
+    or `frame_solves.stepped`, by the route its landmark solve took:
+    kernel 2's frame entry (launched, captured or replayed during the
+    call) or the solve op by op around the kernels."""
 
     desc_dim = 256
 
@@ -634,6 +643,16 @@ class OnlineVO:
 
     def current_pose(self) -> np.ndarray:
         return self.world_T_cam.copy()
+
+    @staticmethod
+    def _count_solve(entry_before: int) -> None:
+        """The call's solve under its route: kernel 2's frame entry ran
+        (`_build`'s launches, replays included, and captures) since it
+        counted `entry_before`, or not."""
+        if profiling.enabled():
+            fused = _frame_entry_launches() > entry_before
+            profiling.count("frame_solves.fused", int(fused))
+            profiling.count("frame_solves.stepped", int(not fused))
 
     def _run(self, img_l, img_r, P_l, P_r, gumbel, split: bool = False,
              on_stage: Optional[Callable] = None) -> VOStepOutput:
@@ -679,11 +698,13 @@ class OnlineVO:
         (`info["output"]`)."""
         self.frames += 1
         with profiling.span("spsvo.frame", request=self.frames):
+            entry = _frame_entry_launches()
             t0 = time.perf_counter()
             out = self._run(img_l, img_r, P_l, P_r, gumbel)
             with profiling.span("spsvo.frame.read"):
                 T = out.T_curr_prev.cpu().numpy().astype(np.float64)
             t1 = time.perf_counter()
+            self._count_solve(entry)
             profiling.collect()
             with profiling.span("spsvo.frame.pose"):
                 T = apply_pose_update(self, T)
@@ -713,8 +734,10 @@ class OnlineVO:
                     reads.append(STAGE_READS[k](carry).cpu())
                 stamps.append(time.perf_counter())
 
+            entry = _frame_entry_launches()
             out = self._run(img_l, img_r, P_l, P_r, gumbel, split=True,
                             on_stage=close)
+            self._count_solve(entry)
             profiling.collect()
             with profiling.span("spsvo.frame.pose"):
                 T = apply_pose_update(self,

@@ -336,8 +336,9 @@ def test_traced_entry_points_record_their_spans():
     `process_instrumented` record the frame's spans under the frame's
     request id, and an `OnlineHybrid` call the segment's under the call's;
     the poses and the world are those of an untraced run. The CPU records
-    no stamps, and of the counters only the hybrid's scan pairs by route
-    (its two pairs stepped, none fused)."""
+    no stamps, and of the counters only the routes: the hybrid's scan pairs
+    (its two pairs stepped, none fused) and the frames' landmark solves
+    (both stepped, none through kernel 2's frame entry)."""
     from spsvo_tpu_torch.parallel.sharding import build_online_hybrid
     from spsvo_tpu_torch.utils import profiling
     cfg = _tcfg()
@@ -379,7 +380,8 @@ def test_traced_entry_points_record_their_spans():
                        ("spsvo.segment.launch", "spsvo.segment")]}
     assert hybrid.calls == 2 and vo.frames == 2
     assert snap["stamps"] == [] and snap["counters"] == {
-        "scan_pairs.fused": 0, "scan_pairs.stepped": 2}
+        "scan_pairs.fused": 0, "scan_pairs.stepped": 2,
+        "frame_solves.fused": 0, "frame_solves.stepped": 2}
 
 
 # ---- on the card ----------------------------------------------------------
@@ -441,10 +443,12 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
     capture with tracing on holds one conditional node per guarded
     iteration (none in the flagship's fused composition), its results
     those of the untraced one, and its replays run fewer LM bodies than
-    it holds. The flagship's landmark solve, GLS pass included, is kernel
-    2's weighted launch alone: once per replay, at most 1,600 kernel nodes
-    in the frame's graph, its pose within the kernel's tolerances of the
-    fused solver's plain version from the same state and inputs."""
+    it holds. The flagship's landmark solve, substitution to scatter with
+    the GLS pass, is one launch of kernel 2's frame entry, weighted, and no
+    launch of its per-frame entry: once per replay, at most 700 kernel
+    nodes in the frame's graph, its pose within the kernel's tolerances of
+    the fused solver's plain version from the same state and inputs; every
+    traced call counts its solve as fused."""
     from spsvo_tpu_torch import _build
     from spsvo_tpu_torch.utils import profiling
     dev = _cuda()
@@ -471,7 +475,7 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
     if case != "laptop":
         fused = tsolver.fused_composition(cfg)
         assert launched[-1] == {"match_nn": 1, "conv_bf16": 12,
-                                **({"fused_solve": 1} if fused else {})}
+                                **({"fused_frame": 1} if fused else {})}
     state = init_state(cfg, dev)
     with torch.no_grad():
         for f, (il, ir) in enumerate(frames):
@@ -487,13 +491,14 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
                     plain = vo_step(vo.model, state, imgs, Pl2, Pr2,
                                     cfg=cfg, gumbel=g)[1]
                     assert "fused_solve" not in _build.launches
+                    assert "fused_frame" not in _build.launches
             _build.reset_launches()
             state, out = vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg,
                                  gumbel=g)
             assert dict(_build.launches) == launched[f], f
             _assert_outputs_equal(outs[f], out, f)
             if case == "flagship":
-                assert _build.shapes["fused_solve"][3] == 1  # weighted LM
+                assert _build.shapes["fused_frame"][2] == 1  # weighted LM
                 T_k, T_p = (se3.invert_transform(o.T_curr_prev)
                             for o in (out, plain))
                 torch.testing.assert_close(
@@ -528,9 +533,12 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
     if case == "flagship":
         assert c["graph_conditional_nodes.whole"] == 0
         assert bodies == {"ransac": 0, "polish": 0, "lm": 0}
-        assert c["graph_kernel_nodes.whole"] <= 1600
-        assert snap["launches"]["fused_solve"] == c["replays.whole"] == n - 1
+        assert c["graph_kernel_nodes.whole"] <= 700
+        assert snap["launches"]["fused_frame"] == c["replays.whole"] == n - 1
+        assert "fused_solve" not in snap["launches"]
+        assert c["frame_solves.fused"] == n and c["frame_solves.stepped"] == 0
         return
+    assert c["frame_solves.fused"] == 0 and c["frame_solves.stepped"] == n
     # the LM: the solve's, and the GLS pass's where landmarks are fused
     n_chunks = pnp.chunking(cfg.ransac_chunk, cfg.ransac_iterations)[1]
     n_lm = 2 if cfg.landmark_fusion and cfg.landmark_weighted_lm else 1
@@ -546,11 +554,88 @@ def test_cuda_frame_graph_equals_eager(case, monkeypatch):
 
 
 @pytest.mark.gpu
+def test_cuda_frame_entry_equals_the_op_by_op_composition(monkeypatch):
+    """On the card, on the frame test's drive (the flagship, eager steps
+    from device-preprocessed frames): each frame's landmark solve through
+    kernel 2's frame entry against the composition it replaced (the
+    hypotheses by PyTorch ops on the substituted prep, the per-frame
+    entry, fusion and the scatter by PyTorch ops). The hypotheses, the
+    winner (first best inlier count over both sets), the inlier row, the
+    counts and the landmarks are equal; the pose within the kernel's
+    tolerances. Prints the largest hypothesis difference."""
+    from spsvo_tpu_torch import _build
+    from spsvo_tpu_torch.ops import solver_cuda
+    dev = _cuda()
+    n = 4
+    frames, _, P_l, P_r = tsyn.synthetic_corridor(
+        np.random.default_rng(42), n_frames=n, h=375, w=1242)
+    cfg = _frame_case("flagship")
+    vo = VisualOdometry(cfg, device=dev)
+    calls = []
+    entry = solver_cuda.fused_frame
+
+    def recorded(prep, lms, *args, **kw):
+        calls.append((prep, tsolver.LandmarkState(*(x.clone() for x in lms)),
+                      args, kw))
+        return entry(prep, lms, *args, **kw)
+    monkeypatch.setattr(solver_cuda, "fused_frame", recorded)
+    state = init_state(cfg, dev)
+    with torch.no_grad():
+        for f, (il, ir) in enumerate(frames):
+            imgs, Pl2, Pr2 = image_ops.preprocess_stereo_pair(
+                *(t.to(dev) for t in _raw(il, ir, P_l, P_r)),
+                dst_h=cfg.image_height, dst_w=cfg.image_width)
+            g = pnp.gumbel_noise(tsolver.gumbel_shape(cfg),
+                                 torch.Generator(dev).manual_seed(f), dev)
+            state = vo_step(vo.model, state, imgs, Pl2, Pr2, cfg=cfg,
+                            gumbel=g)[0]
+    assert len(calls) == n
+    worst = 0.0
+    for prep, lms, args, kw in calls:
+        P_l2, P_r2, q0, t0, fc, _, k = args
+        scal = solver_cuda.pack_scalars(q0, t0, fc, P_l2, P_r2).contiguous()
+        _build.reset_launches()
+        out, inl, hyp, got = solver_cuda.fused_frame_packed(
+            solver_cuda.pack_points(prep), prep.inter_sel, prep.sel,
+            kw["gumbel"], lms, scal, cfg, k)
+        assert dict(_build.launches) == {"fused_frame": 1}
+        prep2, _ = tsolver.substitute_landmarks(prep, lms)
+        hyp_c = solver_cuda.precompute_hypotheses(prep2, cfg,
+                                                  gumbel=kw["gumbel"])
+        with monkeypatch.context() as m:
+            m.setattr(tsolver, "fused_frame_route", lambda *_: False)
+            _build.reset_launches()
+            want, want_lms = tsolver.solve_with_landmarks(
+                prep, lms, P_l2, P_r2, q0, t0, fc, cfg, k_capacity=k,
+                gumbel=kw["gumbel"])
+            assert dict(_build.launches) == {"fused_solve": 1}
+        torch.cuda.synchronize()
+        worst = max(worst, (hyp - hyp_c).abs().max().item())
+        winner = [int(torch.argmax(pnp._score_mask(
+            h[:, :9].reshape(-1, 3, 3), h[:, 9:], prep.pts3d_curr,
+            prep.uv_prev_l, prep.chain, P_l2,
+            cfg.ransac_reproj_threshold ** 2).sum(-1))) for h in (hyp, hyp_c)]
+        assert winner[0] == winner[1]
+        res = tsolver._masks_to_slots(
+            solver_cuda.solve_result(out, inl, prep, cfg), prep.sel, k)
+        for name in ("inliers", "chain_valid", "num_inliers", "num_chain",
+                     "pnp_success", "accel_anomaly", "prior_winner"):
+            assert torch.equal(getattr(res, name), getattr(want, name)), name
+        torch.testing.assert_close(res.q, want.q, atol=Q_ATOL, rtol=0)
+        torch.testing.assert_close(res.t, want.t, atol=T_ATOL, rtol=0)
+        assert torch.equal(got.length, want_lms.length)
+        assert torch.equal(got.pts3d, want_lms.pts3d)
+        assert torch.equal(hyp, hyp_c)
+    print(f"largest hypothesis difference: {worst}")
+
+
+@pytest.mark.gpu
 def test_cuda_classic_frame_graph_equals_eager(monkeypatch):
     """On the card, the device ORB route behind the flagship solve at the
     native 375x1242 (chip_smoke.py's `classic_cfg`): the captured per-frame
     program equals the eager step bit for bit, one replay per frame after
-    the first, kernel 2 once per frame and kernel 1 never."""
+    the first, kernel 2's frame entry once per frame and kernel 1
+    never."""
     from spsvo_tpu_torch import _build
     dev = _cuda()
     n = 3
@@ -574,7 +659,7 @@ def test_cuda_classic_frame_graph_equals_eager(monkeypatch):
                              gumbel=noise[f])
         torch.cuda.synchronize()
         assert replays.n - before == (f > 0)
-        assert _build.launches == {"fused_solve": 1}
+        assert _build.launches == {"fused_frame": 1}
         with torch.no_grad():
             imgs, Pl2, Pr2 = tfc.device_prepare(
                 torch.stack([torch.as_tensor(il), torch.as_tensor(ir)]

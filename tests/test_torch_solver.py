@@ -411,3 +411,130 @@ def test_solve_prepared_matches_jax(rng):
     assert tsolver.pallas_solver_eligible(tcfg, "cuda")
     assert not tsolver.pallas_solver_eligible(
         dataclasses.replace(tcfg, ransac_chunk=64), "cuda")
+
+
+FRAME_ENTRY_CASES = {
+    # (points, prior translation offset, share of slots with a carried
+    # track, GLS pass): a frame that passes both gates, one with too few
+    # points for PnP, one whose prior lies 2 m off, one with no carried
+    # tracks, one with two chain lanes (the third sample is the lowest
+    # -inf lane), one without the GLS pass
+    "normal": (150, 0.0, 0.33, True),
+    "pnp_failure": (5, 0.0, 0.33, True),
+    "accel_anomaly": (150, 2.0, 0.33, True),
+    "no_tracks": (150, 0.0, 0.0, True),
+    "two_lanes": (2, 0.0, 0.33, True),
+    "gls_off": (150, 0.0, 0.33, False),
+}
+
+
+def _frame_entry_case(case, k=256, lanes=128):
+    """One frame's landmark solve inputs at k keypoint slots compacted to
+    `lanes` solver lanes: a synthetic frame's chain on shuffled slots,
+    each keypoint's previous-frame slot a permutation of the slots, the
+    carried landmarks its previous triangulation moved ~2 cm."""
+    from spsvo_tpu_torch.config import VOConfig
+    n, dt, share, gls = FRAME_ENTRY_CASES[case]
+    rng = np.random.default_rng(list(FRAME_ENTRY_CASES).index(case) + 40)
+    cfg = VOConfig(model_name_prefix="superpoint_pretrained",
+                   max_keypoints=k, ransac_iterations=64, ransac_chunk=0,
+                   lm_unroll=6, solve_slots=lanes, landmark_fusion=True,
+                   landmark_weighted_lm=gls)
+    data, _, _ = solver_frame(rng, n=n, outlier_frac=0.15, k_pad=k)
+    perm = rng.permutation(k)
+    d = {name: v[perm] for name, v in data.items()}
+    prev_slot = rng.permutation(k)
+    valid = _t(d["valid"])
+    inputs = tsolver.SolveInputs(
+        _t(d["uv_curr_l"]), _t(d["uv_curr_r"]), _t(d["uv_prev_l"]),
+        _t(d["uv_prev_r"]), valid, torch.where(valid, _t(prev_slot), -1))
+    prep = tsolver.prepare_solve(inputs, _t(P_L), _t(P_R), cfg)
+    lm_pts = np.zeros((k, 3), np.float32)
+    lm_pts[prev_slot] = d["pts3d_prev"] + 0.02 * rng.normal(size=(k, 3))
+    lms = tsolver.LandmarkState(
+        _t(lm_pts.astype(np.float32)),
+        _t(np.where(rng.random(k) < share, rng.integers(1, 40, k), 0
+                    ).astype(np.int32)))
+    prior = (torch.tensor([0.0, 0.0, 0.0, 1.0]),
+             torch.tensor([0.05, 0.02, -1.0 + dt]),
+             torch.tensor(12, dtype=torch.int32))
+    gumbel = _t(rng.gumbel(size=tsolver.gumbel_shape(cfg)).astype(
+        np.float32))
+    return cfg, prep, lms, prior, gumbel
+
+
+@pytest.mark.parametrize("case", list(FRAME_ENTRY_CASES))
+def test_fused_frame_plain_equals_the_op_by_op_composition(case):
+    """The frame entry's plain version, on the tile of the unsubstituted
+    prep (the route the CPU takes for `fused_frame_packed`), is bit for
+    bit the per-frame landmark solve it replaces on the card: its
+    hypotheses `precompute_hypotheses` on the substituted prep, its
+    result `solve_with_landmarks`'s (the CPU keeps that composition) with
+    the masks and landmarks in their slots. With the noise drawn from a
+    generator, `solver_cuda.fused_frame` draws what the sampling draws."""
+    from spsvo_tpu_torch.ops import solver_cuda
+    cfg, prep, lms, prior, gumbel = _frame_entry_case(case)
+    k = lms.length.shape[0]
+    P_l, P_r = _t(P_L), _t(P_R)
+    want, want_lms = tsolver.solve_with_landmarks(
+        prep, lms, P_l, P_r, *prior, cfg, k_capacity=k, gumbel=gumbel)
+    out, inl, hyp, got_lms = solver_cuda.fused_frame_packed(
+        solver_cuda.pack_points(prep), prep.inter_sel, prep.sel, gumbel, lms,
+        solver_cuda.pack_scalars(*prior, P_l, P_r), cfg, k)
+    got = tsolver._masks_to_slots(solver_cuda.solve_result(out, inl, prep,
+                                                           cfg), prep.sel, k)
+    prep2, _ = tsolver.substitute_landmarks(prep, lms)
+    assert torch.equal(hyp, solver_cuda.precompute_hypotheses(
+        prep2, cfg, gumbel=gumbel))
+    for name in want._fields:
+        assert torch.equal(getattr(got, name), getattr(want, name)), name
+    assert torch.equal(got_lms.pts3d, want_lms.pts3d)
+    assert torch.equal(got_lms.length, want_lms.length)
+    n_chain = int(prep.chain.sum())
+    assert bool(want.pnp_success) == (case not in ("pnp_failure",
+                                                   "two_lanes"))
+    if bool(want.pnp_success):
+        assert bool(want.accel_anomaly) == (case == "accel_anomaly")
+    assert (n_chain < 3) == (case == "two_lanes")
+    assert (int((lms.length > 0).sum()) == 0) == (case == "no_tracks")
+    if case == "normal":
+        g = torch.Generator().manual_seed(5)
+        res, new = solver_cuda.fused_frame(prep, lms, P_l, P_r, *prior, cfg,
+                                           k, generator=g)
+        g.manual_seed(5)
+        ref, ref_lms = tsolver.solve_with_landmarks(
+            prep, lms, P_l, P_r, *prior, cfg, k_capacity=k, generator=g)
+        res = tsolver._masks_to_slots(res, prep.sel, k)
+        for name in ref._fields:
+            assert torch.equal(getattr(res, name), getattr(ref, name)), name
+        assert torch.equal(new.pts3d, ref_lms.pts3d)
+
+
+def test_fused_frame_route_holds_for_the_flagship_on_cuda_alone():
+    """Kernel 2's frame entry takes the flagship's per-frame landmark solve
+    on a CUDA device alone: not on the CPU, not with `landmark_refine`, the
+    adaptive RANSAC and while-loop LM, without landmark fusion, beyond the
+    kernel's slots, or for a prep with a leading pair dimension."""
+    from spsvo_tpu_torch import presets
+    from spsvo_tpu_torch.ops import solver_cuda
+    flagship = presets.flagship_tpu()
+    assert tsolver.fused_frame_route(flagship, "cuda")
+    assert not tsolver.fused_frame_route(flagship, "cpu")
+    for cfg in (dataclasses.replace(flagship, landmark_refine=True),
+                dataclasses.replace(flagship, ransac_chunk=16, lm_unroll=0),
+                presets.superpoint_laptop(),
+                dataclasses.replace(flagship, landmark_fusion=False),
+                dataclasses.replace(flagship,
+                                    max_keypoints=2 * solver_cuda.SCAN_MAX_K)):
+        assert not tsolver.fused_frame_route(cfg, "cuda")
+    k, lanes = flagship.max_keypoints, flagship.solve_slots
+    prep = tsolver.PreparedSolve(
+        *(torch.zeros((lanes, 3)),) * 2, *(torch.zeros((lanes, 2)),) * 4,
+        torch.ones(lanes, dtype=torch.bool), torch.arange(lanes),
+        torch.tensor(lanes), torch.arange(lanes))
+    assert tsolver.fused_frame_route(flagship, "cuda", prep, k)
+    assert not tsolver.fused_frame_route(flagship, "cpu", prep, k)
+    assert not tsolver.fused_frame_route(
+        flagship, "cuda", prep, 2 * solver_cuda.SCAN_MAX_K)
+    batched = tsolver.PreparedSolve(*(x[None] for x in prep))
+    assert not tsolver.fused_frame_route(flagship, "cuda", batched, k)

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the PyTorch port's two hand-written kernels from one source tree.
+"""Time the PyTorch port's kernels 1 and 2 from one source tree.
 
     python3 tools/torch_kernel_ab.py --root DIR [--label NAME]
 
@@ -8,7 +8,13 @@ unpacked with `git archive`), builds its kernels, and times, at the
 per-frame main-path shapes on one CUDA device:
 
   match_nn     B=2, K0=K1=512, D=256, bf16, the query broadcast;
-  fused_solve  F=1, S=256, L=128, the flagship config's parameters;
+  fused_solve  F=1, S=256, L=128, the flagship config's parameters, and
+               with the GLS pass ("fused_solve_gls");
+  fused_frame  kernel 2's frame entry where the tree has it: the same
+               frame with 512 keypoint slots, a third of them carrying a
+               track, sampling, solve, GLS pass, fusion and scatter;
+  fused_scan   kernel 2's scan entry: the same frame as 31 pairs of a
+               segment, each pair's lanes on the previous pair's slots;
 
 each as device time per launch from a CUDA graph of 100 launches
 ("graph_ms") and as an eager loop of 200 calls ("call_ms", host included),
@@ -77,6 +83,38 @@ def main() -> None:
     solve = lambda: solver_cuda.fused_solve_packed(  # noqa: E731
         pts, h, scal, p)
 
+    lane_w = torch.as_tensor(rng.integers(1, 12, 128), dtype=torch.float32,
+                             device=dev)
+    pts_w = solver_cuda.pack_points(prep, lane_w)[None]
+    p_w = solver_cuda.solve_params(cfg, weighted_lm=True)
+    solve_gls = lambda: solver_cuda.fused_solve_packed(  # noqa: E731
+        pts_w, h, scal, p_w)
+    timed = {"fused_solve_gls": solve_gls}
+    slots = torch.arange(128, device=dev) * 4
+    inter = torch.where(prep.chain, slots, -1).to(torch.int32)
+    pairs = 31
+    scan_in = (pts.expand(pairs, -1, -1).contiguous(),
+               h.expand(pairs, -1, -1).contiguous(),
+               inter.expand(pairs, -1).contiguous(),
+               slots.expand(pairs, -1).contiguous(), scal[0].contiguous())
+    timed["fused_scan"] = lambda: solver_cuda.fused_scan_packed(
+        *scan_in, cfg, 512)
+    if hasattr(solver_cuda, "fused_frame_packed"):
+        from spsvo_tpu_torch.ops.solver import LandmarkState
+        k_cap = 512
+        lm_pts = torch.zeros((k_cap, 3), device=dev)
+        lm_pts[slots] = prep.pts3d_prev + torch.as_tensor(
+            rng.normal(0, 0.02, (128, 3)), dtype=torch.float32, device=dev)
+        lms = LandmarkState(
+            lm_pts,
+            torch.as_tensor(np.where(rng.random(k_cap) < 0.33,
+                                     rng.integers(1, 40, k_cap), 0),
+                            dtype=torch.int32, device=dev))
+        gumbel = torch.as_tensor(rng.gumbel(size=(256, 128)),
+                                 dtype=torch.float32, device=dev)
+        timed["fused_frame"] = lambda: solver_cuda.fused_frame_packed(
+            pts[0], inter, slots, gumbel, lms, scal[0], cfg, k_cap)
+
     gpu = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -85,7 +123,9 @@ def main() -> None:
         "match_nn": {"graph_ms": graph_ms(match, 100),
                      "call_ms": time_ms(match, 200)},
         "fused_solve": {"graph_ms": graph_ms(solve, 100),
-                        "call_ms": time_ms(solve, 200)}}), flush=True)
+                        "call_ms": time_ms(solve, 200)},
+        **{name: {"graph_ms": graph_ms(fn, 100), "call_ms": time_ms(fn, 200)}
+           for name, fn in timed.items()}}), flush=True)
 
 
 if __name__ == "__main__":

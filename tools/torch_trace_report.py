@@ -19,7 +19,10 @@ capture with tracing off and counts their nodes.
 Prints one JSON line: the card; the end-to-end metrics of an untraced
 window, or the benchmark's per-layer readings for the cell of a traced
 one; the port's trace of the window (each span's count and median host
-ms, the stamps' median device ms by program and step, the counters) and
+ms, the stamps' median device ms by program and step, the counters, the
+solves' routes `frame_solves.*` and `scan_pairs.*` among them, and the
+hand kernels' launches, kernel 2's as `fused_solve`, `fused_scan` and
+`fused_frame`) and
 of the set-up (captures' seconds, graph nodes); per captured form, its
 graphs' top-level, conditional and kernel nodes and the kernel nodes in
 the adaptive loops' conditional bodies, and per loop the bodies captured
